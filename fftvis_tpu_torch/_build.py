@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, at first use, and ``ctypes`` loads it (no PyTorch headers in the
-build, so it takes seconds, not minutes). The library lands in
+At first use, one ``nvcc`` per ``csrc/*.cu`` compiles the sources in
+parallel, a last ``nvcc`` links them into one shared library with a plain C
+interface, and ``ctypes`` loads it (no PyTorch headers in the build, so it
+takes seconds, not minutes). The library lands in
 ``build/kernels/<hash>/libfftvis_tpu_torch.so`` at the repository root,
 keyed by a hash of the sources and flags, so an edited source rebuilds.
 Nothing here runs at import time.
@@ -23,7 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libfftvis_tpu_torch.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _LIB = None
@@ -55,25 +56,41 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _check(procs) -> None:
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    # Compile to a temporary name and rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
+    # Build in a temporary directory and rename: a concurrent or
+    # interrupted build never leaves a half-written library under the
+    # final name.
+    tmp = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        nvcc = _nvcc()
+        objs = [tmp / f"{src.stem}.o" for src in sources()]
+        _check([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+                for src, obj in zip(sources(), objs)])
+        lib = tmp / LIB_NAME
+        _check([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)])])
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -96,6 +113,11 @@ def load_kernels():
         fn = getattr(lib, name)
         # G, iy, ix, vy, vx, out, C, nfy, nfx, m, w, stream
         fn.argtypes = [P] * 6 + [I] * 5 + [P]
+        fn.restype = I
+    for name in ("fftvis_beam_eval_f32", "fftvis_beam_eval_f64"):
+        fn = getattr(lib, name)
+        # data, y, x, out, npts, ny, nx, ch, order, wrap, stream
+        fn.argtypes = [P] * 4 + [I] * 6 + [P]
         fn.restype = I
     _LIB = lib
     return lib

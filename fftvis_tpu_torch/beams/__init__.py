@@ -1,15 +1,36 @@
-from .analytic import AiryBeam, AnalyticBeam, GaussianBeam, UniformBeam, beam_from_reference
+from .analytic import (
+    AiryBeam,
+    AnalyticBeam,
+    GaussianBeam,
+    ShortDipoleBeam,
+    UniformBeam,
+    beam_from_reference,
+)
+from .eval import beam_eval, beam_eval_plain
+from .gridded import GriddedBeam
 from .interface import BeamInterface, PowerBeam, PreparedBeam, prepare_beam, prepare_beam_unpolarized
+from .interp import map_coordinates_2d, spline_prefilter_2d
+from .io import read_beamfits
+from .synth import perturbed_variants, structured_dipole_beam
 
 __all__ = [
     "AiryBeam",
     "AnalyticBeam",
     "BeamInterface",
     "GaussianBeam",
+    "GriddedBeam",
     "PowerBeam",
     "PreparedBeam",
+    "ShortDipoleBeam",
     "UniformBeam",
+    "beam_eval",
+    "beam_eval_plain",
     "beam_from_reference",
+    "map_coordinates_2d",
+    "perturbed_variants",
     "prepare_beam",
     "prepare_beam_unpolarized",
+    "read_beamfits",
+    "spline_prefilter_2d",
+    "structured_dipole_beam",
 ]

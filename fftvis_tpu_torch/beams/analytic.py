@@ -1,7 +1,6 @@
 """Analytic primary beams, evaluated on tensors.
 
-The port of ``fftvis_tpu/beams/analytic.py`` for unpolarized use. Conventions
-follow pyuvdata:
+The port of ``fftvis_tpu/beams/analytic.py``. Conventions follow pyuvdata:
 
   - E-field beams have Naxes_vec = 2 and Nfeeds = 2; for these
     azimuthally-symmetric beams every (vec, feed) component is
@@ -12,8 +11,9 @@ follow pyuvdata:
   - AiryBeam(diameter): 2 J1(x)/x with x = pi * diameter * sin(za) * f / c.
 
 ``freq`` is a host float: frequency-dependent widths are computed in
-float64 on the host and the evaluation runs in the tensor's dtype.
-Polarized (Jones) evaluation is ROADMAP item 6.
+float64 on the host and the evaluation runs in the tensor's dtype. ``power``
+gives the (nsrc,) single-feed power, ``efield`` the (2 vec, 2 feed, nsrc)
+complex Jones response.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.utils import speed_of_light
+from .gridded import GriddedBeam
 
 
 def bessel_j1(x: torch.Tensor) -> torch.Tensor:
@@ -90,6 +91,12 @@ class AnalyticBeam:
         """Scalar E-field amplitude at zenith angle ``za``."""
         raise NotImplementedError
 
+    def efield(self, az, za, freq: float) -> torch.Tensor:
+        """Jones response, shape (2 vec, 2 feed, nsrc) complex."""
+        amp = torch.broadcast_to(self.amplitude(za, freq) / np.sqrt(2.0), az.shape)
+        amp = torch.broadcast_to(amp[None, None, :], (2, 2, amp.shape[0]))
+        return torch.complex(amp, torch.zeros_like(amp))
+
     def power(self, az, za, freq: float, feed: str = "x") -> torch.Tensor:
         """Power response for a single feed, shape (nsrc,) real."""
         del az, feed  # symmetric beams: feeds identical
@@ -152,6 +159,29 @@ class UniformBeam(AnalyticBeam):
         return torch.ones_like(za)
 
 
+class ShortDipoleBeam(AnalyticBeam):
+    """Crossed short (Hertzian) dipoles: a polarized analytic beam.
+
+    Feed x is an east-west dipole, feed y north-south; components follow the
+    (az, za) basis with the UVBeam azimuth convention (east = 0,
+    counterclockwise toward north).
+    """
+
+    def efield(self, az, za, freq):
+        caz, saz = torch.cos(az), torch.sin(az)
+        cza = torch.cos(za)
+        # rows: vec (az, za); cols: feed (x, y)
+        row_az = torch.stack([-saz, caz], dim=0)  # (2 feed, n)
+        row_za = torch.stack([cza * caz, cza * saz], dim=0)
+        e = torch.stack([row_az, row_za], dim=0)  # (2, 2, n)
+        return torch.complex(e, torch.zeros_like(e))
+
+    def power(self, az, za, freq, feed: str = "x"):
+        e = self.efield(az, za, freq)
+        fi = {"x": 0, "y": 1}[feed]
+        return torch.sum(torch.abs(e[:, fi, :]) ** 2, dim=0)
+
+
 _BY_NAME = {
     "GaussianBeam": lambda b: GaussianBeam(
         diameter=b.diameter, sigma=b.sigma, spectral_index=b.spectral_index,
@@ -159,20 +189,22 @@ _BY_NAME = {
     ),
     "AiryBeam": lambda b: AiryBeam(diameter=b.diameter),
     "UniformBeam": lambda b: UniformBeam(),
+    "ShortDipoleBeam": lambda b: ShortDipoleBeam(),
 }
 
 
-def beam_from_reference(beam) -> AnalyticBeam:
-    """The port's counterpart of a ``fftvis_tpu`` analytic beam.
+def beam_from_reference(beam):
+    """The port's counterpart of a ``fftvis_tpu`` analytic or gridded beam.
 
     Maps by class name and parameters (reads attributes only; never imports
-    the JAX package). Beams the slice does not carry -- tabulated beams and
-    the polarized-only dipole -- raise ``NotImplementedError``.
+    the JAX package). A tabulated ``GriddedBeam`` maps onto the port's
+    :class:`~fftvis_tpu_torch.beams.gridded.GriddedBeam` with the same
+    arrays; any other class raises ``TypeError``.
     """
+    if type(beam).__name__ == "GriddedBeam":
+        return GriddedBeam(beam.data_array, beam.axis1_array, beam.axis2_array,
+                           beam.freq_array, beam.beam_type, feeds=beam.feeds)
     make = _BY_NAME.get(type(beam).__name__)
     if make is None:
-        raise NotImplementedError(
-            f"{type(beam).__name__} has no port yet: tabulated and polarized "
-            "beams are ROADMAP item 6"
-        )
+        raise TypeError(f"{type(beam).__name__} is not an analytic beam of the port")
     return make(beam)

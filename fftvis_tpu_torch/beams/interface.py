@@ -1,40 +1,60 @@
-"""Beam interface layer for the port's slice: analytic, unpolarized beams.
+"""Beam interface layer: wrapping, unpolarized preparation, prepared beams.
 
-The port of the part of ``fftvis_tpu/beams/interface.py`` the slice runs:
-``BeamInterface`` wraps a beam, ``PowerBeam`` / ``prepare_beam_unpolarized``
-turn it into a single-feed power beam (matvis's prepare_beam_unpolarized),
-and :func:`prepare_beam` compiles it into a :class:`PreparedBeam` whose
-``evaluate`` runs on tensors inside the engine's loop. Tabulated (UVBeam-like)
-beams and polarized evaluation raise ``NotImplementedError``: ROADMAP item 6.
+The port of ``fftvis_tpu/beams/interface.py``: ``BeamInterface`` wraps an
+analytic beam, a :class:`~fftvis_tpu_torch.beams.gridded.GriddedBeam` or a
+(duck-typed) UVBeam; ``PowerBeam`` / ``prepare_beam_unpolarized`` turn it
+into a single-feed power beam (matvis's prepare_beam_unpolarized); and
+:func:`prepare_beam` compiles it into a :class:`PreparedBeam` whose
+``evaluate`` runs on tensors inside the engine's loop.
+
+A tabulated beam is prepared once on the host -- frequency interpolation,
+the za-domain check, complex -> stacked (re, im), the cubic-spline
+prefilter in float64, the channels-last relayout (nfreq, ny, nx, chflat) --
+and its table is taken into the compute dtype and onto the device once.
+Each evaluation then interpolates it with
+:func:`~fftvis_tpu_torch.beams.eval.beam_eval` (the CUDA kernel on the
+card). The JAX package's prepared-beam content cache, batched stacks of
+same-grid beams and the ``FFTVIS_BEAM_UPSAMPLE`` resampling are later
+ROADMAP items.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+
+import numpy as np
+import torch
+
 from .analytic import AnalyticBeam
+from .eval import beam_eval
+from .gridded import GriddedBeam
+from .interp import spline_prefilter_2d
 
+logger = logging.getLogger(__name__)
 
-def _not_ported(beam) -> NotImplementedError:
-    return NotImplementedError(
-        f"beam type {type(beam).__name__} is not ported yet: tabulated and "
-        "polarized beams are ROADMAP item 6"
-    )
+_FEED_INDEX = {"x": 0, "y": 1}
+TWO_PI = 2.0 * np.pi
 
 
 class BeamInterface:
-    """Thin wrapper over an analytic beam or a power beam."""
+    """Thin wrapper unifying analytic beams, gridded beams, and (duck-typed)
+    pyuvdata UVBeam objects."""
 
     def __init__(self, beam, beam_type: str | None = None):
         if isinstance(beam, BeamInterface):
             self.beam = beam.beam
-        elif isinstance(beam, (AnalyticBeam, PowerBeam)):
+        elif isinstance(beam, (AnalyticBeam, GriddedBeam, PowerBeam)):
             self.beam = beam
+        elif hasattr(beam, "data_array") and hasattr(beam, "axis1_array"):
+            self.beam = GriddedBeam.from_uvbeam(beam)
         else:
-            raise _not_ported(beam)
+            raise TypeError(f"Unsupported beam object: {type(beam)}")
         self.beam_type = beam_type or getattr(self.beam, "beam_type", "efield")
 
 
 class PowerBeam:
-    """A single-feed power beam derived from an analytic beam (matvis's
+    """A single-feed power beam derived from any beam (matvis's
     prepare_beam_unpolarized equivalent)."""
 
     beam_type = "power"
@@ -46,17 +66,17 @@ class PowerBeam:
             # Already a power beam of one feed: keep its selection.
             use_feed = base.use_feed
             base = base.base
-        if not isinstance(base, AnalyticBeam):
-            raise _not_ported(base)
         self.use_feed = use_feed
-        self.base = base
+        self.base = base.as_power_beam() if isinstance(base, GriddedBeam) else base
 
     def power(self, az, za, freq: float):
+        if isinstance(self.base, GriddedBeam):
+            raise RuntimeError("Gridded power beams evaluate via prepare_beam().")
         return self.base.power(az, za, freq, feed=self.use_feed)
 
 
 def prepare_beam_unpolarized(beam, use_feed: str = "x") -> BeamInterface:
-    """Convert a beam to an unpolarized power beam wrapped in an interface."""
+    """Convert any beam to an unpolarized power beam wrapped in an interface."""
     bi = beam if isinstance(beam, BeamInterface) else BeamInterface(beam)
     return BeamInterface(PowerBeam(bi.beam, use_feed=use_feed), beam_type="power")
 
@@ -64,27 +84,170 @@ def prepare_beam_unpolarized(beam, use_feed: str = "x") -> BeamInterface:
 class PreparedBeam:
     """A beam ready for the engine's loop.
 
-    ``evaluate(az, za, freq_value, freq_index)`` returns the (nsrc,) real
-    power response in the dtype of ``za``. ``freq_value`` is a host float;
-    ``freq_index`` indexes the simulation frequencies (tabulated beams will
-    need it; analytic beams do not).
+    ``evaluate(az, za, freq_value, freq_index)`` returns
+      - polarized: (2 vec, 2 feed, nsrc) complex Jones response;
+      - unpolarized: (nsrc,) real power response,
+    in the dtype of ``za``. ``freq_value`` is a host float (analytic beams);
+    ``freq_index`` indexes the simulation frequencies (gridded tables are
+    interpolated onto them at prepare time).
     """
 
-    polarized = False
-
-    def __init__(self, power_beam: PowerBeam):
-        self._beam = power_beam
+    def __init__(self, evaluate_fn, polarized: bool):
+        self._fn = evaluate_fn
+        self.polarized = polarized
 
     def evaluate(self, az, za, freq_value: float, freq_index: int):
-        del freq_index
-        return self._beam.power(az, za, freq_value)
+        return self._fn(az, za, freq_value, freq_index)
 
 
-def prepare_beam(beam, polarized: bool = False, use_feed: str = "x") -> PreparedBeam:
-    """Compile one analytic beam into a :class:`PreparedBeam`."""
-    if polarized:
-        raise NotImplementedError("polarized beams are ROADMAP item 6")
-    inner = (beam if isinstance(beam, BeamInterface) else BeamInterface(beam)).beam
-    if not isinstance(inner, PowerBeam):
-        inner = PowerBeam(inner, use_feed=use_feed)
-    return PreparedBeam(inner)
+def _spline_order(spline_opts: dict | None, interpolation_function: str) -> int:
+    """The interpolation order from ``beam_spline_opts`` and the
+    ``interpolation_function`` name, by the JAX package's rules."""
+    spline_opts = dict(spline_opts or {})
+    # pyuvdata spells the order 'order' for az_za_map_coordinates and
+    # 'kx'/'ky' for az_za_simple; honor both.
+    if "kx" in spline_opts or "ky" in spline_opts:
+        kx = int(spline_opts.get("kx", spline_opts.get("ky", 3)))
+        ky = int(spline_opts.get("ky", kx))
+        if kx != ky:
+            raise ValueError(
+                f"anisotropic spline orders are not supported (kx={kx}, ky={ky})"
+            )
+        spline_opts.setdefault("order", kx)
+    unknown = set(spline_opts) - {"order", "kx", "ky"}
+    if unknown:
+        logger.info("ignoring unsupported beam_spline_opts keys: %s", sorted(unknown))
+    order = int(spline_opts.get("order", 1))
+    if interpolation_function == "az_za_simple":
+        # Both names map onto the same evaluator; 'simple' is the cubic.
+        order = int(spline_opts.get("order", 3))
+    elif interpolation_function != "az_za_map_coordinates":
+        raise ValueError(
+            "interpolation_function must be 'az_za_simple' or 'az_za_map_coordinates'"
+        )
+    if order not in (1, 3):
+        raise ValueError(f"spline order must be 1 or 3, got {order}")
+    return order
+
+
+def prepare_beam(
+    beam,
+    freqs: np.ndarray,
+    polarized: bool,
+    spline_opts: dict | None = None,
+    interpolation_function: str = "az_za_map_coordinates",
+    use_feed: str = "x",
+    dtype: torch.dtype = torch.float64,
+    device="cpu",
+) -> PreparedBeam:
+    """Compile one beam into a :class:`PreparedBeam` for the simulation
+    frequencies ``freqs``; a tabulated beam's table goes to ``device`` in
+    ``dtype`` once, here."""
+    bi = beam if isinstance(beam, BeamInterface) else BeamInterface(beam)
+    inner = bi.beam
+    order = _spline_order(spline_opts, interpolation_function)
+
+    if isinstance(inner, PowerBeam) and not isinstance(inner.base, GriddedBeam):
+        if polarized:
+            raise ValueError("Power beams cannot be evaluated polarized.")
+        return PreparedBeam(lambda az, za, fv, fi: inner.power(az, za, fv),
+                            polarized=False)
+
+    if isinstance(inner, AnalyticBeam):
+        if polarized:
+            return PreparedBeam(lambda az, za, fv, fi: inner.efield(az, za, fv),
+                                polarized=True)
+        return PreparedBeam(
+            lambda az, za, fv, fi: inner.power(az, za, fv, feed=use_feed),
+            polarized=False,
+        )
+
+    # Gridded beams (including a PowerBeam over a gridded base).
+    gb = inner.base if isinstance(inner, PowerBeam) else inner
+    if not isinstance(gb, GriddedBeam):
+        raise TypeError(f"Cannot prepare beam of type {type(inner)}")
+    if polarized and gb.beam_type != "efield":
+        raise ValueError("polarized=True requires an efield beam")
+    if not polarized and gb.beam_type == "efield":
+        gb = gb.as_power_beam()
+
+    gb = gb.interp_freq(np.asarray(freqs, dtype=float))
+    # pyuvdata's check_azza_domain, decided once: any above-horizon source
+    # can reach za = pi/2, so a grid ending short of it would be evaluated
+    # out of its domain. Refuse unless clamping to the edge row is asked
+    # for (FFTVIS_ALLOW_BEAM_CLAMP=1).
+    za_end = float(gb.axis2_array[-1])
+    if za_end < np.pi / 2 - 1e-9:
+        if os.environ.get("FFTVIS_ALLOW_BEAM_CLAMP") == "1":
+            logger.warning(
+                "beam za grid ends at %.4f rad < pi/2: above-horizon "
+                "sources beyond it clamp to the edge row "
+                "(FFTVIS_ALLOW_BEAM_CLAMP=1)", za_end,
+            )
+        else:
+            raise ValueError(
+                f"beam za grid ends at {za_end:.4f} rad < pi/2: "
+                "above-horizon sources can fall outside the beam domain "
+                "(check_azza_domain). Extend the beam grid to the horizon, "
+                "or set FFTVIS_ALLOW_BEAM_CLAMP=1 to clamp to the edge row."
+            )
+    host = gb.data_array
+    is_complex = np.iscomplexobj(host)
+    wrap = gb.az_wraps
+    if is_complex:
+        # Interpolation distributes over re/im: one real table of both.
+        host = np.stack([host.real, host.imag])
+    ups = int(os.environ.get("FFTVIS_BEAM_UPSAMPLE", "0") or "0")
+    if order == 3 and ups >= 2 and host.shape[-1] > 1 and host.shape[-2] > 1:
+        raise NotImplementedError(
+            "FFTVIS_BEAM_UPSAMPLE (upsample_prefiltered_2d) is not ported "
+            "yet: ROADMAP item 6"
+        )
+    if order == 3:
+        host = spline_prefilter_2d(host, periodic_x=wrap)
+    az0 = float(gb.axis1_array[0])
+    daz = float(gb.axis1_array[1] - gb.axis1_array[0]) if gb.axis1_array.size > 1 else 1.0
+    za0 = float(gb.axis2_array[0])
+    dza = float(gb.axis2_array[1] - gb.axis2_array[0]) if gb.axis2_array.size > 1 else 1.0
+    # Channels-last (nfreq, ny, nx, chflat), chflat = the flattened
+    # ([2 reim,] nvec, nfeed) axes: every tap reads one contiguous
+    # ch-vector.
+    freq_axis = 3 if is_complex else 2
+    ch_shape = host.shape[:freq_axis]
+    host = np.moveaxis(host, freq_axis, 0)  # (nfreq, *ch_shape, ny, nx)
+    nfreq_t, ny_t, nx_t = host.shape[0], host.shape[-2], host.shape[-1]
+    host = np.moveaxis(host.reshape(nfreq_t, -1, ny_t, nx_t), 1, -1)
+    table = torch.tensor(np.ascontiguousarray(host), dtype=dtype, device=device)
+    is_power = gb.beam_type == "power"
+    # A PowerBeam carries its own feed selection (the engine prepares
+    # without use_feed).
+    want_feed = inner.use_feed if isinstance(inner, PowerBeam) else use_feed
+    labels = gb.feeds
+    if labels and want_feed in labels:
+        feed_idx = labels.index(want_feed)
+    elif labels and is_power:
+        raise ValueError(
+            f"requested feed {want_feed!r} is not present in this beam "
+            f"(feeds: {labels})"
+        )
+    else:
+        feed_idx = _FEED_INDEX[want_feed]
+
+    def eval_grid(az, za, fv, fi):
+        yy = (za - za0) / dza
+        if wrap:
+            # mod 2pi with the float semantics of jnp.mod; the result may
+            # round to exactly 2pi, which the evaluator folds to column 0.
+            r = torch.fmod(az - az0, TWO_PI)
+            xx = torch.where(r < 0, r + TWO_PI, r) / daz
+        else:
+            xx = (az - az0) / daz
+        vals = beam_eval(table[fi], yy, xx, order=order, wrap_x=wrap)  # (nsrc, ch)
+        vals = vals.T.reshape(ch_shape + (vals.shape[0],))
+        if is_complex:
+            vals = torch.complex(vals[0], vals[1])
+        if is_power:
+            return vals[0, min(feed_idx, vals.shape[1] - 1)]
+        return vals
+
+    return PreparedBeam(eval_grid, polarized=not is_power)

@@ -1,9 +1,9 @@
 """Sky coherency formation.
 
-The port of ``fftvis_tpu/core/coherency.py`` for the slice: the host
-Stokes -> coherency conversion (NumPy, unpolarized and IQUV), and the
-unpolarized apparent-coherency rows on tensors. Polarized rows are ROADMAP
-item 6.
+The port of ``fftvis_tpu/core/coherency.py``: the host Stokes -> coherency
+conversion (NumPy, unpolarized and IQUV), and the apparent-coherency rows
+of one beam pair on tensors -- power beams, Jones beams with a Stokes-I
+sky, and Jones beams with an IQUV sky.
 """
 
 from __future__ import annotations
@@ -52,11 +52,31 @@ def apparent_coherency_rows(e_i, e_j, flux, polarized: bool = False,
                             polarized_sky: bool = False) -> torch.Tensor:
     """Beam-weighted source coherency for one beam pair, as NUFFT rows.
 
-    ``e_i``, ``e_j``: (nsrc,) real power responses; ``flux``: (nsrc,) real.
-    Returns (1, nsrc) complex rows, the layout the reference feeds its NUFFT.
+    ``e_i``, ``e_j``: (2 vec, 2 feed, nsrc) complex Jones responses when
+    ``polarized``, else (nsrc,) real power responses. ``flux``: (nsrc,) real
+    for a Stokes-I sky, or (nsrc, 2, 2) complex coherency for an IQUV sky
+    (one frequency). Returns (nfeeds**2, nsrc) complex rows ordered
+    (f1, f2) = (00, 01, 10, 11), the layout the reference feeds its NUFFT.
     """
-    if polarized or polarized_sky:
-        raise NotImplementedError("polarized coherency rows are ROADMAP item 6")
+    if polarized and polarized_sky:
+        # The reference flips the vector-component axis of both Jones
+        # matrices before A_i^H C A_j.
+        ai = torch.conj(torch.flip(e_i, dims=(0,)))
+        aj = torch.flip(e_j, dims=(0,))
+        coh = torch.movedim(flux, 0, -1)  # (2, 2, nsrc)
+        out = sum(
+            ai[a, :, None, :] * coh[a, b][None, None, :] * aj[b, None, :, :]
+            for a in range(2)
+            for b in range(2)
+        )  # (f, g, nsrc)
+        return out.reshape(4, -1)
+    if polarized:
+        eic = torch.conj(e_i)
+        out = (
+            eic[0, :, None, :] * e_j[0, None, :, :]
+            + eic[1, :, None, :] * e_j[1, None, :, :]
+        ) * flux.to(e_i.dtype)[None, None, :]
+        return out.reshape(4, -1)
     # Cubic interpolation of a tabulated power beam can overshoot to small
     # negatives near nulls; clamp at zero (the physical floor).
     amp = torch.sqrt(torch.clamp(e_i * e_j, min=0.0)) * flux

@@ -3,9 +3,11 @@
 The port of the host half of ``TPUSimulationEngine._simulate_impl``
 (``fftvis_tpu/tpu/engine.py``) for the slice: eps floor, baselines, horizon
 cull, transform planning, source blocks, device inputs, and
-``_assemble_output``'s (nfreq, ntimes, nbl) layout. The JAX engine's
-program/plan/input caches, banding, pair routing, eigenbeams, meshes and
-async fetch are later ROADMAP items; whatever the slice leaves out raises
+``_assemble_output``'s layout: (nfreq, ntimes, nbl), or (nfreq, ntimes,
+nfeeds, nfeeds, nbl) when polarized. One beam (analytic or tabulated) is
+shared by all antennas. The JAX engine's program/plan/input caches,
+banding, per-antenna pair routing, eigenbeams, meshes and async fetch are
+later ROADMAP items; whatever the port leaves out raises
 ``NotImplementedError`` instead of running another path.
 """
 
@@ -79,14 +81,14 @@ class CUDASimulationEngine(SimulationEngine):
         polarized: bool = False,
         eps: float | None = None,
         upsample_factor=None,
+        beam_spline_opts: dict | None = None,
         flat_array_tol: float = 1e-6,
+        interpolation_function: str = "az_za_map_coordinates",
         coord_method: str = "CoordinateRotationERFA",
         coord_method_params: dict | None = None,
         force_use_type3: bool = False,
         beam_coefs: np.ndarray | None = None,
     ) -> np.ndarray:
-        if polarized:
-            raise NotImplementedError("polarized simulation is ROADMAP item 6")
         if beam_coefs is not None:
             raise NotImplementedError("eigenbeam beam_coefs are ROADMAP item 7")
         if len(beam_list) != 1 or beam_idx is not None:
@@ -128,7 +130,8 @@ class CUDASimulationEngine(SimulationEngine):
             flipped_global[sel] = fl
 
         fluxes_arr = np.asarray(fluxes)
-        polarized_sky = coh_mod.classify_sky(fluxes_arr, polarized_beam=False)
+        polarized_sky = coh_mod.classify_sky(fluxes_arr, polarized_beam=polarized)
+        nfeeds = 2 if polarized else 1
 
         rot = SourceRotation(
             ra, dec, times, telescope_loc, coord_method=coord_method,
@@ -147,7 +150,7 @@ class CUDASimulationEngine(SimulationEngine):
         plan = plan_transform(
             self.nufft_mode, ants, baselines, freqs, eps, upsample_factor,
             flat_array_tol, force_use_type3, flipped_global, nbl, nsrc,
-            nfeeds=1, npairs=pair_plan.npairs, device=self.device,
+            nfeeds=nfeeds, npairs=pair_plan.npairs, device=self.device,
         )
         if plan.mode == "direct":
             block = max(1, min(SOURCE_BLOCK, DIRECT_BLOCK_BYTES // (16 * nbl)))
@@ -157,28 +160,37 @@ class CUDASimulationEngine(SimulationEngine):
         dev = self.device
         fl = fluxes_arr if src_keep is None else fluxes_arr[src_keep]
         coherency = coh_mod.build_coherency(fl, polarized_sky)
+        coh_dtype = complex_dtype if polarized_sky else real_dtype
         abvel = rot.aberration if rot.aberration is not None else np.zeros((rot.ntimes, 3))
         cfg = ProgramConfig(
             plan=plan,
-            beam=prepare_beam(beam_list[0]),
+            beam=prepare_beam(
+                beam_list[0], freqs, polarized, spline_opts=beam_spline_opts,
+                interpolation_function=interpolation_function,
+                dtype=real_dtype, device=dev,
+            ),
             freqs=freqs,
             nbl=nbl,
             block=block,
             real_dtype=real_dtype,
             complex_dtype=complex_dtype,
             flipped=torch.as_tensor(flipped_global, device=dev),
+            polarized=polarized,
+            polarized_sky=polarized_sky,
         )
         vis = run_program(
             cfg,
             torch.as_tensor(rot.matrices, dtype=real_dtype, device=dev),
             torch.as_tensor(abvel, dtype=real_dtype, device=dev),
             torch.as_tensor(rot.eq_vectors, dtype=real_dtype, device=dev),
-            torch.as_tensor(coherency, dtype=real_dtype, device=dev),
+            torch.as_tensor(coherency, dtype=coh_dtype, device=dev),
         )
-        return assemble_output(vis.cpu().numpy())
+        return assemble_output(vis.cpu().numpy(), polarized)
 
 
-def assemble_output(vis: np.ndarray) -> np.ndarray:
-    """(nt, nfreq, nbl) device output -> the reference layout
-    (nfreq, nt, nbl), C-contiguous (ref cpu_simulate.py:849-854)."""
-    return np.ascontiguousarray(np.transpose(vis, (1, 0, 2)))
+def assemble_output(vis: np.ndarray, polarized: bool) -> np.ndarray:
+    """(nt, nfreq, nfeeds, nfeeds, nbl) device output -> the reference
+    layout, C-contiguous (ref cpu_simulate.py:849-854): polarized
+    (nfreq, nt, nfeeds, nfeeds, nbl), else (nfreq, nt, nbl)."""
+    vis = np.transpose(vis, (1, 0, 2, 3, 4))
+    return np.ascontiguousarray(vis if polarized else vis[:, :, 0, 0, :])

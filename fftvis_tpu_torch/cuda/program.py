@@ -1,7 +1,8 @@
 """The simulation loop nest on the device.
 
 The port of the single-beam-pair path of ``build_program``
-(``fftvis_tpu/tpu/program.py``). PyTorch runs eagerly, so the JAX
+(``fftvis_tpu/tpu/program.py``), unpolarized (one feed, C = 1 channel) and
+polarized (two feeds, C = 4 channels). PyTorch runs eagerly, so the JAX
 package's ``lax.scan`` nest over (times, freqs, source blocks) becomes
 Python loops over tensors:
 
@@ -9,10 +10,11 @@ Python loops over tensors:
                 horizon mask, (az, za)
       per freq:
         per source block of ``block``:
-                beam power -> coherency rows x mask -> transform coords ->
-                spread into the fine grid (type-3) or direct sum
+                beam response -> coherency rows x mask -> transform
+                coords -> spread into the fine grid (type-3) or direct sum
         after the blocks: FFT + deconvolution + interpolation (type-3),
-                flip conjugation
+                flip conjugation without a feed swap, the reference's
+                feed transpose
 
 Ragged last blocks are simply shorter: eager tensors need no padding.
 """
@@ -46,24 +48,35 @@ class ProgramConfig:
     real_dtype: torch.dtype
     complex_dtype: torch.dtype
     flipped: torch.Tensor  # (nbl,) bool on the device
+    polarized: bool = False
+    polarized_sky: bool = False
+
+    @property
+    def nfeeds(self) -> int:
+        return 2 if self.polarized else 1
 
 
 def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
     """Run the simulation on the device.
 
     mats (nt, 3, 3) ICRS->ENU rotations, abvel (nt, 3) aberration
-    velocities, eq (3, nsrc) ICRS unit vectors, coh (nsrc, nfreq) real
-    coherency -- all in ``cfg.real_dtype`` on one device. Returns
-    (nt, nfreq, nbl) complex visibilities on that device.
+    velocities, eq (3, nsrc) ICRS unit vectors, all in ``cfg.real_dtype``;
+    coh the source coherency, (nsrc, nfreq) real for a Stokes-I sky or
+    (nsrc, nfreq, 2, 2) complex for an IQUV sky; all on one device.
+    Returns (nt, nfreq, nfeeds, nfeeds, nbl) complex visibilities on that
+    device, feed axes already in the reference's transposed order.
     """
     plan = cfg.plan
     dev = eq.device
     nt, nfreq, nsrc = mats.shape[0], cfg.freqs.size, eq.shape[1]
+    nfeeds = cfg.nfeeds
+    C = nfeeds**2
     rotation = torch.as_tensor(plan.rotation_matrix[:2], dtype=cfg.real_dtype,
                                device=dev)
     if plan.mode == "direct":
         targets = torch.as_tensor(plan.targets, dtype=cfg.real_dtype, device=dev)
-    vis = torch.empty((nt, nfreq, cfg.nbl), dtype=cfg.complex_dtype, device=dev)
+    vis = torch.empty((nt, nfreq, nfeeds, nfeeds, cfg.nbl), dtype=cfg.complex_dtype,
+                      device=dev)
 
     for t in range(nt):
         eqa = eq + abvel[t][:, None]
@@ -78,15 +91,16 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
             scale = TWO_PI * fv / speed_of_light
             flux_f = coh[:, fi]
             if plan.mode == "direct":
-                acc = torch.zeros((1, cfg.nbl), dtype=cfg.complex_dtype, device=dev)
+                acc = torch.zeros((C, cfg.nbl), dtype=cfg.complex_dtype, device=dev)
             else:
-                acc = torch.zeros((1,) + tuple(plan.executor.plan.nf),
+                acc = torch.zeros((C,) + tuple(plan.executor.plan.nf),
                                   dtype=cfg.complex_dtype, device=dev)
             for b0 in range(0, nsrc, cfg.block):
                 sl = slice(b0, b0 + cfg.block)
-                power = cfg.beam.evaluate(az[sl], za[sl], fv, fi)
-                rows = apparent_coherency_rows(power, power, flux_f[sl])
-                rows = rows * mask[sl][None, :]
+                resp = cfg.beam.evaluate(az[sl], za[sl], fv, fi)
+                rows = apparent_coherency_rows(resp, resp, flux_f[sl], cfg.polarized,
+                                               cfg.polarized_sky)
+                rows = rows.to(cfg.complex_dtype) * mask[sl][None, :]
                 x = xr[:, sl] * scale
                 if plan.mode == "direct":
                     acc += direct_type3(x, rows, targets, source_block=cfg.block)
@@ -94,6 +108,9 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
                     plan.executor.spread(x, rows, grid=acc)
             if plan.mode == "type3":
                 acc = plan.executor.interpolate(plan.executor.transform(acc))
+            # Flipped baselines take the conjugate without a feed swap;
+            # then the reference's feed transpose (f, g, nbl) -> (nbl, g, f),
+            # kept here as (g, f, nbl) for the baseline-last output layout.
             out = torch.where(cfg.flipped[None, :], torch.conj(acc), acc)
-            vis[t, fi] = out[0]
+            vis[t, fi] = out.reshape(nfeeds, nfeeds, cfg.nbl).transpose(0, 1)
     return vis

@@ -2,9 +2,10 @@
 
 The signature is that of ``fftvis_tpu.simulate_vis`` (itself the reference
 fftvis/matvis wrapper's) plus ``device``, the torch device the simulation
-runs on. The slice simulates unpolarized visibilities of a coplanar array
-with one analytic beam; what it leaves out raises ``NotImplementedError``
-naming its ROADMAP item, and nothing falls back to another path.
+runs on. The port simulates unpolarized and polarized visibilities of a
+coplanar array with one beam shared by all antennas, analytic or
+tabulated; what it leaves out raises ``NotImplementedError`` naming its
+ROADMAP item, and nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Literal
 
 import numpy as np
 
+from .beams.gridded import GriddedBeam
 from .beams.interface import BeamInterface, prepare_beam_unpolarized
 from .core.simulate import default_accuracy_dict
 from .cuda.engine import CUDASimulationEngine
@@ -56,26 +58,31 @@ def simulate_vis(
     """Simulate interferometric visibilities on a torch device.
 
     Parameters mirror ``fftvis_tpu.simulate_vis``: ``ants`` {antenna: ENU
-    position in m}, ``fluxes`` (nsrc, nfreq) Stokes I, ``ra``/``dec`` in
-    radians, ``freqs`` in Hz, ``times`` as Julian dates, one analytic
-    ``beam``. ``precision`` 1 runs float32/complex64, 2 float64/complex128
+    position in m}, ``fluxes`` (nsrc, nfreq) Stokes I or (nsrc, nfreq, 4)
+    IQUV (``polarized=True`` only), ``ra``/``dec`` in radians, ``freqs`` in
+    Hz, ``times`` as Julian dates, one ``beam``: analytic, a
+    :class:`~fftvis_tpu_torch.beams.GriddedBeam` (e.g. from
+    ``read_beamfits``) or a UVBeam-like object. ``polarized`` adds the 2x2
+    feed matrix. ``beam_spline_opts`` (``{"order": 1 or 3}``, or
+    ``kx``/``ky``), ``interpolation_function`` and ``use_feed`` select how
+    a tabulated beam is interpolated and which feed an unpolarized run
+    uses. ``precision`` 1 runs float32/complex64, 2 float64/complex128
     (default eps 6e-8 / 1e-13, floored at 5e-7 in float32). ``device``
     names the torch device (default ``"cuda"``).
 
     Accepted for signature parity and without effect on this path:
-    ``beam_spline_opts``, ``interpolation_function``, ``nprocesses``,
-    ``nthreads``, ``force_use_ray``, ``trace_mem``, ``backend``,
-    ``max_memory``, ``min_chunks``, ``source_buffer``.
+    ``nprocesses``, ``nthreads``, ``force_use_ray``, ``trace_mem``,
+    ``backend``, ``max_memory``, ``min_chunks``, ``source_buffer``.
 
-    Raises ``NotImplementedError`` for ``polarized=True``, several beams or
-    a ``beam_idx``, ``beam_coefs``, tabulated beams, ``mesh``,
-    ``async_fetch``, non-coplanar arrays, and gridded arrays unless type-3
-    is forced.
+    Raises ``NotImplementedError`` for several beams or a ``beam_idx``,
+    ``beam_coefs``, ``mesh``, ``async_fetch``, non-coplanar arrays, and
+    gridded arrays unless type-3 is forced.
 
     Returns
     -------
     np.ndarray
-        (nfreqs, ntimes, nbls) complex.
+        (nfreqs, ntimes, nbls) complex, or (nfreqs, ntimes, 2, 2, nbls)
+        when polarized.
     """
     if mesh is not None or async_fetch:
         raise NotImplementedError(
@@ -83,15 +90,21 @@ def simulate_vis(
         )
     if eps is None:
         eps = default_accuracy_dict[precision]
-    beam_list = [
-        prepare_beam_unpolarized(BeamInterface(b), use_feed=use_feed)
-        for b in (beam if isinstance(beam, list) else [beam])
-    ]
+    freqs = np.atleast_1d(np.asarray(freqs, dtype=float))
+    beam_list = []
+    for b in beam if isinstance(beam, list) else [beam]:
+        bi = BeamInterface(b)
+        # Tabulated beams go onto the simulation frequencies first, so an
+        # unpolarized run takes the power of the interpolated E-field, as
+        # the JAX wrapper does.
+        if isinstance(bi.beam, GriddedBeam) and bi.beam.Nfreqs > 1:
+            bi = BeamInterface(bi.beam.interp_freq(freqs), beam_type=bi.beam_type)
+        beam_list.append(bi if polarized else prepare_beam_unpolarized(bi, use_feed=use_feed))
 
     engine = CUDASimulationEngine(device=device)
     return engine.simulate(
         ants={k: np.asarray(v) for k, v in ants.items()},
-        freqs=np.atleast_1d(np.asarray(freqs, dtype=float)),
+        freqs=freqs,
         fluxes=np.asarray(fluxes),
         beam_list=beam_list,
         ra=np.asarray(ra, dtype=float),
@@ -104,7 +117,9 @@ def simulate_vis(
         polarized=polarized,
         eps=eps,
         upsample_factor=upsample_factor,
+        beam_spline_opts=beam_spline_opts,
         flat_array_tol=flat_array_tol,
+        interpolation_function=interpolation_function,
         coord_method=coord_method,
         coord_method_params=coord_method_params,
         force_use_type3=force_use_type3,

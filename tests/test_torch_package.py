@@ -33,7 +33,14 @@ from fftvis_tpu.core import utils as jax_utils
 from fftvis_tpu.geometry import hex_array as jax_hex_array
 from fftvis_tpu.utils import healpix as jax_healpix
 from fftvis_tpu_torch import TelescopeLocation, simulate_vis
-from fftvis_tpu_torch.beams import AiryBeam, GaussianBeam, UniformBeam, beam_from_reference
+from fftvis_tpu_torch.beams import (
+    AiryBeam,
+    GaussianBeam,
+    ShortDipoleBeam,
+    UniformBeam,
+    beam_from_reference,
+    structured_dipole_beam,
+)
 from fftvis_tpu_torch.beams.analytic import bessel_j1
 from fftvis_tpu_torch.coords import erfa_lite
 from fftvis_tpu_torch.coords.rotation import SourceRotation, enu_to_az_za
@@ -193,7 +200,7 @@ def test_interp_wrapper_refuses(case):
 
 @pytest.mark.parametrize("case", ["polarized", "beam_idx", "beams", "beam_coefs",
                                   "tabulated", "mesh", "async_fetch", "3d"])
-def test_slice_refuses_what_it_leaves_out(case):
+def test_slice_refuses_what_it_leaves_out(case, monkeypatch):
     rng = np.random.default_rng(0)
     ants = {i: np.array([*rng.uniform(-50, 50, 2), 0.0]) for i in range(4)}
     kw = dict(ants=ants, fluxes=rng.uniform(0.1, 1, (6, 1)),
@@ -205,12 +212,19 @@ def test_slice_refuses_what_it_leaves_out(case):
         kw["ants"] = {i: np.array([*rng.uniform(-50, 50, 2), rng.uniform(-5, 5)])
                       for i in range(5)}
         kw["force_use_type3"] = True
+    elif case == "polarized":
+        # Per-antenna polarized beams: the next slice.
+        kw.update(polarized=True, beam=[ShortDipoleBeam(), GaussianBeam(diameter=14.0)],
+                  beam_idx=np.array([0, 1, 0, 1]))
     elif case == "tabulated":
-        kw["beam"] = object()
+        # The opt-in table upsampling of a cubic tabulated beam.
+        monkeypatch.setenv("FFTVIS_BEAM_UPSAMPLE", "2")
+        kw.update(beam=structured_dipole_beam(n_az=24, n_za=10),
+                  beam_spline_opts={"order": 3})
     elif case == "beams":
         kw["beam"] = [GaussianBeam(diameter=14.0)] * 2
     else:
-        kw[case] = {"polarized": True, "beam_idx": np.zeros(4, int),
+        kw[case] = {"beam_idx": np.zeros(4, int),
                     "beam_coefs": np.ones((4, 1, 1)), "mesh": object(),
                     "async_fetch": True}[case]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
