@@ -105,14 +105,14 @@ def load_kernels():
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("fftvis_spread_f32", "fftvis_spread_f64"):
         fn = getattr(lib, name)
-        # uy, ux, wts, order, starts, grid, n, C, nfy, nfx, tile, nty, ntx,
-        # w, beta, group, stream
-        fn.argtypes = [P] * 6 + [I] * 8 + [D, I, P]
+        # uy, ux, wts, grid, n, C, nfy, nfx, w, beta, stream
+        fn.argtypes = [P] * 4 + [I] * 5 + [D, P]
         fn.restype = I
     for name in ("fftvis_interp_f32", "fftvis_interp_f64"):
         fn = getattr(lib, name)
-        # G, iy, ix, vy, vx, out, C, nfy, nfx, m, w, stream
-        fn.argtypes = [P] * 6 + [I] * 5 + [P]
+        # G, iy, ix, vy, vx, runs, order, out, C, nfy, nfx, m, nruns, w,
+        # stream
+        fn.argtypes = [P] * 8 + [I] * 6 + [P]
         fn.restype = I
     for name in ("fftvis_beam_eval_f32", "fftvis_beam_eval_f64"):
         fn = getattr(lib, name)

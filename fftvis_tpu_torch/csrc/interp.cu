@@ -3,86 +3,271 @@
 // Replaces the Pallas interpolation of the JAX package
 // (fftvis_tpu/nufft/pallas_interp.py, _build_interp_call):
 //
-//     out[c, t] = sum_a vy[t, a] * sum_b G[c, iy[t, a], ix[t, b]] * vx[t, b]
+//     out[c, t] = sum_a sum_b G[c, iy[t, a], ix[t, b]] * vy[t, a] * vx[t, b]
 //
 // with the plan's host-computed taps (indices already mod nf). The TPU
 // kernel bin-sorts targets and rebuilds the taps as one-hot matrices for
-// its matrix unit; here a gather is the natural form. One thread owns one
-// (target, channel) output, so outputs are disjoint: no atomics, no sort,
-// no inverse permutation, no wrap-pad. Output is written in target order.
+// its matrix unit; here a gather is the natural form.
 //
-// Bound on the card: m * w^2 * 2C gathered reals (8 or 16 bytes per tap
-// for complex64 / complex128) from a grid larger than L2.
+// Bound on the card, in bytes: the distinct grid cells the taps touch, the
+// tap tables and the output, each moved once. At the slice's 63,190
+// baselines, C = 4: p=2 (grid (4320, 3072), w=14, complex128) 45.6 MB of
+// touched cells (0.71M cells, 11.4 MB per channel) + 21.2 MB of taps +
+// 4.0 MB out = 71 MB, 21 us at 3.35 TB/s; p=1 (grid (4320, 3000), w=8,
+// complex64) 7.5 + 8.1 + 2.0 = 17.6 MB, 5.2 us. The flops are far below.
+// A gather of every tap reads 17x more than that (12.4M reads of 0.71M
+// cells at p=2): the redundant baselines of the slice's array share their
+// footprints (3,716 distinct footprints for 63,190 targets), and that
+// traffic, not device memory, bounded a gather of every tap.
+//
+// Design: the host sorts the targets so that identical footprints are
+// neighbours and cuts the sorted tables into runs of rows with identical
+// tap cells, at most 32 rows a run (nufft/interp.py footprint_runs). One
+// warp takes one run, for all C channels, in one of two forms:
+// - a run of LONG_RUN rows or more: the warp gathers the footprint's w x w
+//   cells of one channel into shared memory once (a group of P lanes reads
+//   one contiguous grid row, 224 B at complex128 and w = 14), then each
+//   lane evaluates one target of the run from it, reading the cells as
+//   broadcasts with its own taps in registers: no reduction across lanes;
+// - a shorter run: row by row, lanes over the w x w taps. A lane owns tap
+//   column b = lane % P (P = W rounded up to a power of two) and rows
+//   a = lane / P + R * step (R = 32 / P rows a step), reads the taps once
+//   for all C channels, and each channel's sums meet in a __shfl_xor_sync
+//   reduction. That is the form for arrays without redundancy, where every
+//   run is one row.
+// Row k of the tables is target order[k] (a null order is the identity),
+// and the result is written to out[c, order[k]]: outputs are disjoint, no
+// atomics. w is a template parameter (2..16), so the tap loops unroll. The
+// kernel clamps each run to rows [0, m) and writes no column outside
+// [0, m), so a malformed runs or order tensor gives wrong values, never an
+// access out of bounds.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-template <typename T>
-__global__ void interp_taps(
-    const T* __restrict__ G,        // (C, nfy, nfx, 2) interleaved re/im
-    const int* __restrict__ iy,     // (m, w)
-    const int* __restrict__ ix,     // (m, w)
-    const T* __restrict__ vy,       // (m, w)
-    const T* __restrict__ vx,       // (m, w)
-    T* __restrict__ out,            // (C, m, 2) interleaved re/im
-    int C, int nfy, int nfx, int m, int w) {
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= static_cast<long long>(m) * C) return;
-  const int t = static_cast<int>(tid % m);
-  const int c = static_cast<int>(tid / m);
-  const T* Gc = G + static_cast<long long>(c) * nfy * nfx * 2;
-  const int* iyt = iy + static_cast<long long>(t) * w;
-  const int* ixt = ix + static_cast<long long>(t) * w;
-  const T* vyt = vy + static_cast<long long>(t) * w;
-  const T* vxt = vx + static_cast<long long>(t) * w;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int WARPS = 8;     // warps (runs) a block
+constexpr int LONG_RUN = 4;  // rows from which a run takes the shared form
 
-  T acc_re = T(0);
-  T acc_im = T(0);
-  for (int a = 0; a < w; ++a) {
-    const T* row = Gc + static_cast<long long>(iyt[a]) * nfx * 2;
-    T row_re = T(0);
-    T row_im = T(0);
-    for (int b = 0; b < w; ++b) {
-      const int x = ixt[b];
-      const T v = vxt[b];
-      row_re += row[2 * x] * v;
-      row_im += row[2 * x + 1] * v;
-    }
-    acc_re += row_re * vyt[a];
-    acc_im += row_im * vyt[a];
+__host__ __device__ constexpr int pow2ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<double> { using type = double2; };
+
+// One row (target) with the lanes over its taps, for all C channels.
+template <typename T, int W>
+__device__ __forceinline__ void interp_row(
+    const typename Vec2<T>::type* __restrict__ Gv, const int* __restrict__ iy,
+    const int* __restrict__ ix, const T* __restrict__ vy,
+    const T* __restrict__ vx, long long k, long long t,
+    typename Vec2<T>::type* __restrict__ outv, int C, int nfx,
+    long long plane, int m, int lane) {
+  using V = typename Vec2<T>::type;
+  constexpr int P = pow2ceil(W);
+  constexpr int R = 32 / P;
+  constexpr int STEPS = (W + R - 1) / R;
+  const int b = lane % P;
+  const int r = lane / P;
+  const long long row = k * W;
+
+  int xcell = 0;
+  T wx = T(0);
+  if (b < W) {
+    xcell = ix[row + b];
+    wx = vx[row + b];
   }
-  T* o = out + (static_cast<long long>(c) * m + t) * 2;
-  o[0] = acc_re;
-  o[1] = acc_im;
+  int off[STEPS];
+  T wt[STEPS];
+  bool ok[STEPS];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    const int a = s * R + r;
+    ok[s] = b < W && a < W;
+    off[s] = ok[s] ? iy[row + a] * nfx + xcell : 0;
+    wt[s] = ok[s] ? vy[row + a] * wx : T(0);
+  }
+  for (int c = 0; c < C; ++c) {
+    const V* Gc = Gv + c * plane;
+    T re = T(0);
+    T im = T(0);
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+      if (ok[s]) {
+        const V g = Gc[off[s]];
+        re += g.x * wt[s];
+        im += g.y * wt[s];
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      re += __shfl_xor_sync(kFull, re, d);
+      im += __shfl_xor_sync(kFull, im, d);
+    }
+    if (lane == 0 && t >= 0 && t < m) {
+      V o;
+      o.x = re;
+      o.y = im;
+      outv[c * static_cast<long long>(m) + t] = o;
+    }
+  }
+}
+
+// A long run (rows k0..k1 with the same tap cells) in the shared form.
+template <typename T, int W>
+__device__ __forceinline__ void interp_shared(
+    const typename Vec2<T>::type* __restrict__ Gv, const int* __restrict__ iy,
+    const int* __restrict__ ix, const T* __restrict__ vy,
+    const T* __restrict__ vx, const int* __restrict__ order, int k0, int k1,
+    typename Vec2<T>::type* __restrict__ outv, int C, int nfx,
+    long long plane, int m, int lane) {
+  using V = typename Vec2<T>::type;
+  constexpr int P = pow2ceil(W);
+  constexpr int R = 32 / P;
+  constexpr int STEPS = (W + R - 1) / R;
+  __shared__ V foot[WARPS][W * W];
+
+  // The footprint: row k0's tap cells, which every row of the run shares.
+  const int b = lane % P;
+  const int r = lane / P;
+  const long long row0 = static_cast<long long>(k0) * W;
+  const int xcell = b < W ? ix[row0 + b] : 0;
+  int off[STEPS];
+  bool ok[STEPS];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    const int a = s * R + r;
+    ok[s] = b < W && a < W;
+    off[s] = ok[s] ? iy[row0 + a] * nfx + xcell : 0;
+  }
+  V* f = foot[threadIdx.x >> 5];
+  for (int base = k0; base < k1; base += 32) {
+    const long long k = base + lane;  // this lane's target row
+    const bool active = k < k1;
+    T wx[W];  // vy is read per tap row, to keep registers for occupancy
+#pragma unroll
+    for (int bb = 0; bb < W; ++bb) wx[bb] = active ? vx[k * W + bb] : T(0);
+    const long long t = active ? (order ? order[k] : k) : 0;
+    const bool write = active && t >= 0 && t < m;
+    for (int c = 0; c < C; ++c) {
+      const V* Gc = Gv + c * plane;
+      __syncwarp();  // the previous channel's reads of f are done
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s) {
+        if (ok[s]) f[(s * R + r) * W + b] = Gc[off[s]];
+      }
+      __syncwarp();
+      if (active) {
+        T re = T(0);
+        T im = T(0);
+#pragma unroll
+        for (int a = 0; a < W; ++a) {
+          T tr = T(0);
+          T ti = T(0);
+#pragma unroll
+          for (int bb = 0; bb < W; ++bb) {
+            const V g = f[a * W + bb];
+            tr += g.x * wx[bb];
+            ti += g.y * wx[bb];
+          }
+          const T wy = vy[k * W + a];
+          re += wy * tr;
+          im += wy * ti;
+        }
+        V o;
+        o.x = re;
+        o.y = im;
+        if (write) outv[c * static_cast<long long>(m) + t] = o;
+      }
+    }
+  }
+}
+
+// One warp a run. The instance is held to 64 registers (4 blocks a SM):
+// the shared form spills a little at complex128, w = 14, and still runs
+// faster than at 96 registers and half the warps in flight.
+template <typename T, int W>
+__global__ void __launch_bounds__(WARPS * 32, 4) interp_runs(
+    const T* __restrict__ G,          // (C, nfy, nfx, 2) interleaved re/im
+    const int* __restrict__ iy,       // (m, W), row k in visiting order
+    const int* __restrict__ ix,       // (m, W)
+    const T* __restrict__ vy,         // (m, W)
+    const T* __restrict__ vx,         // (m, W)
+    const int* __restrict__ runs,     // (nruns + 1,) first row of each run
+    const int* __restrict__ order,    // (m,) output column of row k, or null
+    T* __restrict__ out,              // (C, m, 2) interleaved re/im
+    int C, int nfy, int nfx, int m, int nruns) {
+  using V = typename Vec2<T>::type;
+  const int run = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (run >= nruns) return;  // whole warps only
+  const int lane = threadIdx.x & 31;
+  const int k0 = min(max(runs[run], 0), m);
+  const int k1 = min(max(runs[run + 1], k0), m);
+  const long long plane = static_cast<long long>(nfy) * nfx;
+  const V* Gv = reinterpret_cast<const V*>(G);
+  V* outv = reinterpret_cast<V*>(out);
+
+  if (k1 - k0 >= LONG_RUN) {
+    interp_shared<T, W>(Gv, iy, ix, vy, vx, order, k0, k1, outv, C, nfx,
+                        plane, m, lane);
+    return;
+  }
+  for (long long k = k0; k < k1; ++k) {
+    interp_row<T, W>(Gv, iy, ix, vy, vx, k, order ? order[k] : k, outv, C,
+                     nfx, plane, m, lane);
+  }
 }
 
 template <typename T>
 int launch_interp(const void* G, const void* iy, const void* ix,
-                  const void* vy, const void* vx, void* out, int C, int nfy,
-                  int nfx, int m, int w, void* stream) {
-  const int threads = 256;
-  const long long total = static_cast<long long>(m) * C;
-  const unsigned int blocks = static_cast<unsigned int>((total + threads - 1) / threads);
-  interp_taps<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(G), static_cast<const int*>(iy),
-      static_cast<const int*>(ix), static_cast<const T*>(vy),
-      static_cast<const T*>(vx), static_cast<T*>(out), C, nfy, nfx, m, w);
+                  const void* vy, const void* vx, const void* runs,
+                  const void* order, void* out, int C, int nfy, int nfx, int m,
+                  int nruns, int w, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const unsigned int blocks = static_cast<unsigned int>((nruns + WARPS - 1) / WARPS);
+  switch (w) {
+#define FFTVIS_INTERP_CASE(W)                                                 \
+  case W:                                                                     \
+    interp_runs<T, W><<<blocks, WARPS * 32, 0, stream>>>(                     \
+        static_cast<const T*>(G), static_cast<const int*>(iy),                \
+        static_cast<const int*>(ix), static_cast<const T*>(vy),               \
+        static_cast<const T*>(vx), static_cast<const int*>(runs),             \
+        static_cast<const int*>(order), static_cast<T*>(out), C, nfy, nfx, m, \
+        nruns);                                                               \
+    break;
+    FFTVIS_INTERP_CASE(2) FFTVIS_INTERP_CASE(3) FFTVIS_INTERP_CASE(4)
+    FFTVIS_INTERP_CASE(5) FFTVIS_INTERP_CASE(6) FFTVIS_INTERP_CASE(7)
+    FFTVIS_INTERP_CASE(8) FFTVIS_INTERP_CASE(9) FFTVIS_INTERP_CASE(10)
+    FFTVIS_INTERP_CASE(11) FFTVIS_INTERP_CASE(12) FFTVIS_INTERP_CASE(13)
+    FFTVIS_INTERP_CASE(14) FFTVIS_INTERP_CASE(15) FFTVIS_INTERP_CASE(16)
+#undef FFTVIS_INTERP_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int fftvis_interp_f32(const void* G, const void* iy, const void* ix,
-                                 const void* vy, const void* vx, void* out,
-                                 int C, int nfy, int nfx, int m, int w,
-                                 void* stream) {
-  return launch_interp<float>(G, iy, ix, vy, vx, out, C, nfy, nfx, m, w, stream);
+                                 const void* vy, const void* vx,
+                                 const void* runs, const void* order,
+                                 void* out, int C, int nfy, int nfx, int m,
+                                 int nruns, int w, void* stream) {
+  return launch_interp<float>(G, iy, ix, vy, vx, runs, order, out, C, nfy, nfx,
+                              m, nruns, w, stream);
 }
 
 extern "C" int fftvis_interp_f64(const void* G, const void* iy, const void* ix,
-                                 const void* vy, const void* vx, void* out,
-                                 int C, int nfy, int nfx, int m, int w,
-                                 void* stream) {
-  return launch_interp<double>(G, iy, ix, vy, vx, out, C, nfy, nfx, m, w, stream);
+                                 const void* vy, const void* vx,
+                                 const void* runs, const void* order,
+                                 void* out, int C, int nfy, int nfx, int m,
+                                 int nruns, int w, void* stream) {
+  return launch_interp<double>(G, iy, ix, vy, vx, runs, order, out, C, nfy,
+                               nfx, m, nruns, w, stream);
 }

@@ -7,19 +7,29 @@
 //
 // with psi(t) = exp(beta (sqrt(1 - (2t/w)^2) - 1)) on |2t/w| < 1.
 //
-// Design (cuFINUFFT's shared-memory method, arXiv 2102.08463): sources are
-// bin-sorted into TILE x TILE cell tiles by a torch pre-pass (`order`,
-// CSR offsets `starts`). One block owns one tile and accumulates the
-// tile's window of (TILE + w + 1)^2 cells, for `group` channels at a time,
-// in shared memory with shared atomics; then it adds the window's nonzero
-// cells to the global grid with atomics at (y mod nfy, x mod nfx). Blocks
-// run concurrently and neighbouring windows overlap in their halos, so the
-// flush is atomic. A tap outside the window (not reachable for sources
-// binned by their integer cell, kept as a guard) goes straight to the
-// global grid, so no contribution is ever dropped.
+// Bound on the card, in bytes: every touched grid cell read and written
+// once, plus the coordinates and weights. At the slice's 4096-source
+// blocks on a (4320, 3072) grid, w = 14, C = 4, complex128, the sources'
+// footprints barely overlap: 4096 x 196 cells x 4 channels x 16 B x 2 =
+// 103 MB, 31 us at 3.35 TB/s; on the (4320, 3000) grid, w = 8, complex64,
+// 16.8 MB, 5.0 us. Sources whose weights are all zero touch nothing.
 //
-// Bound on the card: n * w^2 * 2C shared atomics plus one global atomic
-// per touched window cell and plane.
+// Design (cuFINUFFT's GM method for low density, arXiv 2102.08463): at the
+// slice's 3e-4 sources per cell a shared-memory window costs more to zero,
+// scan and flush than the taps it gathers, so there is none.
+// - One warp per source. Lanes 0..w-1 evaluate the w y-values of the ES
+//   kernel and lanes 16..16+w-1 the w x-values: 2w evaluations a source,
+//   passed to the tap lanes by __shfl_sync.
+// - The lanes then walk the w x w taps, for each of the C channels, and
+//   add straight into the global grid at (y mod nfy, x mod nfx). A group
+//   of lanes covers one tap row: for complex64 one lane a tap, with the
+//   sm_90 float2 global atomic (one atomic per tap and channel); for
+//   complex128 one lane a real (native fp64 atomics), so a row of w taps
+//   is 2w neighbouring doubles. Each warp-wide atomic instruction thus
+//   covers whole contiguous rows.
+// - A source whose C weights are all exactly zero (the horizon mask
+//   zeroes them) adds nothing, and its warp returns at once.
+// - w is a template parameter (2..16), so the tap loops unroll.
 //
 // Tap math, as in the JAX scatter spreader (_spread_scatter):
 //   cell = floor(u), frac = u - cell        (exact)
@@ -28,10 +38,19 @@
 //   tap index (i0 + k) mod nf
 //
 // Built without --use_fast_math: the ES exp and sqrt need full precision.
+// The summation order of the atomics varies from run to run.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__host__ __device__ constexpr int pow2ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
 
 template <typename T>
 __device__ __forceinline__ T es_kernel(T t, int w, T beta) {
@@ -47,130 +66,131 @@ __device__ __forceinline__ int wrap(long long i, int n) {
   return static_cast<int>(r < 0 ? r + n : r);
 }
 
-template <typename T>
-__global__ void spread_tiles(
+__device__ __forceinline__ void add_tap(float* cell, int /*part*/, float v,
+                                        float wre, float wim) {
+  atomicAdd(reinterpret_cast<float2*>(cell), make_float2(v * wre, v * wim));
+}
+
+__device__ __forceinline__ void add_tap(double* cell, int part, double v,
+                                        double wre, double wim) {
+  atomicAdd(cell + part, v * (part ? wim : wre));
+}
+
+template <typename T, int W>
+__global__ void spread_gm(
     const T* __restrict__ uy, const T* __restrict__ ux,
     const T* __restrict__ wts,      // (C, n, 2) interleaved re/im
-    const int* __restrict__ order,  // (n,) sources sorted by tile
-    const int* __restrict__ starts, // (ntiles + 1,) CSR offsets into order
     T* __restrict__ grid,           // (C, nfy, nfx, 2) interleaved re/im
-    int n, int C, int nfy, int nfx, int tile, int ntx, int w, T beta,
-    int group) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* win = reinterpret_cast<T*>(smem_raw);
+    int n, int C, int nfy, int nfx, T beta) {
+  // Atomics a tap row takes: one a tap (float2) or one a real (double).
+  constexpr int PER_TAP = sizeof(T) == 4 ? 1 : 2;
+  constexpr int Q = pow2ceil(PER_TAP * W);  // lanes a tap row
+  constexpr int R = 32 / Q;                 // tap rows a step
+  constexpr int STEPS = (W + R - 1) / R;
 
-  const int t = blockIdx.x;
-  const int s0 = starts[t];
-  const int s1 = starts[t + 1];
-  if (s1 == s0) return;
+  const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (j >= n) return;  // whole warps only: blockDim.x is a multiple of 32
+  const int lane = threadIdx.x & 31;
 
-  const int ty = t / ntx;
-  const int tx = t % ntx;
-  const int half = w / 2;
-  const int wy0 = ty * tile - half;  // window origin (may be negative)
-  const int wx0 = tx * tile - half;
-  const int wside = tile + w + 1;
-  const int wcells = wside * wside;
-  const int ww = w * w;
-  const long long items = static_cast<long long>(s1 - s0) * ww;
-  const long long plane = static_cast<long long>(nfy) * nfx;
+  bool nonzero = false;
+  for (int c = lane; c < C; c += 32) {
+    const T* wc = wts + (static_cast<long long>(c) * n + j) * 2;
+    nonzero |= wc[0] != T(0) || wc[1] != T(0);
+  }
+  if (!__any_sync(kFull, nonzero)) return;
 
-  for (int c0 = 0; c0 < C; c0 += group) {
-    const int gc = min(group, C - c0);
-    for (int i = threadIdx.x; i < gc * wcells * 2; i += blockDim.x) {
-      win[i] = T(0);
+  // Kernel values: lane k < W holds psi_y(k), lane 16 + k psi_x(k).
+  const bool xhalf = lane >= 16;
+  const int kk = lane & 15;
+  const T u = xhalf ? ux[j] : uy[j];
+  const T cell = floor(u);
+  const T frac = u - cell;
+  const long long i0 = static_cast<long long>(ceil(u - T(W) / T(2)));
+  const T psi = kk < W ? es_kernel((cell - T(i0 + kk)) + frac, W, beta) : T(0);
+  const long long iy0 = __shfl_sync(kFull, i0, 0);
+  const long long ix0 = __shfl_sync(kFull, i0, 16);
+
+  const int s = lane % Q;
+  const int b = s / PER_TAP;           // tap column
+  const int part = s % PER_TAP;        // re (0) or im (1) for double
+  const bool col_ok = s < PER_TAP * W;
+  const T psix = __shfl_sync(kFull, psi, 16 + (b & 15));
+  const int gx = wrap(ix0 + b, nfx);
+
+  long long off[STEPS];
+  T val[STEPS];
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st) {
+    const int a = st * R + lane / Q;
+    const T psiy = __shfl_sync(kFull, psi, a & 15);
+    const bool ok = col_ok && a < W;
+    val[st] = ok ? psiy * psix : T(0);
+    off[st] = (static_cast<long long>(wrap(iy0 + a, nfy)) * nfx + gx) * 2;
+  }
+
+  const long long plane = static_cast<long long>(nfy) * nfx * 2;
+  for (int c = 0; c < C; ++c) {
+    const T* wc = wts + (static_cast<long long>(c) * n + j) * 2;
+    const T wre = wc[0];
+    const T wim = wc[1];
+    if (wre == T(0) && wim == T(0)) continue;
+    T* gc = grid + c * plane;
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      if (val[st] != T(0)) add_tap(gc + off[st], part, val[st], wre, wim);
     }
-    __syncthreads();
-
-    for (long long it = threadIdx.x; it < items; it += blockDim.x) {
-      const int s = s0 + static_cast<int>(it / ww);
-      const int r = static_cast<int>(it % ww);
-      const int ky = r / w;
-      const int kx = r % w;
-      const int j = order[s];
-      const T u_y = uy[j];
-      const T u_x = ux[j];
-      const T cy = floor(u_y);
-      const T cx = floor(u_x);
-      const T fy = u_y - cy;
-      const T fx = u_x - cx;
-      const long long iy = static_cast<long long>(ceil(u_y - T(w) / T(2))) + ky;
-      const long long ix = static_cast<long long>(ceil(u_x - T(w) / T(2))) + kx;
-      const T ky_val = es_kernel((cy - T(iy)) + fy, w, beta);
-      const T kx_val = es_kernel((cx - T(ix)) + fx, w, beta);
-      const T kv = ky_val * kx_val;
-      if (kv == T(0)) continue;
-      const long long ly = iy - wy0;
-      const long long lx = ix - wx0;
-      const bool inside = ly >= 0 && ly < wside && lx >= 0 && lx < wside;
-      for (int c = 0; c < gc; ++c) {
-        const T* wc = wts + (static_cast<long long>(c0 + c) * n + j) * 2;
-        const T vre = wc[0] * kv;
-        const T vim = wc[1] * kv;
-        if (inside) {
-          T* cellp = win + (static_cast<long long>(c) * wcells + ly * wside + lx) * 2;
-          atomicAdd(cellp, vre);
-          atomicAdd(cellp + 1, vim);
-        } else {
-          T* g = grid + ((c0 + c) * plane +
-                         static_cast<long long>(wrap(iy, nfy)) * nfx +
-                         wrap(ix, nfx)) * 2;
-          atomicAdd(g, vre);
-          atomicAdd(g + 1, vim);
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < gc * wcells; i += blockDim.x) {
-      const int c = i / wcells;
-      const int cell = i % wcells;
-      const T vre = win[2 * i];
-      const T vim = win[2 * i + 1];
-      if (vre == T(0) && vim == T(0)) continue;
-      const int gy = wrap(wy0 + cell / wside, nfy);
-      const int gx = wrap(wx0 + cell % wside, nfx);
-      T* g = grid + ((c0 + c) * plane + static_cast<long long>(gy) * nfx + gx) * 2;
-      if (vre != T(0)) atomicAdd(g, vre);
-      if (vim != T(0)) atomicAdd(g + 1, vim);
-    }
-    __syncthreads();
   }
 }
 
-template <typename T>
-int launch_spread(const void* uy, const void* ux, const void* wts,
-                  const void* order, const void* starts, void* grid, int n,
-                  int C, int nfy, int nfx, int tile, int nty, int ntx, int w,
-                  double beta, int group, void* stream) {
-  const int wside = tile + w + 1;
-  const size_t smem = static_cast<size_t>(group) * wside * wside * 2 * sizeof(T);
-  const int threads = 256;
-  const int blocks = nty * ntx;
-  spread_tiles<T><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+template <typename T, int W>
+void launch_w(const void* uy, const void* ux, const void* wts, void* grid,
+              int n, int C, int nfy, int nfx, double beta,
+              cudaStream_t stream) {
+  const int threads = 256;  // 8 sources a block
+  const unsigned int blocks =
+      static_cast<unsigned int>((static_cast<long long>(n) * 32 + threads - 1) / threads);
+  spread_gm<T, W><<<blocks, threads, 0, stream>>>(
       static_cast<const T*>(uy), static_cast<const T*>(ux),
-      static_cast<const T*>(wts), static_cast<const int*>(order),
-      static_cast<const int*>(starts), static_cast<T*>(grid), n, C, nfy, nfx,
-      tile, ntx, w, static_cast<T>(beta), group);
+      static_cast<const T*>(wts), static_cast<T*>(grid), n, C, nfy, nfx,
+      static_cast<T>(beta));
+}
+
+template <typename T>
+int launch_spread(const void* uy, const void* ux, const void* wts, void* grid,
+                  int n, int C, int nfy, int nfx, int w, double beta,
+                  void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  switch (w) {
+#define FFTVIS_SPREAD_CASE(W)                                                 \
+  case W:                                                                     \
+    launch_w<T, W>(uy, ux, wts, grid, n, C, nfy, nfx, beta, stream);          \
+    break;
+    FFTVIS_SPREAD_CASE(2) FFTVIS_SPREAD_CASE(3) FFTVIS_SPREAD_CASE(4)
+    FFTVIS_SPREAD_CASE(5) FFTVIS_SPREAD_CASE(6) FFTVIS_SPREAD_CASE(7)
+    FFTVIS_SPREAD_CASE(8) FFTVIS_SPREAD_CASE(9) FFTVIS_SPREAD_CASE(10)
+    FFTVIS_SPREAD_CASE(11) FFTVIS_SPREAD_CASE(12) FFTVIS_SPREAD_CASE(13)
+    FFTVIS_SPREAD_CASE(14) FFTVIS_SPREAD_CASE(15) FFTVIS_SPREAD_CASE(16)
+#undef FFTVIS_SPREAD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int fftvis_spread_f32(const void* uy, const void* ux,
-                                 const void* wts, const void* order,
-                                 const void* starts, void* grid, int n, int C,
-                                 int nfy, int nfx, int tile, int nty, int ntx,
-                                 int w, double beta, int group, void* stream) {
-  return launch_spread<float>(uy, ux, wts, order, starts, grid, n, C, nfy, nfx,
-                              tile, nty, ntx, w, beta, group, stream);
+                                 const void* wts, void* grid, int n, int C,
+                                 int nfy, int nfx, int w, double beta,
+                                 void* stream) {
+  return launch_spread<float>(uy, ux, wts, grid, n, C, nfy, nfx, w, beta,
+                              stream);
 }
 
 extern "C" int fftvis_spread_f64(const void* uy, const void* ux,
-                                 const void* wts, const void* order,
-                                 const void* starts, void* grid, int n, int C,
-                                 int nfy, int nfx, int tile, int nty, int ntx,
-                                 int w, double beta, int group, void* stream) {
-  return launch_spread<double>(uy, ux, wts, order, starts, grid, n, C, nfy, nfx,
-                               tile, nty, ntx, w, beta, group, stream);
+                                 const void* wts, void* grid, int n, int C,
+                                 int nfy, int nfx, int w, double beta,
+                                 void* stream) {
+  return launch_spread<double>(uy, ux, wts, grid, n, C, nfy, nfx, w, beta,
+                               stream);
 }

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .interp import interp
+from .interp import footprint_runs, interp, target_order
 from .kernels import (
     ESKernel,
     es_kernel_ft,
@@ -59,8 +59,8 @@ class Type3Plan:
     s_center: tuple[float, ...]
     # Per-dim mode deconvolution vectors in FFT order, each (nf_d,) float64.
     deconv: tuple[np.ndarray, ...]
-    # Per-dim interpolation taps: indices (m, w) int32 (mod nf applied) and
-    # kernel values (m, w) float64.
+    # Per-dim interpolation taps: indices (m, w) int32, w consecutive cells
+    # from the first (mod nf applied), and kernel values (m, w) float64.
     tap_idx: tuple[np.ndarray, ...]
     tap_val: tuple[np.ndarray, ...]
     n_targets: int
@@ -272,20 +272,30 @@ class Type3Executor:
 
     def _device_tables(self, rdtype: torch.dtype):
         """Deconvolution vectors and tap tables on the device, uploaded once
-        per real dtype: indices as int32, kernel values as ``rdtype``."""
+        per real dtype: indices as int32, kernel values as ``rdtype``. The
+        tap tables' rows are put in :func:`~.interp.target_order` on the
+        device; the order and the tables' :func:`~.interp.footprint_runs`
+        follow as int32 device tensors. A plan's taps are w consecutive
+        cells (mod nf) from the first, so the runs come from the first
+        column alone."""
         tabs = self._tables.get(rdtype)
         if tabs is None:
             p, dev = self.plan, self.device
+            order = target_order(p.tap_idx[0][:, 0], p.tap_idx[1][:, 0])
+            runs = footprint_runs(p.tap_idx[0][order, :1], p.tap_idx[1][order, :1])
+            rows = torch.tensor(order, dtype=torch.int32, device=dev)
             tabs = (
                 tuple(torch.tensor(a, dtype=rdtype, device=dev) for a in p.deconv),
                 tuple(
-                    torch.tensor(a, dtype=torch.int32, device=dev)
+                    torch.tensor(a, dtype=torch.int32, device=dev).index_select(0, rows)
                     for a in p.tap_idx
                 ),
                 tuple(
-                    torch.tensor(a, dtype=rdtype, device=dev)
+                    torch.tensor(a, dtype=rdtype, device=dev).index_select(0, rows)
                     for a in p.tap_val
                 ),
+                rows,
+                torch.tensor(runs, dtype=torch.int32, device=dev),
             )
             self._tables[rdtype] = tabs
         return tabs
@@ -317,7 +327,7 @@ class Type3Executor:
     def transform(self, g: torch.Tensor) -> torch.Tensor:
         p = self.plan
         G = _forward_modes(g, p.nf)
-        deconv, _, _ = self._device_tables(G.real.dtype)
+        deconv = self._device_tables(G.real.dtype)[0]
         for axis in range(p.d):
             s = [1] * (1 + p.d)
             s[1 + axis] = p.nf[axis]
@@ -326,5 +336,5 @@ class Type3Executor:
 
     def interpolate(self, G: torch.Tensor) -> torch.Tensor:
         """Evaluate every planned target from G: (C, m) complex."""
-        _, ti, tv = self._device_tables(G.real.dtype)
-        return interp(G.contiguous(), ti[0], ti[1], tv[0], tv[1])
+        _, ti, tv, order, runs = self._device_tables(G.real.dtype)
+        return interp(G.contiguous(), ti[0], ti[1], tv[0], tv[1], order=order, runs=runs)

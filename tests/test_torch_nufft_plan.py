@@ -113,7 +113,7 @@ def test_es_kernel_ft_and_deconvolution(eps):
     # The plan's per-axis deconvolution vectors, on the device in float64.
     plan = pt.plan_type3(_targets(4), 2.3, eps)
     ex = pt.Type3Executor(plan)
-    deconv, _, _ = ex._device_tables(torch.float64)
+    deconv = ex._device_tables(torch.float64)[0]
     for axis in range(2):
         assert np.array_equal(deconv[axis].numpy(), plan.deconv[axis])
 

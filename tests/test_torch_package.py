@@ -272,9 +272,107 @@ def test_cuda_interp_matches_plain(cuda_device, rdt, cdt, tol):
     ix = torch.tensor(rng.integers(0, nf[1], (m, w)), dtype=torch.int32, device=cuda_device)
     vy, vx = (torch.tensor(rng.uniform(0, 1, (m, w)), dtype=rdt, device=cuda_device)
               for _ in range(2))
+    runs = torch.tensor(interp_mod.footprint_runs(iy.cpu().numpy(), ix.cpu().numpy()),
+                        device=cuda_device)
     before = interp_mod.launches
-    got = interp_mod.interp(G, iy, ix, vy, vx)
+    got = interp_mod.interp(G, iy, ix, vy, vx, runs=runs)
     assert interp_mod.launches == before + 1
     want = interp_mod.interp_plain(G, iy, ix, vy, vx)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 5, 8, 14, 16])
+@pytest.mark.parametrize("rdt,cdt,tol", [(torch.float32, torch.complex64, 1e-5),
+                                         (torch.float64, torch.complex128, 1e-12)])
+@pytest.mark.parametrize("repeats", [False, True])
+def test_cuda_interp_order_matches_plain(cuda_device, rdt, cdt, tol, w, repeats):
+    """Every template width, with tables in a permuted visiting order.
+    With ``repeats``, targets share 40 footprints and the tables are sorted
+    by footprint, so runs are long (cut at 32 rows) and take the kernel's
+    shared-memory form; some rows of a footprint differ from it in the last
+    tap column only, which must end a run. Without, every run is one row."""
+    rng = np.random.default_rng(w)
+    nf, m, C = (120, 136), 3001, 4
+    G = torch.tensor(rng.normal(size=(C,) + nf) + 1j * rng.normal(size=(C,) + nf),
+                     dtype=cdt, device=cuda_device)
+    iy_np = rng.integers(0, nf[0], (m, w))
+    ix_np = rng.integers(0, nf[1], (m, w))
+    if repeats:
+        pick = rng.integers(0, 40, m)
+        iy_np, ix_np = iy_np[pick], ix_np[pick]
+        alt = rng.random(m) < 0.3  # same first cell, another last column
+        ix_np[alt, w - 1] = (ix_np[alt, w - 1] + 1) % nf[1]
+    vy, vx = (torch.tensor(rng.uniform(0, 1, (m, w)), dtype=rdt, device=cuda_device)
+              for _ in range(2))
+    iy, ix = (torch.tensor(a, dtype=torch.int32, device=cuda_device) for a in (iy_np, ix_np))
+    want = interp_mod.interp_plain(G, iy, ix, vy, vx)
+    if repeats:
+        perm = np.lexsort(np.concatenate([iy_np, ix_np], axis=1).T[::-1]).astype(np.int32)
+        runs = torch.tensor(interp_mod.footprint_runs(iy_np[perm], ix_np[perm]),
+                            device=cuda_device)
+        assert (runs.diff() >= interp_mod.RUN_CAP).any()
+    else:
+        perm = rng.permutation(m).astype(np.int32)
+        runs = torch.tensor(interp_mod.footprint_runs(iy_np[perm], ix_np[perm]),
+                            device=cuda_device)
+        assert (runs.diff() == 1).all()
+    rows = torch.tensor(perm, dtype=torch.long, device=cuda_device)
+    got = interp_mod.interp(G, iy[rows].contiguous(), ix[rows].contiguous(),
+                            vy[rows].contiguous(), vx[rows].contiguous(),
+                            order=rows.to(torch.int32), runs=runs)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["no runs", "runs out of range", "order out of range"])
+def test_cuda_interp_bad_tables(cuda_device, case):
+    """A CUDA call without runs raises; runs and an order with values out
+    of range give wrong values but no access out of bounds."""
+    rng = np.random.default_rng(5)
+    nf, m, w = (64, 72), 500, 8
+    G = torch.tensor(rng.normal(size=(2,) + nf) + 1j * rng.normal(size=(2,) + nf),
+                     dtype=torch.complex64, device=cuda_device)
+    iy = torch.tensor(rng.integers(0, nf[0], (m, w)), dtype=torch.int32, device=cuda_device)
+    ix = torch.tensor(rng.integers(0, nf[1], (m, w)), dtype=torch.int32, device=cuda_device)
+    vy, vx = (torch.tensor(rng.uniform(0, 1, (m, w)), dtype=torch.float32, device=cuda_device)
+              for _ in range(2))
+    runs = torch.arange(m + 1, dtype=torch.int32, device=cuda_device)
+    order = torch.arange(m, dtype=torch.int32, device=cuda_device)
+    if case == "no runs":
+        with pytest.raises(ValueError, match="runs"):
+            interp_mod.interp(G, iy, ix, vy, vx, order=order)
+        return
+    if case == "runs out of range":
+        runs = torch.tensor([-7, m // 2, 3, m + 1000], dtype=torch.int32, device=cuda_device)
+    else:
+        order[::3] += 10 * m
+        order[1::3] = -order[1::3] - 1
+    got = interp_mod.interp(G, iy, ix, vy, vx, order=order, runs=runs)
+    torch.cuda.synchronize()
+    assert got.shape == (2, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 7, 8, 14, 16])
+@pytest.mark.parametrize("rdt,cdt,tol", [(torch.float32, torch.complex64, 1e-5),
+                                         (torch.float64, torch.complex128, 1e-12)])
+def test_cuda_spread_dense_and_zero_sources(cuda_device, rdt, cdt, tol, w):
+    """Every template width; sources packed into one small patch (many
+    atomics on each cell), half of them with all-zero weights."""
+    rng = np.random.default_rng(w)
+    nf, n, C = (96, 80), 2000, 4
+    uy = rng.uniform(40, 56, n)
+    ux = np.concatenate([rng.uniform(0, 16, n - 1), [nf[1]]])  # the wrap edge too
+    c = rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n))
+    c[:, ::2] = 0
+    args = [torch.tensor(a, dtype=rdt, device=cuda_device) for a in (uy, ux)]
+    wts = torch.tensor(c, dtype=cdt, device=cuda_device)
+    beta = 2.3 * w
+    got = spread_mod.spread(*args, wts, torch.zeros((C,) + nf, dtype=cdt, device=cuda_device),
+                            w, beta)
+    want = spread_mod.spread_plain(*args, wts, torch.zeros_like(got), w, beta)
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= tol * scale

@@ -108,3 +108,31 @@ def test_coordinate_rounding_to_nf_wraps():
     at0 = _port(uy, np.array([0.0, 0.0, 0.25], np.float32), w, nf, kern,
                 torch.float32, torch.complex64)
     np.testing.assert_allclose(got, at0, atol=2e-6 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("w", [1, 17])
+def test_spread_width_outside_range_raises(w):
+    uy = ux = torch.full((3,), 5.0)
+    grid = torch.zeros((1, 32, 32), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="kernel width"):
+        spread(uy, ux, torch.ones((1, 3), dtype=torch.complex64), grid, w, 9.0)
+
+
+@pytest.mark.parametrize("rdt,cdt,tol", [(np.float32, np.complex64, 2e-6),
+                                         (np.float64, np.complex128, 1e-12)])
+def test_zero_weight_sources_add_nothing(rdt, cdt, tol):
+    """Half the sources with all-zero weights (the horizon mask's rows):
+    the grid equals the other half's alone, and the JAX scatter's grid."""
+    n, nf, C = 400, (48, 64), 2
+    kern = ESKernel.from_eps(1e-6 if rdt == np.float32 else 1e-12, sigma=2.0)
+    uy, ux, w = _mk(n, nf, C, seed=5)
+    uy, ux, w = uy.astype(rdt), ux.astype(rdt), w.astype(cdt)
+    w[:, ::2] = 0
+    got = _port(uy, ux, w, nf, kern, torch.tensor(uy).dtype, torch.tensor(w).dtype)
+    half = _port(uy[1::2], ux[1::2], w[:, 1::2], nf, kern, torch.tensor(uy).dtype,
+                 torch.tensor(w).dtype)
+    want = np.asarray(_spread_scatter([jnp.asarray(uy), jnp.asarray(ux)], jnp.asarray(w),
+                                      nf, kern.w, kern.beta))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, half, atol=tol * scale, rtol=0)
+    np.testing.assert_allclose(got, want, atol=tol * scale, rtol=0)
