@@ -23,13 +23,22 @@ Phases, one printed line each (any failure raises and exits non-zero):
      tables in the executor's target order and footprint runs; yardstick
      ``torch.sparse.mm`` with the (m, cells) CSR tap matrix;
    - gates 1e-5 / 1e-12 of max|plain|;
-   - beam_eval on the tabulated beam's tables, (91, 360, 8) polarized and
-     (91, 360, 2) power, 4096 points with seam and edge-row points, orders
-     1 and 3, float32 and float64, wrapped azimuth; and the (91, 360, 296)
-     stacked shape at order 3 in float32; gate 2e-6 / 1e-12 of max|plain|;
-     yardstick at order 1 ``grid_sample`` (bilinear, align_corners) on the
-     table with its seam column appended; order 3 has none (``bicubic`` is
-     Keys' convolution, not the B-spline);
+   - beam_eval (the interpolation alone) on the tabulated beam's tables,
+     (91, 360, 8) polarized and (91, 360, 2) power, 4096 points with seam
+     and edge-row points, orders 1 and 3, float32 and float64, wrapped
+     azimuth; and the (91, 360, 296) stacked shape at order 3 in float32;
+     gate 2e-6 / 1e-12 of max|plain|; beside the wrapper, the kernel alone
+     (torch.profiler); yardstick at order 1 ``grid_sample`` (bilinear,
+     align_corners) on the table with its seam column appended, wrapper and
+     kernel alone; order 3 has none (``bicubic`` is Keys' convolution, not
+     the B-spline);
+   - beam_rows (the fused source block) on the committed beam's prepared
+     tables: power (order 1, table (91, 360, 2)), Jones x Stokes I and
+     Jones x IQUV (order 3, (91, 360, 8)), float32 and float64, at a
+     4096-point block and the slice's ragged last block (471 points), about
+     half of the points masked, the sky taken with its stride; gate 2e-6 /
+     1e-12 of max|plain|; no yardstick (no one PyTorch call interpolates
+     and forms coherency rows);
 4. run ``simulate_vis`` on the slice configuration -- hex_array(11,
    outriggers=2) with all 63,190 i<=j baselines, the nside=64 HEALPix sky,
    2 frequencies x 3 times, forced type-3 -- with
@@ -38,15 +47,18 @@ Phases, one printed line each (any failure raises and exits non-zero):
      ``read_beamfits``: polarized with the order-3 spline at precision 1
      and 2, and unpolarized at order 1, precision 1;
    each run with the launch counts set to 0 just before it and read just
-   after, and each of its kernels launched at least once;
+   after, and each of its kernels launched at least once: a tabulated run
+   launches the fused beam_rows kernel once a source block (as often as
+   the spread) and the interpolation alone never; an analytic run neither;
 5. hold every output against the port's float64 direct path on the CPU,
    where every kernel takes its plain version, on every 32nd baseline
    (gates 1e-4 at precision 1, 1e-5 at precision 2, relative to max|V|);
 6. with ``--profile`` only: torch.profiler over one warm call of the
    analytic p=1, polarized p=1 and p=2 and unpolarized tabulated runs
-   (after five timed warm calls each): device busy time, idle share, and
-   the hand-written kernels' device time and launches; the top device ops
-   of each run go to ``build/profile/profile_<i>.txt``;
+   (after five timed warm calls each): device busy time, idle share, the
+   count of device kernel launches, and the hand-written kernels' device
+   time and launches; the top device ops of each run go to
+   ``build/profile/profile_<i>.txt``;
 7. print the kernels' JSON line, then the result line.
 """
 
@@ -126,6 +138,29 @@ def slice_config():
         baselines=baselines,
         force_use_type3=True,
     )
+
+
+def kernel_us(fn, symbol: str, reps: int = 20) -> float:
+    """Mean device time in us of the kernels whose name holds ``symbol``
+    over ``reps`` calls of ``fn`` (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if symbol in ev.key:
+            us = getattr(ev, "self_device_time_total", None)
+            total += ev.self_cuda_time_total if us is None else us
+            count += ev.count
+    if count == 0:
+        raise AssertionError(f"the profiler saw no kernel named like {symbol!r}")
+    return total / count
 
 
 def bound(nbytes: float, ops: float, name: str) -> tuple[float, str]:
@@ -391,25 +426,127 @@ def check_beam_eval() -> dict:
         torch.cuda.synchronize()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
-        ms = cuda_ms(lambda: eval_mod.beam_eval(data, y, x, order=order, wrap_x=True), 50)
+        def call():
+            return eval_mod.beam_eval(data, y, x, order=order, wrap_x=True)
+
+        ms = cuda_ms(call, 50)
+        alone = kernel_us(call, "beam_eval_points")
         plain = cuda_ms(lambda: eval_mod.beam_eval_plain(data, y, x, order=order, wrap_x=True), 20)
         (b_ms, b_by), cells = beam_bound(data, y, x, order, name)
         if order == 1:
             lib = beam_grid_sample(data, y, x)
             lib_err = (lib()[0, :, 0, :].T - want).abs().max().item()
-            lib_txt = (f"grid_sample {cuda_ms(lib, 50):.4f} ms "
-                       f"(err {lib_err / scale:.1e})")
+            lib_txt = (f"grid_sample {cuda_ms(lib, 50):.4f} ms, alone "
+                       f"{kernel_us(lib, 'grid_sampler'):.2f} us (err {lib_err / scale:.1e})")
         else:
             lib_txt = "library call: none (bicubic is Keys' convolution, not the B-spline)"
         print(f"[3] beam_eval {name}: table ({ny}, {nx}, {ch}) order {order} n=4096: "
               f"max err {err:.3e} = {err / scale:.3e} of max|plain|; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms; bound {b_ms:.5f} ms "
-              f"({b_by}, {cells} cells); {lib_txt}", flush=True)
+              f"kernel {ms:.4f} ms (alone {alone:.2f} us), plain {plain:.4f} ms; "
+              f"bound {b_ms:.5f} ms ({b_by}, {cells} cells); {lib_txt}", flush=True)
         if not err <= BEAM_TOL[name] * scale:
             raise AssertionError(f"beam_eval {name} {(ch, order)} disagrees with its plain version")
         prev = results.get(name, (0.0, None, None, None, None))
         timed = (ms, plain, (b_ms, b_by), None) if (ch, order) == (8, 3) else prev[1:]
         results[name] = (max(prev[0], err), *timed)
+    return results
+
+
+# (epilogue, order) of the phase-3 beam_rows cases: the slice's power beam
+# is order 1, its Jones beam order 3.
+ROWS_CASES = (("power", 1), ("jones-I", 3), ("jones-iquv", 3))
+ROWS_BLOCKS = (4096, 471)  # a full source block and the slice's ragged last one
+# Operations a point beyond the 2 K^2 nch of the interpolation: the cells,
+# and the coherency rows times the flux and the mask.
+ROWS_EPILOGUE_OPS = {"power": 16, "jones-I": 84, "jones-iquv": 244}
+
+
+def rows_bound(table, az, za, mask, grid, epilogue: str, name: str):
+    """The table cells the unmasked points' taps touch (the channels the
+    epilogue reads), their az, za and sky, the whole mask, read once, and
+    the rows written once; 2 K^2 nch + the epilogue's operations an
+    unmasked point."""
+    from fftvis_tpu_torch.beams import eval as eval_mod
+
+    ny, nx, ch = table.shape
+    on = mask != 0
+    yy, xx = eval_mod.grid_cells(az[on], za[on], grid)
+    taps = eval_mod._linear_taps if grid.order == 1 else eval_mod._cubic_taps
+    iy, _ = taps(yy, ny, False)
+    ix, _ = taps(xx, nx, grid.wrap)
+    cells = torch_unique_count(iy[:, :, None] * nx + ix[:, None, :])
+    rb = table.element_size()
+    n, active, k = az.shape[0], int(on.sum().item()), iy.shape[1]
+    nch, C = (1, 1) if epilogue == "power" else (ch, 4)
+    sky_reals = 8 if epilogue == "jones-iquv" else 1
+    nbytes = cells * nch * rb + active * (2 + sky_reals) * rb + n * rb + C * n * 2 * rb
+    ops = active * (2 * k * k * nch + ROWS_EPILOGUE_OPS[epilogue])
+    return bound(nbytes, ops, name), cells, active
+
+
+def check_beam_rows() -> dict:
+    """Phase 3: the fused beam_rows against beam_rows_plain on the committed
+    beam's prepared tables. Returns {dtype: (max err, ms, plain_ms, bound,
+    None)}, the times those of Jones x Stokes I at 4096 points (the slice's
+    polarized source block)."""
+    import torch
+
+    from fftvis_tpu_torch.beams import eval as eval_mod
+    from fftvis_tpu_torch.beams import prepare_beam, read_beamfits
+    from fftvis_tpu_torch.core.coherency import build_coherency
+
+    rng = np.random.default_rng(3)
+    beam = read_beamfits(str(ASSET))
+    results = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        for epilogue, order in ROWS_CASES:
+            iquv = epilogue == "jones-iquv"
+            pb = prepare_beam(beam, np.array(FREQS), epilogue != "power",
+                              spline_opts={"order": order}, dtype=dt, device="cuda")
+            table, grid = pb.table[0], pb.grid
+            ny, nx, ch = table.shape
+            for n in ROWS_BLOCKS:
+                y, x = beam_points(ny, nx, n, rng)
+                az = torch.tensor(grid.az0 + x * grid.daz, dtype=dt, device="cuda")
+                za = torch.tensor(grid.za0 + y * grid.dza, dtype=dt, device="cuda")
+                mask = torch.tensor(rng.uniform(size=n) < 0.5, dtype=dt, device="cuda")
+                stokes = rng.uniform(0.1, 1.0, (n, len(FREQS)))
+                if iquv:
+                    pol = rng.uniform(-0.05, 0.05, (3, n, len(FREQS)))
+                    coh = build_coherency(np.stack([stokes, *pol], axis=-1), True)
+                    sky = torch.tensor(coh, dtype=eval_mod.COMPLEX[dt], device="cuda")[:, 0]
+                else:
+                    sky = torch.tensor(stokes, dtype=dt, device="cuda")[:, 0]
+
+                def call():
+                    return eval_mod.beam_rows(table, az, za, sky, mask, grid, iquv)
+
+                def plain_call():
+                    return eval_mod.beam_rows_plain(table, az, za, sky, mask, grid, iquv)
+
+                got, want = call(), plain_call()
+                torch.cuda.synchronize()
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                ms = cuda_ms(call, 50)
+                alone = kernel_us(call, "beam_rows_points")
+                plain = cuda_ms(plain_call, 20)
+                (b_ms, b_by), cells, active = rows_bound(table, az, za, mask, grid,
+                                                         epilogue, name)
+                print(f"[3] beam_rows {name} {epilogue}: table ({ny}, {nx}, {ch}) order "
+                      f"{order} n={n} ({active} unmasked): max err {err:.3e} = "
+                      f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone "
+                      f"{alone:.2f} us), plain {plain:.4f} ms; bound {b_ms:.5f} ms "
+                      f"({b_by}, {cells} cells); library call: none (no one PyTorch "
+                      f"call interpolates and forms coherency rows)", flush=True)
+                if not err <= BEAM_TOL[name] * scale:
+                    raise AssertionError(f"beam_rows {name} {epilogue} n={n} disagrees "
+                                         "with its plain version")
+                prev = results.get(name, (0.0, None, None, None, None))
+                main = (epilogue, n) == ("jones-I", ROWS_BLOCKS[0])
+                timed = (ms, plain, (b_ms, b_by), None) if main else prev[1:]
+                results[name] = (max(prev[0], err), *timed)
     return results
 
 
@@ -436,7 +573,8 @@ def direct_oracle(kw):
 
 
 PROFILE_RUNS = (0, 2, 3, 4)  # RUNS indices: analytic p=1 and the tabulated runs
-KERNEL_NAMES = {"spread": "spread_gm", "interp": "interp_runs", "beam_eval": "beam_eval_points"}
+KERNEL_NAMES = {"spread": "spread_gm", "interp": "interp_runs", "beam_eval": "beam_eval_points",
+                "beam_rows": "beam_rows_points"}
 
 
 def profile_runs(cfg) -> None:
@@ -476,6 +614,7 @@ def profile_runs(cfg) -> None:
                 rows.append((us, ev.count, ev.key))
         rows.sort(reverse=True)
         busy_ms = sum(r[0] for r in rows) / 1e3
+        nkernels = sum(c for _, c, key in rows if not key.startswith(("Memcpy", "Memset")))
         mine = []
         for kname, sym in KERNEL_NAMES.items():
             hits = [r for r in rows if sym in r[2]]
@@ -486,8 +625,8 @@ def profile_runs(cfg) -> None:
             f"{us / 1e3:10.4f} ms {count:6d}  {key[:160]}\n" for us, count, key in rows[:40]))
         print(f"[6] profile {kind} {beam} precision={precision}: warm walls "
               f"{', '.join(f'{t:.4f}' for t in walls)} s; profiled wall {wall:.4f} s, "
-              f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / 1e3 / wall:.4f}; "
-              f"{'; '.join(mine)}", flush=True)
+              f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / 1e3 / wall:.4f}, "
+              f"{nkernels} device kernel launches; {'; '.join(mine)}", flush=True)
 
 
 def main() -> int:
@@ -510,29 +649,35 @@ def main() -> int:
 
     cfg = slice_config()
     checks = check_nufft_kernels(cfg)
-    beam_checks = check_beam_eval()
+    beam_checks = {"beam_eval": check_beam_eval(), "beam_rows": check_beam_rows()}
 
-    counters = {"spread": spread_mod, "interp": interp_mod, "beam_eval": eval_mod}
+    # Each kernel's launch counter: (module, attribute).
+    counters = {"spread": (spread_mod, "launches"), "interp": (interp_mod, "launches"),
+                "beam_eval": (eval_mod, "launches"), "beam_rows": (eval_mod, "rows_launches")}
     nbl = len(cfg["baselines"])
     vis, launches = {}, {}
     for i, run in enumerate(RUNS):
         kind, beam, polarized, _, precision = run
         kw = run_kwargs(cfg, run)
-        for mod in counters.values():
-            mod.launches = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         t0 = time.perf_counter()
         out = simulate_vis(device="cuda", **kw)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        launches[i] = {k: mod.launches for k, mod in counters.items()}
+        launches[i] = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         want_shape = (len(FREQS), 3) + ((2, 2) if polarized else ()) + (nbl,)
         if out.shape != want_shape or not np.all(np.isfinite(out)):
             raise AssertionError(
                 f"{kind} precision={precision}: shape {out.shape} (want {want_shape}), "
                 f"finite={bool(np.all(np.isfinite(out)))}"
             )
-        path = ("spread", "interp") + (("beam_eval",) if beam == "tabulated" else ())
-        if min(launches[i][k] for k in path) <= 0:
+        path = ("spread", "interp") + (("beam_rows",) if beam == "tabulated" else ())
+        # One fused beam_rows a source block of a tabulated run (as many as
+        # spreads), and no interpolation alone on the main path.
+        rows_want = launches[i]["spread"] if beam == "tabulated" else 0
+        if (min(launches[i][k] for k in path) <= 0 or launches[i]["beam_eval"] != 0
+                or launches[i]["beam_rows"] != rows_want):
             raise AssertionError(f"{kind} precision={precision}: kernel launches {launches[i]}")
         t0 = time.perf_counter()
         simulate_vis(device="cuda", **kw)
@@ -572,10 +717,11 @@ def main() -> int:
         ("spread", "fftvis_tpu_torch/csrc/spread.cu", "fftvis_tpu/nufft/pallas_spread.py:219"),
         ("interp", "fftvis_tpu_torch/csrc/interp.cu", "fftvis_tpu/nufft/pallas_interp.py:162"),
         ("beam_eval", "fftvis_tpu_torch/csrc/beam_eval.cu", "fftvis_tpu/beams/pallas_eval.py:287"),
+        ("beam_rows", "fftvis_tpu_torch/csrc/beam_eval.cu", "fftvis_tpu/beams/pallas_eval.py:287"),
     ):
         for precision, dname in ((1, "float32"), (2, "float64")):
-            if kname == "beam_eval":
-                err, ms, plain_ms, (b_ms, b_by), lib_ms = beam_checks[dname]
+            if kname in beam_checks:
+                err, ms, plain_ms, (b_ms, b_by), lib_ms = beam_checks[kname][dname]
             else:
                 err, ms, plain_ms, (b_ms, b_by), lib_ms = checks[dname][kname]
             kernels.append({

@@ -102,7 +102,7 @@ def load_kernels():
     if _LIB is not None:
         return _LIB
     lib = ctypes.CDLL(str(build()))
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     for name in ("fftvis_spread_f32", "fftvis_spread_f64"):
         fn = getattr(lib, name)
         # uy, ux, wts, grid, n, C, nfy, nfx, w, beta, stream
@@ -118,6 +118,12 @@ def load_kernels():
         fn = getattr(lib, name)
         # data, y, x, out, npts, ny, nx, ch, order, wrap, stream
         fn.argtypes = [P] * 4 + [I] * 6 + [P]
+        fn.restype = I
+    for name in ("fftvis_beam_rows_f32", "fftvis_beam_rows_f64"):
+        fn = getattr(lib, name)
+        # data, az, za, sky, mask, out, n, ny, nx, ch, c0, order, wrap, epi,
+        # nch, sky strides (3), za0, dza, az0, daz, stream
+        fn.argtypes = [P] * 6 + [I] * 9 + [L] * 3 + [D] * 4 + [P]
         fn.restype = I
     _LIB = lib
     return lib

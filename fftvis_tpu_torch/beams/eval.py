@@ -1,5 +1,5 @@
-"""Beam-table evaluation: the hand-written CUDA kernel and its plain torch
-version.
+"""Beam-table evaluation: the hand-written CUDA kernels and their plain
+torch versions.
 
 Replaces the Pallas beam evaluator of the JAX package
 (``fftvis_tpu/beams/pallas_eval.py``, ``_build_eval_call``, driven by
@@ -13,30 +13,73 @@ returns (npts, ch):
   (:func:`~fftvis_tpu_torch.beams.interp.spline_prefilter_2d`); y mirrored
   (scipy 'mirror'); x mirrored, or periodic with ``wrap_x``.
 
+Two entries, one CUDA source (``csrc/beam_eval.cu``) with shared tap code:
+
+- :func:`beam_eval`, the interpolation alone: one unit per (point, chunk
+  of 8 channels), 16-byte vector reads; 4 threads split a unit's taps;
+- :func:`beam_rows`, one source block of the engine's loop in one launch:
+  the (y, x) cells from (az, za) as :func:`grid_cells` forms them, the
+  interpolation, the apparent-coherency rows of
+  :func:`~fftvis_tpu_torch.core.coherency.apparent_coherency_rows` and the
+  horizon mask -- what the JAX engine's ``source_block_weights``
+  (``fftvis_tpu/tpu/program.py``) computes for one shared tabulated beam.
+  4 threads a point split its taps and add their partial channel vectors
+  in registers; lane c writes row c.
+
 The TPU kernel bin-sorts points into tiles and rebuilds the taps as one-hot
 matrices for its matrix unit, because gathers are slow there. On the card a
-direct gather is the natural form: the CUDA kernel (``csrc/beam_eval.cu``)
-runs one thread per (point, channel), channel fastest, so a warp's tap
-reads are contiguous ch-vectors; outputs are disjoint, so there are no
-atomics, no sort and no pads.
+direct gather is the natural form. Cells come from an exact floor of the
+raw coordinate, folded (wrap) or mirrored in integer arithmetic; ``y >=
+ny-1`` reads row ``ny-1`` at order 1, as the TPU kernel and scipy do. (The
+JAX gather path's float64 order-1 clip sends ``y >= ny-1`` to row
+``ny-2``; the port does not copy that.)
 
-Cells come from an exact floor of the raw coordinate, folded (wrap) or
-mirrored in integer arithmetic; ``y >= ny-1`` reads row ``ny-1`` at order
-1, as the TPU kernel and scipy do. (The JAX gather path's float64 order-1
-clip sends ``y >= ny-1`` to row ``ny-2``; the port does not copy that.)
-
-What bounds it on the card: npts * taps * ch gathered reals from a table
-that fits in L2; at the slice's 4096-point source blocks a call is
-launch-bound.
+What bounds them on the card: the table cells the taps touch (a table that
+fits in L2) and the points and rows, a fraction of a microsecond at the
+slice's 4096-point source blocks; a call is launch-bound, so the fused
+kernel's gain is the ~17 launches of the unfused source block it replaces.
+Each wrapper takes the plain version only for CPU tensors, launches its
+kernel for CUDA tensors and raises on any other device; ``launches`` and
+``rows_launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
 
-import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 
-launches = 0
+from ..core.coherency import apparent_coherency_rows
+
+launches = 0  # beam_eval_points launches: the interpolation alone
+rows_launches = 0  # beam_rows_points launches: fused source blocks
+
+TWO_PI = 2.0 * math.pi
+COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+# Epilogue codes of the fused kernel.
+POWER, JONES_I, JONES_IQUV = 0, 1, 2
+
+
+@dataclass(frozen=True)
+class TableGrid:
+    """Where a prepared table's cells lie and how its channels read.
+
+    The table is (ny, nx, chflat) per frequency, chflat the flattened
+    ``ch_shape`` = ([2 re/im,] nvec, nfeed); ``feed`` selects a power
+    beam's feed.
+    """
+
+    za0: float
+    dza: float
+    az0: float
+    daz: float
+    order: int
+    wrap: bool
+    ch_shape: tuple
+    is_complex: bool
+    is_power: bool
+    feed: int = 0
 
 
 def _mirror(i: torch.Tensor, n: int) -> torch.Tensor:
@@ -95,10 +138,38 @@ def beam_eval_plain(data, y, x, order: int = 1, wrap_x: bool = False) -> torch.T
     return torch.einsum("pabc,pa,pb->pc", sub, wy, wx)
 
 
+def grid_cells(az, za, grid: TableGrid):
+    """The fractional (y, x) table cells of (az, za) points."""
+    yy = (za - grid.za0) / grid.dza
+    if grid.wrap:
+        # mod 2pi with the float semantics of jnp.mod; the result may
+        # round to exactly 2pi, which the evaluator folds to column 0.
+        r = torch.fmod(az - grid.az0, TWO_PI)
+        xx = torch.where(r < 0, r + TWO_PI, r) / grid.daz
+    else:
+        xx = (az - grid.az0) / grid.daz
+    return yy, xx
+
+
+def table_response(vals, grid: TableGrid):
+    """(npts, chflat) interpolated channels -> the beam response: (2 vec,
+    2 feed, npts) Jones, or the selected feed's (npts,) real power."""
+    vals = vals.T.reshape(grid.ch_shape + (vals.shape[0],))
+    if grid.is_complex:
+        vals = torch.complex(vals[0], vals[1])
+    if grid.is_power:
+        return vals[0, min(grid.feed, vals.shape[1] - 1)].real
+    return vals
+
+
+def _same_device(dev: int, *tensors) -> bool:
+    return all(t.get_device() == dev for t in tensors)
+
+
 def _check(data, y, x, order: int) -> None:
-    if not (data.device == y.device == x.device):
+    if not _same_device(data.get_device(), y, x):
         raise ValueError("beam_eval: all tensors must be on one device")
-    if data.dtype not in (torch.float32, torch.float64):
+    if data.dtype not in COMPLEX:
         raise TypeError(f"beam_eval: table must be float32/float64, got {data.dtype}")
     if y.dtype != data.dtype or x.dtype != data.dtype:
         raise TypeError(
@@ -121,33 +192,147 @@ def beam_eval(data, y, x, order: int = 1, wrap_x: bool = False) -> torch.Tensor:
     CUDA kernel; any other device raises.
     """
     _check(data, y, x, order)
-    if data.device.type == "cpu":
-        return beam_eval_plain(data, y, x, order, wrap_x)
-    if data.device.type != "cuda":
+    if data.is_cuda:
+        return _beam_eval_cuda(data, y.contiguous(), x.contiguous(), order, wrap_x)
+    if data.device.type != "cpu":
         raise ValueError(f"beam_eval: unsupported device {data.device}")
-    return _beam_eval_cuda(data, y.contiguous(), x.contiguous(), order, wrap_x)
+    return beam_eval_plain(data, y, x, order, wrap_x)
+
+
+def _epilogue(grid: TableGrid, polarized_sky: bool) -> int:
+    if grid.is_power:
+        return POWER
+    return JONES_IQUV if polarized_sky else JONES_I
+
+
+def beam_rows_plain(data, az, za, sky, mask, grid: TableGrid,
+                    polarized_sky: bool = False) -> torch.Tensor:
+    """Plain torch source block: :func:`grid_cells`, :func:`beam_eval_plain`,
+    :func:`table_response`, ``apparent_coherency_rows``, the complex cast
+    and the mask. Returns (C, n) complex rows, C = 1 (power) or 4."""
+    yy, xx = grid_cells(az, za, grid)
+    resp = table_response(beam_eval_plain(data, yy, xx, grid.order, grid.wrap), grid)
+    rows = apparent_coherency_rows(resp, resp, sky, not grid.is_power, polarized_sky)
+    return rows.to(COMPLEX[data.dtype]) * mask[None, :]
+
+
+def _check_rows(data, az, za, sky, mask, grid: TableGrid, epi: int) -> None:
+    if not _same_device(data.get_device(), az, za, sky, mask):
+        raise ValueError("beam_rows: all tensors must be on one device")
+    if data.dtype not in COMPLEX:
+        raise TypeError(f"beam_rows: table must be float32/float64, got {data.dtype}")
+    if data.dim() != 3 or not data.is_contiguous():
+        raise ValueError(f"beam_rows: table must be a contiguous (ny, nx, ch), "
+                         f"got {tuple(data.shape)}")
+    n = az.shape[0]
+    for name, t in (("az", az), ("za", za), ("mask", mask)):
+        if t.dtype != data.dtype or t.shape != (n,):
+            raise ValueError(f"beam_rows: {name} must be ({n},) {data.dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if epi == JONES_IQUV:
+        if sky.dtype != COMPLEX[data.dtype] or sky.shape != (n, 2, 2):
+            raise ValueError(f"beam_rows: an IQUV sky must be ({n}, 2, 2) "
+                             f"{COMPLEX[data.dtype]}, got {tuple(sky.shape)} {sky.dtype}")
+    elif sky.dtype != data.dtype or sky.shape != (n,):
+        raise ValueError(f"beam_rows: a Stokes-I sky must be ({n},) {data.dtype}, "
+                         f"got {tuple(sky.shape)} {sky.dtype}")
+    ch = data.shape[2]
+    if math.prod(grid.ch_shape) != ch:
+        raise ValueError(f"beam_rows: table has {ch} channels, the grid {grid.ch_shape}")
+    if epi != POWER and ch != (8 if grid.is_complex else 4):
+        raise ValueError(f"beam_rows: a Jones table has 2 x 2 channels, got {grid.ch_shape}")
+    if grid.order not in (1, 3):
+        raise ValueError(f"beam_rows: order must be 1 or 3, got {grid.order}")
+
+
+def beam_rows(data, az, za, sky, mask, grid: TableGrid,
+              polarized_sky: bool = False) -> torch.Tensor:
+    """One source block's apparent-coherency rows of a tabulated beam.
+
+    ``data`` the (ny, nx, chflat) table of one frequency laid out as
+    ``grid`` says; ``az``, ``za`` and the horizon ``mask`` (n,) in its
+    dtype; ``sky`` the (n,) real Stokes-I flux, or with ``polarized_sky``
+    the (n, 2, 2) complex coherency, at that frequency (any strides).
+    Returns (C, n) complex rows ``mask * coherency(interp(table, cells),
+    sky)``: C = 1 for a power beam, else 4 ordered (00, 01, 10, 11). A
+    CPU tensor takes :func:`beam_rows_plain`; a CUDA tensor launches the
+    fused kernel; any other device raises.
+    """
+    epi = _epilogue(grid, polarized_sky)
+    _check_rows(data, az, za, sky, mask, grid, epi)
+    if data.is_cuda:
+        return _beam_rows_cuda(data, az.contiguous(), za.contiguous(), sky,
+                               mask.contiguous(), grid, epi)
+    if data.device.type != "cpu":
+        raise ValueError(f"beam_rows: unsupported device {data.device}")
+    return beam_rows_plain(data, az, za, sky, mask, grid, polarized_sky)
+
+
+# ------------------------------------------------------------ launches
+
+_KERNELS = None
+
+
+def _kernels():
+    """The ctypes entry points by (kernel, dtype), resolved once."""
+    global _KERNELS
+    if _KERNELS is None:
+        from .._build import load_kernels
+
+        lib = load_kernels()
+        _KERNELS = {
+            ("eval", torch.float32): lib.fftvis_beam_eval_f32,
+            ("eval", torch.float64): lib.fftvis_beam_eval_f64,
+            ("rows", torch.float32): lib.fftvis_beam_rows_f32,
+            ("rows", torch.float64): lib.fftvis_beam_rows_f64,
+        }
+    return _KERNELS
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _beam_eval_cuda(data, y, x, order: int, wrap_x: bool) -> torch.Tensor:
     global launches
-    from .._build import load_kernels
-
-    lib = load_kernels()
+    k = _kernels()
     ny, nx, ch = data.shape
     npts = y.shape[0]
-    out = torch.empty((npts, ch), dtype=data.dtype, device=data.device)
+    out = data.new_empty((npts, ch))
     if npts == 0 or ch == 0:
         return out
-    fn = lib.fftvis_beam_eval_f32 if data.dtype == torch.float32 else lib.fftvis_beam_eval_f64
-    err = fn(
-        ctypes.c_void_p(data.data_ptr()),
-        ctypes.c_void_p(y.data_ptr()),
-        ctypes.c_void_p(x.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        npts, ny, nx, ch, order, int(bool(wrap_x)),
-        ctypes.c_void_p(torch.cuda.current_stream(data.device).cuda_stream),
+    err = k[("eval", data.dtype)](
+        data.data_ptr(), y.data_ptr(), x.data_ptr(), out.data_ptr(),
+        npts, ny, nx, ch, order, int(bool(wrap_x)), _stream(data),
     )
     if err != 0:
         raise RuntimeError(f"beam_eval kernel launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+def _beam_rows_cuda(data, az, za, sky, mask, grid: TableGrid, epi: int) -> torch.Tensor:
+    global rows_launches
+    k = _kernels()
+    ny, nx, ch = data.shape
+    n = az.shape[0]
+    out = az.new_empty((1 if epi == POWER else 4, n), dtype=COMPLEX[data.dtype])
+    if n == 0:
+        return out
+    if epi == POWER:
+        # Channel (0 [re], 0 vec, feed) of chflat, as table_response reads it.
+        nch, c0 = 1, min(grid.feed, grid.ch_shape[-1] - 1)
+    else:
+        nch, c0 = ch, 0
+    # Strides in reals: a complex element is two.
+    sp, sa, sb = (2 * s for s in sky.stride()) if epi == JONES_IQUV else (sky.stride(0), 0, 0)
+    err = k[("rows", data.dtype)](
+        data.data_ptr(), az.data_ptr(), za.data_ptr(), sky.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), n, ny, nx, ch, c0, grid.order,
+        int(grid.wrap), epi, nch, sp, sa, sb, grid.za0, grid.dza, grid.az0,
+        grid.daz, _stream(data),
+    )
+    if err != 0:
+        raise RuntimeError(f"beam_rows kernel launch failed: CUDA error {err}")
+    rows_launches += 1
     return out

@@ -5,17 +5,18 @@ analytic beam, a :class:`~fftvis_tpu_torch.beams.gridded.GriddedBeam` or a
 (duck-typed) UVBeam; ``PowerBeam`` / ``prepare_beam_unpolarized`` turn it
 into a single-feed power beam (matvis's prepare_beam_unpolarized); and
 :func:`prepare_beam` compiles it into a :class:`PreparedBeam` whose
-``evaluate`` runs on tensors inside the engine's loop.
+``rows`` and ``evaluate`` run on tensors inside the engine's loop.
 
 A tabulated beam is prepared once on the host -- frequency interpolation,
 the za-domain check, complex -> stacked (re, im), the cubic-spline
 prefilter in float64, the channels-last relayout (nfreq, ny, nx, chflat) --
 and its table is taken into the compute dtype and onto the device once.
-Each evaluation then interpolates it with
-:func:`~fftvis_tpu_torch.beams.eval.beam_eval` (the CUDA kernel on the
-card). The JAX package's prepared-beam content cache, batched stacks of
-same-grid beams and the ``FFTVIS_BEAM_UPSAMPLE`` resampling are later
-ROADMAP items.
+``PreparedBeam.rows`` then forms one source block's masked coherency rows
+from it with :func:`~fftvis_tpu_torch.beams.eval.beam_rows` (one fused
+CUDA kernel on the card); ``evaluate`` interpolates it with
+:func:`~fftvis_tpu_torch.beams.eval.beam_eval`. The JAX package's
+prepared-beam content cache, batched stacks of same-grid beams and the
+``FFTVIS_BEAM_UPSAMPLE`` resampling are later ROADMAP items.
 """
 
 from __future__ import annotations
@@ -26,15 +27,15 @@ import os
 import numpy as np
 import torch
 
+from ..core.coherency import apparent_coherency_rows
 from .analytic import AnalyticBeam
-from .eval import beam_eval
+from .eval import TableGrid, beam_eval, beam_rows, grid_cells, table_response
 from .gridded import GriddedBeam
 from .interp import spline_prefilter_2d
 
 logger = logging.getLogger(__name__)
 
 _FEED_INDEX = {"x": 0, "y": 1}
-TWO_PI = 2.0 * np.pi
 
 
 class BeamInterface:
@@ -89,15 +90,35 @@ class PreparedBeam:
       - unpolarized: (nsrc,) real power response,
     in the dtype of ``za``. ``freq_value`` is a host float (analytic beams);
     ``freq_index`` indexes the simulation frequencies (gridded tables are
-    interpolated onto them at prepare time).
+    interpolated onto them at prepare time). A tabulated beam also carries
+    its device ``table`` (nfreq, ny, nx, chflat) and its ``grid``.
     """
 
-    def __init__(self, evaluate_fn, polarized: bool):
+    def __init__(self, evaluate_fn, polarized: bool, table=None,
+                 grid: TableGrid | None = None):
         self._fn = evaluate_fn
         self.polarized = polarized
+        self.table = table
+        self.grid = grid
 
     def evaluate(self, az, za, freq_value: float, freq_index: int):
         return self._fn(az, za, freq_value, freq_index)
+
+    def rows(self, az, za, freq_value: float, freq_index: int, flux, mask,
+             polarized_sky: bool, complex_dtype: torch.dtype) -> torch.Tensor:
+        """One source block's (C, nsrc) apparent-coherency rows times the
+        horizon ``mask``, in ``complex_dtype``: the beam response and
+        ``apparent_coherency_rows`` for this beam with itself. ``flux`` is
+        the sky at this frequency, (nsrc,) real or (nsrc, 2, 2) complex
+        (IQUV). A tabulated beam takes the fused
+        :func:`~fftvis_tpu_torch.beams.eval.beam_rows`."""
+        if self.table is not None:
+            rows = beam_rows(self.table[freq_index], az, za, flux, mask, self.grid,
+                             polarized_sky)
+            return rows.to(complex_dtype)
+        resp = self.evaluate(az, za, freq_value, freq_index)
+        rows = apparent_coherency_rows(resp, resp, flux, self.polarized, polarized_sky)
+        return rows.to(complex_dtype) * mask[None, :]
 
 
 def _spline_order(spline_opts: dict | None, interpolation_function: str) -> int:
@@ -138,7 +159,7 @@ def prepare_beam(
     interpolation_function: str = "az_za_map_coordinates",
     use_feed: str = "x",
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> PreparedBeam:
     """Compile one beam into a :class:`PreparedBeam` for the simulation
     frequencies ``freqs``; a tabulated beam's table goes to ``device`` in
@@ -233,21 +254,12 @@ def prepare_beam(
     else:
         feed_idx = _FEED_INDEX[want_feed]
 
-    def eval_grid(az, za, fv, fi):
-        yy = (za - za0) / dza
-        if wrap:
-            # mod 2pi with the float semantics of jnp.mod; the result may
-            # round to exactly 2pi, which the evaluator folds to column 0.
-            r = torch.fmod(az - az0, TWO_PI)
-            xx = torch.where(r < 0, r + TWO_PI, r) / daz
-        else:
-            xx = (az - az0) / daz
-        vals = beam_eval(table[fi], yy, xx, order=order, wrap_x=wrap)  # (nsrc, ch)
-        vals = vals.T.reshape(ch_shape + (vals.shape[0],))
-        if is_complex:
-            vals = torch.complex(vals[0], vals[1])
-        if is_power:
-            return vals[0, min(feed_idx, vals.shape[1] - 1)]
-        return vals
+    grid = TableGrid(za0=za0, dza=dza, az0=az0, daz=daz, order=order, wrap=wrap,
+                     ch_shape=ch_shape, is_complex=is_complex, is_power=is_power,
+                     feed=feed_idx)
 
-    return PreparedBeam(eval_grid, polarized=not is_power)
+    def eval_grid(az, za, fv, fi):
+        yy, xx = grid_cells(az, za, grid)
+        return table_response(beam_eval(table[fi], yy, xx, order=order, wrap_x=wrap), grid)
+
+    return PreparedBeam(eval_grid, polarized=not is_power, table=table, grid=grid)

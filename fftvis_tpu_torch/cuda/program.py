@@ -10,8 +10,9 @@ Python loops over tensors:
                 horizon mask, (az, za)
       per freq:
         per source block of ``block``:
-                beam response -> coherency rows x mask -> transform
-                coords -> spread into the fine grid (type-3) or direct sum
+                beam response -> coherency rows x mask (one fused kernel
+                for a tabulated beam) -> transform coords -> spread into
+                the fine grid (type-3) or direct sum
         after the blocks: FFT + deconvolution + interpolation (type-3),
                 flip conjugation without a feed swap, the reference's
                 feed transpose
@@ -28,7 +29,6 @@ import torch
 
 from ..beams.interface import PreparedBeam
 from ..coords.rotation import enu_to_az_za
-from ..core.coherency import apparent_coherency_rows
 from ..core.utils import speed_of_light
 from ..nufft.direct import direct_type3
 from .planning import SimPlan
@@ -97,10 +97,8 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
                                   dtype=cfg.complex_dtype, device=dev)
             for b0 in range(0, nsrc, cfg.block):
                 sl = slice(b0, b0 + cfg.block)
-                resp = cfg.beam.evaluate(az[sl], za[sl], fv, fi)
-                rows = apparent_coherency_rows(resp, resp, flux_f[sl], cfg.polarized,
-                                               cfg.polarized_sky)
-                rows = rows.to(cfg.complex_dtype) * mask[sl][None, :]
+                rows = cfg.beam.rows(az[sl], za[sl], fv, fi, flux_f[sl], mask[sl],
+                                     cfg.polarized_sky, cfg.complex_dtype)
                 x = xr[:, sl] * scale
                 if plan.mode == "direct":
                     acc += direct_type3(x, rows, targets, source_block=cfg.block)

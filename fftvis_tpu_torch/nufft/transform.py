@@ -261,7 +261,7 @@ class Type3Executor:
     ``interpolate`` evaluates every planned target.
     """
 
-    def __init__(self, plan: Type3Plan, device="cpu"):
+    def __init__(self, plan: Type3Plan, device="cuda"):
         if plan.d != 2:
             raise NotImplementedError(
                 f"d={plan.d} type-3 (non-coplanar arrays) is ROADMAP item 8"

@@ -162,7 +162,7 @@ def test_prepared_tabulated_beam_matches_reference(polarized, order, precision):
         beam = prepare_beam_unpolarized(beam, use_feed="y")
         jbeam = jax_interface.prepare_beam_unpolarized(jbeam, use_feed="y")
     pb = prepare_beam(beam, freqs, polarized, spline_opts=opts,
-                      dtype=torch.float64 if precision == 2 else torch.float32)
+                      dtype=torch.float64 if precision == 2 else torch.float32, device="cpu")
     jpb = jax_interface.prepare_beam(jbeam, freqs, polarized, spline_opts=opts)
     assert pb.polarized == jpb.polarized == polarized
     az, za = _points(500, seed=order, dtype=rdt)
@@ -177,7 +177,7 @@ def test_prepared_tabulated_beam_matches_reference(polarized, order, precision):
 @pytest.mark.parametrize("polarized", [True, False])
 def test_prepared_analytic_beam_matches_reference(polarized):
     az, za = _points(200, seed=3, dtype=np.float64)
-    pb = prepare_beam(ShortDipoleBeam(), [1e8], polarized, use_feed="y")
+    pb = prepare_beam(ShortDipoleBeam(), [1e8], polarized, use_feed="y", device="cpu")
     jpb = jax_interface.prepare_beam(jax_analytic.ShortDipoleBeam(), np.array([1e8]),
                                      polarized, use_feed="y")
     got = pb.evaluate(torch.from_numpy(az), torch.from_numpy(za), 1e8, 0).numpy()
@@ -210,9 +210,9 @@ def test_za_domain_check_and_clamp_opt_in(monkeypatch):
                        short.freq_array, "efield", feeds=["x", "y"])
     monkeypatch.delenv("FFTVIS_ALLOW_BEAM_CLAMP", raising=False)
     with pytest.raises(ValueError, match="check_azza_domain"):
-        prepare_beam(beam, [1e8], True)
+        prepare_beam(beam, [1e8], True, device="cpu")
     monkeypatch.setenv("FFTVIS_ALLOW_BEAM_CLAMP", "1")
-    assert prepare_beam(beam, [1e8], True).polarized
+    assert prepare_beam(beam, [1e8], True, device="cpu").polarized
 
 
 def test_feed_selection():
@@ -220,15 +220,17 @@ def test_feed_selection():
     power = beam.as_power_beam()
     az, za = (torch.from_numpy(a) for a in _points(50, seed=4, dtype=np.float64))
     for feed, idx in (("x", 0), ("y", 1)):
-        pb = prepare_beam(prepare_beam_unpolarized(beam, use_feed=feed), [1e8], False)
+        pb = prepare_beam(prepare_beam_unpolarized(beam, use_feed=feed), [1e8], False,
+                          device="cpu")
         one = GriddedBeam(power.data_array[:, idx:idx + 1], power.axis1_array,
                           power.axis2_array, power.freq_array, "power")
-        want = prepare_beam(one, [1e8], False)
+        want = prepare_beam(one, [1e8], False, device="cpu")
         np.testing.assert_allclose(pb.evaluate(az, za, 1e8, 0).numpy(),
                                    want.evaluate(az, za, 1e8, 0).numpy(), rtol=1e-14)
     single = GriddedBeam(power.data_array[:, :1], power.axis1_array, power.axis2_array,
                          power.freq_array, "power", feeds=["x"])
     with pytest.raises(ValueError, match="not present"):
-        prepare_beam(prepare_beam_unpolarized(single, use_feed="y"), [1e8], False)
+        prepare_beam(prepare_beam_unpolarized(single, use_feed="y"), [1e8], False,
+                     device="cpu")
     with pytest.raises(ValueError, match="efield"):
-        prepare_beam(power, [1e8], True)
+        prepare_beam(power, [1e8], True, device="cpu")

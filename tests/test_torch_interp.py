@@ -111,7 +111,7 @@ def test_interp_through_target_order(rdt, cdt, tol):
     np.testing.assert_allclose(scattered, want, atol=tol * scale, rtol=0)
     np.testing.assert_allclose(got, want, atol=tol * scale, rtol=0)
     # Through the executor, whose tables are in target order.
-    ex_got = Type3Executor(Type3Plan.from_reference(plan)).interpolate(Gt).numpy()
+    ex_got = Type3Executor(Type3Plan.from_reference(plan), device="cpu").interpolate(Gt).numpy()
     np.testing.assert_allclose(ex_got, want, atol=tol * scale, rtol=0)
     if rdt == torch.float32:
         ref = np.asarray(PallasInterp(plan)(jnp.asarray(G.astype(np.complex64))))
@@ -175,7 +175,7 @@ def test_footprint_runs_of_the_executor():
     """The executor keeps the target order and the runs of its
     tile-ordered tables beside them."""
     plan, _ = _plan_and_grid(300, 400, seed=4)
-    ex = Type3Executor(Type3Plan.from_reference(plan))
+    ex = Type3Executor(Type3Plan.from_reference(plan), device="cpu")
     _, (iy, ix), _, order, runs = ex._device_tables(torch.float64)
     assert np.array_equal(order.numpy(), target_order(plan.tap_idx[0][:, 0],
                                                       plan.tap_idx[1][:, 0]))

@@ -216,7 +216,11 @@ def test_cuda_polarized_tabulated_matches_cpu(cuda_device, precision):
         beam_list=pbeams, telescope_loc=loc, **kw)
     for mod in (spread_mod, interp_mod, eval_mod):
         mod.launches = 0
+    eval_mod.rows_launches = 0
     got = CUDASimulationEngine(nufft_mode="type3", device=cuda_device).simulate(
         beam_list=pbeams, telescope_loc=loc, **kw)
-    assert min(spread_mod.launches, interp_mod.launches, eval_mod.launches) > 0
+    # The tabulated beam runs as fused source blocks, never the
+    # interpolation alone.
+    assert min(spread_mod.launches, interp_mod.launches, eval_mod.rows_launches) > 0
+    assert eval_mod.launches == 0
     assert np.abs(got - want).max() / np.abs(want).max() <= VS_REFERENCE[precision]

@@ -40,7 +40,7 @@ def _problem(seed, n=500, m=300, C=2):
 
 
 def _port(plan, x, c, rdt, cdt):
-    ex = Type3Executor(Type3Plan.from_reference(plan))
+    ex = Type3Executor(Type3Plan.from_reference(plan), device="cpu")
     g = ex.spread(torch.tensor(x, dtype=rdt), torch.tensor(c, dtype=cdt))
     return ex.interpolate(ex.transform(g)).numpy()
 

@@ -1,6 +1,6 @@
-"""Time the spread and interp wrappers of several checkouts, in turns.
+"""Time the kernel wrappers of several checkouts, in turns.
 
-    python3 tools/kernel_ab.py ROOT [ROOT ...]
+    python3 tools/kernel_ab.py [--beams] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each runs in a process of its
 own, in the order given (for an A/B, parent, change, change, parent), on
@@ -17,6 +17,17 @@ what it buys. The interp runs on the tap tables in baseline order and in
 the executor's tile order; where the root's wrapper takes footprint runs,
 baseline order also runs with one run a row, the form an array without
 redundant baselines takes.
+
+The beam cases time the interpolation alone (``beam_eval``) on random
+tables of the slice's shapes ((91, 360, 8) and (91, 360, 2) at orders 3
+and 1, float32 and float64, and the stacked (91, 360, 296) at order 3 in
+float32) at 4096 points, and one source block of the slice (4096 points,
+about half below the horizon) of the committed beam as the root's device
+loop forms it: ``PreparedBeam.rows`` where the root has it, else
+``evaluate``, ``apparent_coherency_rows``, the complex cast and the mask.
+A source block's line also gives ``kernels``, the device kernels one call
+launches, and ``device_us``, their device time a call. With ``--beams``
+first, only the beam cases run.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+from device_profile import device_kernels
 
 FREQS = (1.0e8, 1.1e8)
 SOURCES = 4096
@@ -48,27 +61,56 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 
 
 def kernel_us(fn, symbol: str, reps: int = REPS) -> float:
-    """Mean device time of the kernels whose name holds ``symbol``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for ev in prof.key_averages():
-        if symbol in ev.key:
-            us = getattr(ev, "self_device_time_total", None)
-            total += ev.self_cuda_time_total if us is None else us
-            count += ev.count
-    return total / max(count, 1)
+    """Mean device time of one launch of the kernels whose name holds
+    ``symbol``."""
+    d = device_kernels(fn, reps, symbol)
+    return d["device_us"] / d["kernels"] if d["kernels"] else 0.0
 
 
 def timed(fn, symbol: str) -> dict:
     return {"ms": cuda_ms(fn), "kernel_us": kernel_us(fn, symbol)}
+
+
+def beam_cases(root: str, emit) -> None:
+    import numpy as np
+    import torch
+
+    from fftvis_tpu_torch.beams import eval as eval_mod
+    from fftvis_tpu_torch.beams import prepare_beam, prepare_beam_unpolarized, read_beamfits
+    from fftvis_tpu_torch.core.coherency import apparent_coherency_rows
+
+    n = SOURCES
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    beam = read_beamfits(str(Path(root) / "tests/data/structured_dipole_100MHz.beamfits"))
+    for rdt, cdt in ((torch.float32, torch.complex64), (torch.float64, torch.complex128)):
+        name = str(rdt).split(".")[-1]
+        shapes = ((8, 3), (8, 1), (2, 3), (2, 1)) + (((296, 3),) if name == "float32" else ())
+        y = 90 * torch.rand(n, generator=gen, dtype=rdt, device="cuda")
+        x = 360 * torch.rand(n, generator=gen, dtype=rdt, device="cuda")
+        for ch, order in shapes:
+            data = torch.randn((91, 360, ch), generator=gen, dtype=rdt, device="cuda")
+            emit(kernel="beam_eval", dtype=name, table=[91, 360, ch], order=order,
+                 **timed(lambda: eval_mod.beam_eval(data, y, x, order=order, wrap_x=True),
+                         "beam_eval_points"))
+        az = 2 * np.pi * torch.rand(n, generator=gen, dtype=rdt, device="cuda")
+        za = np.pi / 2 * torch.rand(n, generator=gen, dtype=rdt, device="cuda")
+        mask = (torch.rand(n, generator=gen, device="cuda") < 0.5).to(rdt)
+        flux = torch.rand(n, generator=gen, dtype=rdt, device="cuda") + 0.1
+        for polarized, order in ((True, 3), (False, 1)):
+            src = beam if polarized else prepare_beam_unpolarized(beam)
+            pb = prepare_beam(src, np.array(FREQS), polarized, spline_opts={"order": order},
+                              dtype=rdt, device="cuda")
+            if hasattr(pb, "rows"):
+                def block():
+                    return pb.rows(az, za, FREQS[0], 0, flux, mask, False, cdt)
+            else:
+                def block():
+                    resp = pb.evaluate(az, za, FREQS[0], 0)
+                    rows = apparent_coherency_rows(resp, resp, flux, polarized, False)
+                    return rows.to(cdt) * mask[None, :]
+            emit(kernel="source block", dtype=name, polarized=polarized, order=order,
+                 ms=cuda_ms(block), **device_kernels(block, REPS))
 
 
 def prepass_sort_searchsorted(uy, ux, nfy: int, nfx: int):
@@ -90,7 +132,7 @@ def prepass_bare_sort(uy, ux, nfx: int):
     return torch.sort(tid)[1].to(torch.int32)
 
 
-def child(root: str) -> None:
+def child(root: str, beams_only: bool) -> None:
     # The root's package, and not this file's directory, comes first.
     sys.path[0] = root
     import numpy as np
@@ -104,6 +146,10 @@ def child(root: str) -> None:
 
     def emit(**kw):
         print(json.dumps({"root": root, **kw}), flush=True)
+
+    beam_cases(root, emit)
+    if beams_only:
+        return
 
     ants = hex_array(11, sep=14.6, outriggers=2)
     keys = list(ants)
@@ -175,13 +221,15 @@ def child(root: str) -> None:
 
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
-        child(argv[1])
+        child(argv[1], argv[2:] == ["--beams"])
         return 0
-    if not argv:
+    beams = argv[:1] == ["--beams"]
+    roots = argv[1:] if beams else argv
+    if not roots:
         raise SystemExit(__doc__)
-    for root in argv:
-        subprocess.run([sys.executable, __file__, "--child", str(Path(root).resolve())],
-                       check=True)
+    for root in roots:
+        subprocess.run([sys.executable, __file__, "--child", str(Path(root).resolve())]
+                       + ["--beams"] * beams, check=True)
     return 0
 
 

@@ -9,11 +9,13 @@ hex_array(11, outriggers=2) with all 63,190 i<=j baselines, the nside=64
 HEALPix sky, 2 frequencies x 3 times, forced type-3, the committed
 ``structured_dipole_100MHz.beamfits`` with the order-3 spline, on one CUDA
 card. After one cold call, ``CALLS`` warm calls are timed on the host clock
-(the call returns host arrays, so each ends with the card idle), and one
-more warm call runs under cProfile. Every line is one JSON object: the
-root, the precision, the warm walls in seconds, and the cumulative host
-seconds of the profiled call in the functions of ``PROFILED`` that the
-root has.
+(the call returns host arrays, so each ends with the card idle), one
+more warm call runs under cProfile, and then one under torch.profiler
+(``device_profile.device_kernels``). Every line is one JSON object: the
+root, the precision, the warm walls in seconds, the cumulative host
+seconds of the cProfiled call in the functions of ``PROFILED`` that the
+root has, and the device kernels the torch.profiler call launched and
+their device time (device-side events only, copies and fills left out).
 """
 
 from __future__ import annotations
@@ -26,10 +28,13 @@ import sys
 import time
 from pathlib import Path
 
+from device_profile import device_kernels
+
 FREQS = (1.0e8, 1.1e8)
 CALLS = 10
 PROFILED = ("simulate_vis", "plan_transform", "prepare_beam", "run_program",
-            "_device_tables", "target_order", "footprint_runs")
+            "_device_tables", "target_order", "footprint_runs", "beam_rows", "eval_grid",
+            "apparent_coherency_rows")
 
 
 def child(root: str) -> None:
@@ -71,8 +76,10 @@ def child(root: str) -> None:
         for (_, _, func), (_, _, _, ct, _) in pstats.Stats(prof).stats.items():
             if func in PROFILED:
                 cum[func] = cum.get(func, 0.0) + ct
+        dev = device_kernels(lambda: simulate_vis(precision=precision, **kw))
         print(json.dumps({"root": root, "precision": precision, "walls_s": walls,
-                          "profiled_s": cum}), flush=True)
+                          "profiled_s": cum, "device_kernels": dev["kernels"],
+                          "device_kernel_ms": dev["device_us"] / 1e3}), flush=True)
 
 
 def main(argv) -> int:
