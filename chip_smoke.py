@@ -22,6 +22,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    - interp (the same grids, 63,190 targets, C = 1 and 4), with the tap
      tables in the executor's target order and footprint runs; yardstick
      ``torch.sparse.mm`` with the (m, cells) CSR tap matrix;
+   - at the per-antenna type-3 run's shapes (its precision-1 fine grid,
+     float32): spread at C = 40 channels, uniform and with half the
+     sources nonzero only in channels 32 and up, and interp on every
+     pair's target subset with the executor's own subset tables;
    - gates 1e-5 / 1e-12 of max|plain|;
    - beam_eval (the interpolation alone) on the tabulated beam's tables,
      (91, 360, 8) polarized and (91, 360, 2) power, 4096 points with seam
@@ -39,6 +43,23 @@ Phases, one printed line each (any failure raises and exits non-zero):
      half of the points masked, the sky taken with its stride; gate 2e-6 /
      1e-12 of max|plain|; no yardstick (no one PyTorch call interpolates
      and forms coherency rows);
+   - beam_eval on the north-star stack, (91, 360, 296) at order 1 (the
+     north star's spline) in float32 and float64, beside the order-3
+     float32 line above;
+   - pair_rows (per-antenna pair rows) at the north star's K = 37 beams and
+     P = 180 pairs, on its stacked tables' evaluations: power (37 x 2
+     channels), Jones x Stokes I and Jones x IQUV (37 x 8), float32 and
+     float64, at 4096 points and the north star's ragged last block, about
+     half of the points masked; gate 2e-6 / 1e-12 of max|plain|; no
+     yardstick (no one PyTorch call forms them); and with one beam per
+     antenna of the north star's array (K = 331, random evaluations at
+     4096 points), where the Jones stacks take the kernel's global-memory
+     form;
+   - the exact type-1 product (cuBLAS, not a hand-written kernel) at the
+     north star's C = 720 channels, 4096 sources and (42, 42) mode grid,
+     float32 and float64 (one call by CUDA events and its device time
+     alone), beside its operations bound and the factored form the port
+     does not take;
 4. run ``simulate_vis`` on the slice configuration -- hex_array(11,
    outriggers=2) with all 63,190 i<=j baselines, the nside=64 HEALPix sky,
    2 frequencies x 3 times, forced type-3 -- with
@@ -49,16 +70,29 @@ Phases, one printed line each (any failure raises and exits non-zero):
    each run with the launch counts set to 0 just before it and read just
    after, and each of its kernels launched at least once: a tabulated run
    launches the fused beam_rows kernel once a source block (as often as
-   the spread) and the interpolation alone never; an analytic run neither;
+   the spread) and the interpolation alone never; an analytic run
+   neither; then
+   - the north star: HERA-331 (hex_array(11), 331 antennas) with its 631
+     redundant-group representatives, 37 per-antenna perturbed variants of
+     the committed beamfits asset (``beam_idx = arange(331) % 37``),
+     polarized, the nside=64 sky, 1 frequency x 2 times, ``auto`` mode --
+     a lattice, so the exact type-1 path -- at precision 2 and 1: beam_eval
+     (the stacked table) and pair_rows once a source block, spread, interp
+     and beam_rows never;
+   - per-antenna type-3 at reduced depth: the slice array, 4 variants
+     (``beam_idx = arange(355) % 4``, 10 pairs, 40 channels), polarized,
+     precision 1, 1 frequency x 1 time, type-3 forced through
+     ``CUDASimulationEngine(nufft_mode="type3")``: spread, beam_eval and
+     pair_rows once a source block, interp once a pair;
 5. hold every output against the port's float64 direct path on the CPU,
    where every kernel takes its plain version, on every 32nd baseline
    (gates 1e-4 at precision 1, 1e-5 at precision 2, relative to max|V|);
 6. with ``--profile`` only: torch.profiler over one warm call of the
-   analytic p=1, polarized p=1 and p=2 and unpolarized tabulated runs
-   (after five timed warm calls each): device busy time, idle share, the
-   count of device kernel launches, and the hand-written kernels' device
-   time and launches; the top device ops of each run go to
-   ``build/profile/profile_<i>.txt``;
+   analytic p=1, polarized p=1 and p=2, unpolarized tabulated and north
+   star p=2 and p=1 runs (after five timed warm calls each): device busy
+   time, idle share, the count of device kernel launches, and the
+   hand-written kernels' device time and launches; the top device ops of
+   each run go to ``build/profile/profile_<i>.txt``;
 7. print the kernels' JSON line, then the result line.
 """
 
@@ -83,6 +117,9 @@ DENSE_PATCH = 128
 # cores (float32 67 TFLOP/s; float64 34 TFLOP/s).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+# Peak of a matrix product: float32 outside the tensor cores (TF32 is off)
+# and float64 on the tensor cores, both 67 TFLOP/s.
+MATMUL_OPS_PER_S = 67e12
 ASSET = Path(__file__).resolve().parent / "tests" / "data" / "structured_dipole_100MHz.beamfits"
 # (name, beam, polarized, beam_spline_opts, precision) of the phase-4 runs.
 RUNS = (
@@ -92,6 +129,13 @@ RUNS = (
     ("polarized", "tabulated", True, {"order": 3}, 2),
     ("unpolarized", "tabulated", False, {"order": 1}, 1),
 )
+# The north star (bench.py:600-672): HERA-331, 37 per-antenna beams.
+NS_BEAMS = 37
+NS_FREQS = (1.0e8,)
+NS_TIMES = 2459863.2 + np.linspace(0, 4 / 60 / 24, 2)
+NS_PRECISIONS = (2, 1)
+# Per-antenna type-3 at reduced depth: variants of the slice's runs.
+PA_BEAMS = 4
 
 
 def card_line() -> str:
@@ -140,9 +184,35 @@ def slice_config():
     )
 
 
-def kernel_us(fn, symbol: str, reps: int = 20) -> float:
+def kernel_us(fn, symbol: str, reps: int = 20, tries: int = 3) -> float:
     """Mean device time in us of the kernels whose name holds ``symbol``
-    over ``reps`` calls of ``fn`` (torch.profiler)."""
+    over ``reps`` calls of ``fn`` (torch.profiler). The profiler now and
+    then reports no device events for a session: it tries again, up to
+    ``tries`` sessions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for ev in prof.key_averages():
+            if symbol in ev.key:
+                us = getattr(ev, "self_device_time_total", None)
+                total += ev.self_cuda_time_total if us is None else us
+                count += ev.count
+        if count:
+            return total / count
+    raise AssertionError(f"the profiler saw no kernel named like {symbol!r} in {tries} sessions")
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device time in ms of one call of ``fn``: every device-side
+    event (kernels, copies, fills) over ``reps`` calls (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -152,15 +222,12 @@ def kernel_us(fn, symbol: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = count = 0
+    total = 0.0
     for ev in prof.key_averages():
-        if symbol in ev.key:
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(ev, "self_device_time_total", None)
             total += ev.self_cuda_time_total if us is None else us
-            count += ev.count
-    if count == 0:
-        raise AssertionError(f"the profiler saw no kernel named like {symbol!r}")
-    return total / count
+    return total / reps / 1e3
 
 
 def bound(nbytes: float, ops: float, name: str) -> tuple[float, str]:
@@ -250,7 +317,55 @@ def spread_sources(case: str, nfy: int, nfx: int, C: int, rng):
     wts = rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n))
     if case == "half-zero":
         wts[:, ::2] = 0
+    if case == "tail-only":
+        # Half the sources nonzero only in channels 32 and up: the second
+        # channel a lane tests for the zero skip.
+        wts[:32, ::2] = 0
     return uy, ux, wts
+
+
+def check_spread(name, rdt, cdt, grid, w: int, beta: float, C: int, case: str, rng,
+                 label: str = ""):
+    """One phase-3 spread case through the wrapper against its plain
+    version on the same card tensors; ``sparse.addmm`` beside the uniform
+    case. Returns (err, ms, plain_ms, (bound_ms, bound_by), library_ms)."""
+    import torch
+
+    from fftvis_tpu_torch.nufft import spread as spread_mod
+
+    nfy, nfx = grid
+    uy_np, ux_np, w_np = spread_sources(case, nfy, nfx, C, rng)
+    uy, ux = (torch.tensor(a, dtype=rdt, device="cuda") for a in (uy_np, ux_np))
+    wts = torch.tensor(w_np, dtype=cdt, device="cuda")
+    got = spread_mod.spread(uy, ux, wts, torch.zeros((C, nfy, nfx), dtype=cdt, device="cuda"),
+                            w, beta)
+    want = spread_mod.spread_plain(uy, ux, wts, torch.zeros_like(got), w, beta)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    acc = torch.zeros_like(got)
+    ms = cuda_ms(lambda: spread_mod.spread(uy, ux, wts, acc, w, beta), 20)
+    plain = cuda_ms(lambda: spread_mod.spread_plain(uy, ux, wts, acc, w, beta), 5)
+    del got, acc
+    flat_idx = spread_mod.spread_taps(uy, ux, nfy, nfx, w, beta)[0].cpu().numpy()
+    (b_ms, b_by), cells = spread_bound(flat_idx, wts, w, name)
+    lib_ms = lib_txt = None
+    if case == "uniform":
+        lib = library(f"spread {name} C={C}",
+                      lambda: spread_library(uy, ux, wts, nfy, nfx, w, beta))
+        if lib is not None:
+            lib_err = (lib().T.reshape(C, nfy, nfx) - want).abs().max().item()
+            lib_ms = cuda_ms(lib, 5)
+            lib_txt = f"; sparse.addmm {lib_ms:.4f} ms (err {lib_err / scale:.1e})"
+    print(f"[3] spread {name} {case}{label}: grid ({nfy}, {nfx}) w={w} n={SPREAD_SOURCES} "
+          f"C={C}: max err {err:.3e} = {err / scale:.3e} of max|plain|; "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}, {cells} cells){lib_txt or ''}", flush=True)
+    if not err <= TOL[name] * scale:
+        raise AssertionError(f"spread {name} {case} C={C} disagrees with its plain version")
+    del want
+    torch.cuda.empty_cache()
+    return err, ms, plain, (b_ms, b_by), lib_ms
 
 
 def check_nufft_kernels(cfg) -> dict:
@@ -262,7 +377,6 @@ def check_nufft_kernels(cfg) -> dict:
 
     from fftvis_tpu_torch.core.utils import speed_of_light
     from fftvis_tpu_torch.nufft import interp as interp_mod
-    from fftvis_tpu_torch.nufft import spread as spread_mod
     from fftvis_tpu_torch.nufft.transform import plan_type3
 
     ants, bls = cfg["ants"], cfg["baselines"]
@@ -292,37 +406,9 @@ def check_nufft_kernels(cfg) -> dict:
         results[name] = {}
         for C in (1, 4):
             for case in ("uniform", "dense", "half-zero"):
-                uy_np, ux_np, w_np = spread_sources(case, nfy, nfx, C, rng)
-                uy, ux, wts = dev(uy_np, rdt), dev(ux_np, rdt), dev(w_np, cdt)
-                got = spread_mod.spread(uy, ux, wts, torch.zeros((C, nfy, nfx), dtype=cdt, device="cuda"), w, beta)
-                want = spread_mod.spread_plain(uy, ux, wts, torch.zeros_like(got), w, beta)
-                torch.cuda.synchronize()
-                scale = want.abs().max().item()
-                s_err = (got - want).abs().max().item()
-                acc = torch.zeros_like(got)
-                s_ms = cuda_ms(lambda: spread_mod.spread(uy, ux, wts, acc, w, beta), 20)
-                s_plain = cuda_ms(lambda: spread_mod.spread_plain(uy, ux, wts, acc, w, beta), 5)
-                del got, acc
-                flat_idx = spread_mod.spread_taps(uy, ux, nfy, nfx, w, beta)[0].cpu().numpy()
-                (b_ms, b_by), cells = spread_bound(flat_idx, wts, w, name)
-                lib_ms = lib_txt = None
-                if case == "uniform":
-                    lib = library(f"spread {name} C={C}",
-                                  lambda: spread_library(uy, ux, wts, nfy, nfx, w, beta))
-                    if lib is not None:
-                        lib_err = (lib().T.reshape(C, nfy, nfx) - want).abs().max().item()
-                        lib_ms = cuda_ms(lib, 5)
-                        lib_txt = f"; sparse.addmm {lib_ms:.4f} ms (err {lib_err / scale:.1e})"
-                print(f"[3] spread {name} {case}: grid ({nfy}, {nfx}) w={w} n={SPREAD_SOURCES} "
-                      f"C={C}: max err {s_err:.3e} = {s_err / scale:.3e} of max|plain|; "
-                      f"kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms; bound {b_ms:.4f} ms "
-                      f"({b_by}, {cells} cells){lib_txt or ''}", flush=True)
-                if not s_err <= TOL[name] * scale:
-                    raise AssertionError(f"spread {name} {case} C={C} disagrees with its plain version")
+                row = check_spread(name, rdt, cdt, (nfy, nfx), w, beta, C, case, rng)
                 if case == "uniform" and C == 4:
-                    results[name]["spread"] = (s_err, s_ms, s_plain, (b_ms, b_by), lib_ms)
-                del want
-                torch.cuda.empty_cache()
+                    results[name]["spread"] = row
 
             G = dev(rng.normal(size=(C, nfy, nfx)) + 1j * rng.normal(size=(C, nfy, nfx)), cdt)
             got = interp_mod.interp(G, *tabs, order=order, runs=runs)
@@ -350,6 +436,63 @@ def check_nufft_kernels(cfg) -> dict:
             del G, got, want, lib
             torch.cuda.empty_cache()
     return results
+
+
+def check_per_antenna_nufft(pa) -> None:
+    """Phase 3: spread and interp at the shapes the per-antenna type-3 run
+    gives them (precision 1, float32): spread at C = 4 P channels on its
+    fine grid, uniform and with half the sources nonzero only in channels
+    32 and up; interp on every pair's target subset, with the executor's
+    own subset tables (target order and footprint runs), C = 4."""
+    import torch
+
+    from fftvis_tpu_torch.cuda.planning import plan_transform
+    from fftvis_tpu_torch.nufft import interp as interp_mod
+
+    _, _, pp = pair_arrays(pa)
+    flipped = np.zeros(len(pa["baselines"]), dtype=bool)
+    for sel, fl in zip(pp.bls_idxs, pp.flipped):
+        flipped[sel] = fl
+    ex = plan_transform("type3", pa["ants"], pa["baselines"], pa["freqs"], 5e-7, 2, 1e-6,
+                        False, flipped, len(pa["baselines"]), SPREAD_SOURCES, 2, pp.npairs,
+                        device="cuda").executor
+    p, name, rdt, cdt = ex.plan, "float32", torch.float32, torch.complex64
+    w, beta, (nfy, nfx) = p.kernel.w, p.kernel.beta, p.nf
+    C = 4 * pp.npairs
+    rng = np.random.default_rng(6)
+    for case in ("uniform", "tail-only"):
+        check_spread(name, rdt, cdt, (nfy, nfx), w, beta, C, case, rng,
+                     label=f" per-antenna ({pp.npairs} pairs)")
+
+    G = torch.tensor(rng.normal(size=(4, nfy, nfx)) + 1j * rng.normal(size=(4, nfy, nfx)),
+                     dtype=cdt, device="cuda")
+
+    def plain_taps(sel):
+        # The subset's tap tables in target order, as interp_plain takes them.
+        return [torch.tensor(a[sel], dtype=dt, device="cuda")
+                for a, dt in ((p.tap_idx[0], torch.int32), (p.tap_idx[1], torch.int32),
+                              (p.tap_val[0], rdt), (p.tap_val[1], rdt))]
+
+    errs, sizes = [], []
+    for sel in pp.bls_idxs:
+        got = ex.interpolate(G, sel)
+        want = interp_mod.interp_plain(G, *plain_taps(sel))
+        errs.append((got - want).abs().max().item() / want.abs().max().item())
+        sizes.append(len(sel))
+    big = pp.bls_idxs[int(np.argmax(sizes))]
+    taps = plain_taps(big)
+    ms = cuda_ms(lambda: ex.interpolate(G, big), 20)
+    alone = kernel_us(lambda: ex.interpolate(G, big), "interp_runs")
+    plain = cuda_ms(lambda: interp_mod.interp_plain(G, *taps), 5)
+    (b_ms, b_by), cells = interp_bound(p.tap_idx[0][big], p.tap_idx[1][big], 4, nfx, name)
+    print(f"[3] interp {name} subset: grid ({nfy}, {nfx}) w={w} C=4, the {pp.npairs} pairs' "
+          f"target subsets (m {min(sizes)}..{max(sizes)}) with their own tables: max err "
+          f"{max(errs):.3e} of max|plain|; the largest (m={max(sizes)}) kernel {ms:.4f} ms "
+          f"(alone {alone:.2f} us), plain {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
+    if not max(errs) <= TOL[name]:
+        raise AssertionError(f"interp {name} on a pair's subset disagrees with its plain version")
+    del G
+    torch.cuda.empty_cache()
 
 
 def beam_points(ny: int, nx: int, n: int, rng):
@@ -404,9 +547,10 @@ def beam_grid_sample(data, y, x):
 
 def check_beam_eval() -> dict:
     """Phase 3: beam_eval against its plain version at the tabulated
-    beam's tables. Returns {dtype: (max err, ms, plain_ms, bound, None)},
-    the times those of the polarized order-3 table (no library call
-    computes the cubic B-spline)."""
+    beam's tables and the north star's stack. Returns {dtype: (max err, ms,
+    plain_ms, bound, library_ms)}, the times those of the north star's
+    stacked table, (91, 360, 296) at order 1, with ``grid_sample`` its
+    yardstick."""
     import torch
 
     from fftvis_tpu_torch.beams import eval as eval_mod
@@ -414,7 +558,8 @@ def check_beam_eval() -> dict:
     rng = np.random.default_rng(2)
     cases = [(ch, order, dt) for ch in (8, 2) for order in (3, 1)
              for dt in (torch.float32, torch.float64)]
-    cases.append((296, 3, torch.float32))
+    cases += [(8 * NS_BEAMS, 3, torch.float32), (8 * NS_BEAMS, 1, torch.float32),
+              (8 * NS_BEAMS, 1, torch.float64)]
     results = {}
     for ch, order, dt in cases:
         name = str(dt).split(".")[-1]
@@ -433,10 +578,12 @@ def check_beam_eval() -> dict:
         alone = kernel_us(call, "beam_eval_points")
         plain = cuda_ms(lambda: eval_mod.beam_eval_plain(data, y, x, order=order, wrap_x=True), 20)
         (b_ms, b_by), cells = beam_bound(data, y, x, order, name)
+        lib_ms = None
         if order == 1:
             lib = beam_grid_sample(data, y, x)
             lib_err = (lib()[0, :, 0, :].T - want).abs().max().item()
-            lib_txt = (f"grid_sample {cuda_ms(lib, 50):.4f} ms, alone "
+            lib_ms = cuda_ms(lib, 50)
+            lib_txt = (f"grid_sample {lib_ms:.4f} ms, alone "
                        f"{kernel_us(lib, 'grid_sampler'):.2f} us (err {lib_err / scale:.1e})")
         else:
             lib_txt = "library call: none (bicubic is Keys' convolution, not the B-spline)"
@@ -447,7 +594,8 @@ def check_beam_eval() -> dict:
         if not err <= BEAM_TOL[name] * scale:
             raise AssertionError(f"beam_eval {name} {(ch, order)} disagrees with its plain version")
         prev = results.get(name, (0.0, None, None, None, None))
-        timed = (ms, plain, (b_ms, b_by), None) if (ch, order) == (8, 3) else prev[1:]
+        main = (ch, order) == (8 * NS_BEAMS, 1)
+        timed = (ms, plain, (b_ms, b_by), lib_ms) if main else prev[1:]
         results[name] = (max(prev[0], err), *timed)
     return results
 
@@ -550,6 +698,278 @@ def check_beam_rows() -> dict:
     return results
 
 
+def north_star_config():
+    """The north star's inputs (bench.py:600-672): HERA-331, its redundant
+    representatives, 37 per-antenna variants of the committed beamfits
+    asset, polarized, the nside=64 sky, 1 frequency x 2 times."""
+    from fftvis_tpu_torch import TelescopeLocation
+    from fftvis_tpu_torch.beams import perturbed_variants, read_beamfits
+    from fftvis_tpu_torch.core.utils import get_pos_reds
+    from fftvis_tpu_torch.geometry import hex_array
+    from fftvis_tpu_torch.utils import healpix_radec
+
+    ants = hex_array(11, sep=14.6)
+    ra, dec = healpix_radec(64)
+    rng = np.random.default_rng(0)
+    return dict(
+        ants=ants,
+        fluxes=rng.uniform(0.1, 1.0, (ra.size, len(NS_FREQS))),
+        ra=ra,
+        dec=dec,
+        freqs=np.array(NS_FREQS),
+        times=NS_TIMES,
+        telescope_loc=TelescopeLocation(np.deg2rad(LAT), np.deg2rad(LON), ALT),
+        baselines=[red[0] for red in get_pos_reds(ants, include_autos=True)],
+        beam=perturbed_variants(read_beamfits(str(ASSET)), NS_BEAMS),
+        beam_idx=np.arange(len(ants)) % NS_BEAMS,
+        polarized=True,
+    )
+
+
+def per_antenna_config(cfg):
+    """Per-antenna type-3 at reduced depth: the slice array and sky, 4
+    variants, polarized, precision 1, 1 frequency x 1 time."""
+    from fftvis_tpu_torch.beams import perturbed_variants, read_beamfits
+
+    kw = {k: v for k, v in cfg.items() if k != "force_use_type3"}
+    return dict(kw, fluxes=cfg["fluxes"][:, :1], freqs=np.array(FREQS[:1]),
+                times=cfg["times"][:1],
+                beam=perturbed_variants(read_beamfits(str(ASSET)), PA_BEAMS),
+                beam_idx=np.arange(len(cfg["ants"])) % PA_BEAMS, polarized=True, precision=1)
+
+
+def source_blocks(kw) -> tuple[int, int]:
+    """(source blocks a run's loop takes, its last block's sources)."""
+    from fftvis_tpu_torch.coords.rotation import SourceRotation
+    from fftvis_tpu_torch.cuda.engine import SOURCE_BLOCK
+
+    rot = SourceRotation(kw["ra"], kw["dec"], kw["times"], kw["telescope_loc"])
+    rot.cull_never_visible()
+    per = -(-rot.nsrc // SOURCE_BLOCK)
+    return len(kw["times"]) * len(kw["freqs"]) * per, rot.nsrc - (per - 1) * SOURCE_BLOCK
+
+
+def pair_arrays(kw):
+    """The (P,) beam indices of a per-antenna run's pairs, as int32 on the
+    card, and the pair plan."""
+    import torch
+
+    from fftvis_tpu_torch.core.beams import plan_beam_pairs
+
+    pp = plan_beam_pairs(list(kw["ants"]), kw["baselines"], kw["beam_idx"])
+    return [torch.tensor([p[k] for p in pp.pairs], dtype=torch.int32, device="cuda")
+            for k in (0, 1)] + [pp]
+
+
+# Operations a pair and unmasked point of pair_rows.
+PAIR_OPS = {"power": 5, "jones-I": 80, "jones-iquv": 232}
+
+
+def check_pair_rows(ns) -> dict:
+    """Phase 3: pair_rows against pair_rows_plain at the north star's K = 37
+    beams and P = 180 pairs, on its stacked tables' evaluations. Returns
+    {dtype: (max err, ms, plain_ms, bound, None)}, the times those of Jones
+    x Stokes I at 4096 points (the north star's source block)."""
+    import torch
+
+    from fftvis_tpu_torch.beams import eval as eval_mod
+    from fftvis_tpu_torch.beams.interface import prepare_beams, stack_prepared
+    from fftvis_tpu_torch.core.coherency import build_coherency
+    from fftvis_tpu_torch.wrapper import prepare_beam_list
+
+    pi, pj, pp = pair_arrays(ns)
+    npairs = pp.npairs
+    ragged = source_blocks(ns)[1]
+    rng = np.random.default_rng(4)
+    results = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        rb = 4 if dt == torch.float32 else 8
+        for epilogue in ("power", "jones-I", "jones-iquv"):
+            polarized, iquv = epilogue != "power", epilogue == "jones-iquv"
+            beams, _ = prepare_beam_list(ns["beam"], ns["freqs"], polarized, None, "x",
+                                         len(ns["ants"]), ns["beam_idx"])
+            stacked = stack_prepared(prepare_beams(beams, ns["freqs"], polarized, dtype=dt,
+                                                   device="cuda"))
+            g = stacked.grid
+            for n in (4096, ragged):
+                az = torch.tensor(rng.uniform(0, 2 * np.pi, n), dtype=dt, device="cuda")
+                za = torch.tensor(rng.uniform(0, np.pi / 2, n), dtype=dt, device="cuda")
+                evals = stacked.channels(az, za, 0)
+                mask = torch.tensor(rng.uniform(size=n) < 0.5, dtype=dt, device="cuda")
+                stokes = rng.uniform(0.1, 1.0, (n, 1))
+                if iquv:
+                    pol = rng.uniform(-0.05, 0.05, (3, n, 1))
+                    coh = build_coherency(np.stack([stokes, *pol], axis=-1), True)
+                    sky = torch.tensor(coh, dtype=eval_mod.COMPLEX[dt], device="cuda")[:, 0]
+                else:
+                    sky = torch.tensor(stokes, dtype=dt, device="cuda")[:, 0]
+                args = (evals, pi, pj, sky, mask, g.ch_shape, g.is_power, iquv, g.feed)
+
+                def call():
+                    return eval_mod.pair_rows(*args)
+
+                def plain_call():
+                    return eval_mod.pair_rows_plain(*args)
+
+                got, want = call(), plain_call()
+                torch.cuda.synchronize()
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                ms = cuda_ms(call, 50)
+                alone = kernel_us(call, "pair_rows_points")
+                plain = cuda_ms(plain_call, 10)
+                C = got.shape[0]
+                active = int(mask.sum().item())
+                kc = evals.shape[1]
+                nbytes = (active * kc * rb + active * (8 if iquv else 1) * rb + n * rb
+                          + 2 * npairs * 4 + C * n * 2 * rb)
+                b_ms, b_by = bound(nbytes, active * npairs * PAIR_OPS[epilogue], name)
+                print(f"[3] pair_rows {name} {epilogue}: K={stacked.nbeams} ({kc} channels) "
+                      f"P={npairs} n={n} ({active} unmasked), rows ({C}, {n}): max err "
+                      f"{err:.3e} = {err / scale:.3e} of max|plain|; kernel {ms:.4f} ms "
+                      f"(alone {alone:.2f} us), plain {plain:.4f} ms; bound {b_ms:.5f} ms "
+                      f"({b_by}, {nbytes / 1e6:.1f} MB); library call: none (no one PyTorch "
+                      f"call forms pair coherency rows)", flush=True)
+                if not err <= BEAM_TOL[name] * scale:
+                    raise AssertionError(f"pair_rows {name} {epilogue} n={n} disagrees with "
+                                         "its plain version")
+                prev = results.get(name, (0.0, None, None, None, None))
+                main = (epilogue, n) == ("jones-I", 4096)
+                timed = (ms, plain, (b_ms, b_by), None) if main else prev[1:]
+                results[name] = (max(prev[0], err), *timed)
+                del got, want, evals
+            del stacked
+            torch.cuda.empty_cache()
+    return results
+
+
+# pair_rows stages a tile of PAIR_TILE points' K * chf evaluations in shared
+# memory up to PAIR_SMEM_MAX bytes and reads a wider stack from global
+# memory (csrc/beam_eval.cu TP and SMEM_MAX).
+PAIR_TILE, PAIR_SMEM_MAX = 32, 200 * 1024
+# One beam per antenna on HERA-331: a stack that takes the global form.
+WIDE_BEAMS = 331
+
+
+def check_pair_rows_wide(ns) -> dict:
+    """Phase 3: pair_rows against pair_rows_plain with one beam per antenna
+    of the north star's array (K = 331, its pairs over the 631 baselines),
+    4096 points about half masked, on random evaluations: the Jones stacks
+    take the global-memory form, power the shared one. Returns {dtype: max
+    err}."""
+    import torch
+
+    from fftvis_tpu_torch.beams import eval as eval_mod
+    from fftvis_tpu_torch.core.coherency import build_coherency
+
+    pi, pj, pp = pair_arrays(dict(ns, beam_idx=np.arange(len(ns["ants"])) % WIDE_BEAMS))
+    K, n, npairs = WIDE_BEAMS, 4096, pp.npairs
+    rng = np.random.default_rng(7)
+    errs = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        for epilogue in ("power", "jones-I", "jones-iquv"):
+            power, iquv = epilogue == "power", epilogue == "jones-iquv"
+            ch_shape = (1, 2) if power else (2, 2, 2)
+            chf = int(np.prod(ch_shape))
+            ev = rng.normal(size=(n, K * chf))
+            evals = torch.tensor(np.abs(ev) if power else ev, dtype=dt, device="cuda")
+            mask = torch.tensor(rng.uniform(size=n) < 0.5, dtype=dt, device="cuda")
+            stokes = rng.uniform(0.1, 1.0, (n, 1))
+            if iquv:
+                coh = build_coherency(np.stack([stokes, *rng.uniform(-0.05, 0.05, (3, n, 1))],
+                                               axis=-1), True)
+                sky = torch.tensor(coh, dtype=eval_mod.COMPLEX[dt], device="cuda")[:, 0]
+            else:
+                sky = torch.tensor(stokes, dtype=dt, device="cuda")[:, 0]
+            args = (evals, pi, pj, sky, mask, ch_shape, power, iquv, 1)
+            got = eval_mod.pair_rows(*args)
+            want = eval_mod.pair_rows_plain(*args)
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            ms = cuda_ms(lambda: eval_mod.pair_rows(*args), 20)
+            staged = K * chf * (PAIR_TILE + 1) * evals.element_size()
+            form = "shared" if staged <= PAIR_SMEM_MAX else "global"
+            print(f"[3] pair_rows {name} {epilogue} wide: K={K} ({K * chf} channels) "
+                  f"P={npairs} n={n}, {form}-memory form ({staged / 1024:.0f} KiB a tile): "
+                  f"max err {err:.3e} = {err / scale:.3e} of max|plain|; kernel {ms:.4f} ms",
+                  flush=True)
+            if not err <= BEAM_TOL[name] * scale:
+                raise AssertionError(f"pair_rows {name} {epilogue} K={K} disagrees with its "
+                                     "plain version")
+            errs[name] = max(errs.get(name, 0.0), err)
+            del got, want, evals
+            torch.cuda.empty_cache()
+    return errs
+
+
+def factored_product(ex, x, c, grid):
+    """The exact type-1 product's factored form, which the JAX package also
+    has and the port does not: c times the y factor, (C, n, nmy), contracted
+    against the x factor. Timed beside the executor's outer form as the
+    record of that choice."""
+    import torch
+
+    from fftvis_tpu_torch.nufft.transform import _fmod_positive
+
+    nf = ex.plan.nf
+    u = [_fmod_positive(x[axis] / (2.0 * np.pi) * nf[axis], nf[axis]) for axis in range(2)]
+    ey, exf = ex._factor(u[0], 0), ex._factor(u[1], 1)
+    grid += torch.matmul((c[:, :, None] * ey[None, :, :]).transpose(1, 2), exf)
+    return grid
+
+
+def check_type1_exact(ns) -> None:
+    """Phase 3: the exact type-1 product at the north star's shapes against
+    its operations bound (8 C n nmy nmx real operations at 67 TFLOP/s): one
+    ``spread`` call by CUDA events (the host's launches included) and its
+    device time alone, beside the factored form. cuBLAS, not a hand-written
+    kernel: no kernels entry."""
+    import torch
+
+    from fftvis_tpu_torch.cuda.engine import full_precision_matmuls
+    from fftvis_tpu_torch.cuda.planning import plan_transform
+
+    full_precision_matmuls()
+    _, _, pp = pair_arrays(ns)
+    flipped = np.zeros(len(ns["baselines"]), dtype=bool)
+    for sel, fl in zip(pp.bls_idxs, pp.flipped):
+        flipped[sel] = fl
+    plan = plan_transform("auto", ns["ants"], ns["baselines"], ns["freqs"], 1e-13, 2, 1e-6,
+                          False, flipped, len(ns["baselines"]), 4096, 2, pp.npairs,
+                          device="cuda")
+    ex = plan.executor
+    nf, C, n = ex.plan.nf, 4 * pp.npairs, 4096
+    rng = np.random.default_rng(5)
+    for rdt, cdt in ((torch.float32, torch.complex64), (torch.float64, torch.complex128)):
+        name = str(rdt).split(".")[-1]
+        x = torch.tensor(rng.uniform(-60, 60, (2, n)), dtype=rdt, device="cuda")
+        c = torch.tensor(rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n)), dtype=cdt,
+                         device="cuda")
+        grids, times, alone = {}, {}, {}
+        for form, fn in (("outer", ex.spread), ("factored", lambda x, c, grid:
+                                                 factored_product(ex, x, c, grid))):
+            grid = torch.zeros((C,) + tuple(nf), dtype=cdt, device="cuda")
+            grids[form] = fn(x, c, grid=grid).clone()
+            times[form] = cuda_ms(lambda: fn(x, c, grid=grid), 10)
+            alone[form] = device_ms(lambda: fn(x, c, grid=grid))
+        scale = grids["outer"].abs().max().item()
+        err = (grids["outer"] - grids["factored"]).abs().max().item() / scale
+        ops = 8.0 * C * n * nf[0] * nf[1]
+        b_ms = ops / MATMUL_OPS_PER_S * 1e3
+        print(f"[3] type1_exact {name}: C={C} n={n} mode grid {tuple(nf)}: outer "
+              f"{times['outer']:.4f} ms (device {alone['outer']:.4f} ms); factored form "
+              f"(not in the port) {times['factored']:.4f} ms (device {alone['factored']:.4f} "
+              f"ms); the forms agree to {err:.1e} of max; bound {b_ms:.4f} ms (operations, "
+              f"{ops:.3e} at 67 TFLOP/s); cuBLAS, not a hand-written kernel", flush=True)
+        if not err <= TOL[name]:
+            raise AssertionError(f"type1_exact {name}: the two forms disagree")
+        del grids, grid, x, c
+        torch.cuda.empty_cache()
+
+
 def run_kwargs(cfg, run):
     from fftvis_tpu_torch.beams import GaussianBeam, read_beamfits
 
@@ -562,24 +982,37 @@ def run_kwargs(cfg, run):
 def direct_oracle(kw):
     """The port's float64 direct path on the CPU for one run's inputs."""
     from fftvis_tpu_torch import CUDASimulationEngine
-    from fftvis_tpu_torch.beams import BeamInterface, prepare_beam_unpolarized
+    from fftvis_tpu_torch.wrapper import prepare_beam_list
 
-    beam = BeamInterface(kw["beam"])
-    if not kw["polarized"]:
-        beam = prepare_beam_unpolarized(beam)
-    ekw = {k: v for k, v in kw.items() if k not in ("beam", "force_use_type3")}
+    beams, beam_idx = prepare_beam_list(kw["beam"], np.atleast_1d(kw["freqs"]),
+                                        kw["polarized"], None, "x", len(kw["ants"]),
+                                        kw.get("beam_idx"))
+    ekw = {k: v for k, v in kw.items() if k not in ("beam", "beam_idx", "force_use_type3")}
     return CUDASimulationEngine(nufft_mode="direct", device="cpu").simulate(
-        beam_list=[beam], **ekw)
+        beam_list=beams, beam_idx=beam_idx, **ekw)
+
+
+def run_per_antenna_type3(kw):
+    """A per-antenna run with type-3 forced, through the engine."""
+    from fftvis_tpu_torch import CUDASimulationEngine
+    from fftvis_tpu_torch.wrapper import prepare_beam_list
+
+    beams, beam_idx = prepare_beam_list(kw["beam"], kw["freqs"], True, None, "x",
+                                        len(kw["ants"]), kw["beam_idx"])
+    ekw = {k: v for k, v in kw.items() if k not in ("beam", "beam_idx")}
+    return CUDASimulationEngine(nufft_mode="type3", device="cuda").simulate(
+        beam_list=beams, beam_idx=beam_idx, **ekw)
 
 
 PROFILE_RUNS = (0, 2, 3, 4)  # RUNS indices: analytic p=1 and the tabulated runs
 KERNEL_NAMES = {"spread": "spread_gm", "interp": "interp_runs", "beam_eval": "beam_eval_points",
-                "beam_rows": "beam_rows_points"}
+                "beam_rows": "beam_rows_points", "pair_rows": "pair_rows_points"}
 
 
-def profile_runs(cfg) -> None:
+def profile_runs(cfg, ns) -> None:
     """Phase 6: five timed warm calls, then one profiled call, of each of
-    PROFILE_RUNS; device time from the profiler's CUDA kernel events."""
+    PROFILE_RUNS and the north-star runs; device time from the profiler's
+    CUDA kernel events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -587,9 +1020,14 @@ def profile_runs(cfg) -> None:
 
     out_dir = Path(__file__).resolve().parent / "build" / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
+    calls = []
     for i in PROFILE_RUNS:
         kind, beam, _, _, precision = RUNS[i]
-        kw = run_kwargs(cfg, RUNS[i])
+        calls.append((i, f"{kind} {beam} precision={precision}", run_kwargs(cfg, RUNS[i])))
+    for k, precision in enumerate(NS_PRECISIONS):
+        calls.append((len(RUNS) + k, f"north-star precision={precision}",
+                      dict(ns, precision=precision)))
+    for i, label, kw in calls:
         walls = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -623,10 +1061,19 @@ def profile_runs(cfg) -> None:
                 mine.append(f"{kname} {us / 1e3:.4f} ms / {count} = {us / count:.2f} us")
         (out_dir / f"profile_{i}.txt").write_text("".join(
             f"{us / 1e3:10.4f} ms {count:6d}  {key[:160]}\n" for us, count, key in rows[:40]))
-        print(f"[6] profile {kind} {beam} precision={precision}: warm walls "
+        print(f"[6] profile {label}: warm walls "
               f"{', '.join(f'{t:.4f}' for t in walls)} s; profiled wall {wall:.4f} s, "
               f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / 1e3 / wall:.4f}, "
               f"{nkernels} device kernel launches; {'; '.join(mine)}", flush=True)
+
+
+def reset(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read(counters) -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
 
 def main() -> int:
@@ -648,24 +1095,32 @@ def main() -> int:
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     cfg = slice_config()
+    ns = north_star_config()
     checks = check_nufft_kernels(cfg)
-    beam_checks = {"beam_eval": check_beam_eval(), "beam_rows": check_beam_rows()}
+    pa = per_antenna_config(cfg)
+    check_per_antenna_nufft(pa)
+    beam_checks = {"beam_eval": check_beam_eval(), "beam_rows": check_beam_rows(),
+                   "pair_rows": check_pair_rows(ns)}
+    for name, err in check_pair_rows_wide(ns).items():
+        row = beam_checks["pair_rows"][name]
+        beam_checks["pair_rows"][name] = (max(row[0], err), *row[1:])
+    check_type1_exact(ns)
 
     # Each kernel's launch counter: (module, attribute).
     counters = {"spread": (spread_mod, "launches"), "interp": (interp_mod, "launches"),
-                "beam_eval": (eval_mod, "launches"), "beam_rows": (eval_mod, "rows_launches")}
+                "beam_eval": (eval_mod, "launches"), "beam_rows": (eval_mod, "rows_launches"),
+                "pair_rows": (eval_mod, "pair_launches")}
     nbl = len(cfg["baselines"])
     vis, launches = {}, {}
     for i, run in enumerate(RUNS):
         kind, beam, polarized, _, precision = run
         kw = run_kwargs(cfg, run)
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        reset(counters)
         t0 = time.perf_counter()
         out = simulate_vis(device="cuda", **kw)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        launches[i] = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        launches[i] = read(counters)
         want_shape = (len(FREQS), 3) + ((2, 2) if polarized else ()) + (nbl,)
         if out.shape != want_shape or not np.all(np.isfinite(out)):
             raise AssertionError(
@@ -677,7 +1132,7 @@ def main() -> int:
         # spreads), and no interpolation alone on the main path.
         rows_want = launches[i]["spread"] if beam == "tabulated" else 0
         if (min(launches[i][k] for k in path) <= 0 or launches[i]["beam_eval"] != 0
-                or launches[i]["beam_rows"] != rows_want):
+                or launches[i]["beam_rows"] != rows_want or launches[i]["pair_rows"] != 0):
             raise AssertionError(f"{kind} precision={precision}: kernel launches {launches[i]}")
         t0 = time.perf_counter()
         simulate_vis(device="cuda", **kw)
@@ -687,6 +1142,58 @@ def main() -> int:
         print(f"[4] simulate_vis {kind} {beam} precision={precision}: {out.shape} {out.dtype}, "
               f"finite; launches {launches[i]}; wall first {first:.3f} s, "
               f"second {second:.3f} s", flush=True)
+
+    # The north star: the stacked beam_eval and pair_rows once a source
+    # block, and no spread, interp or fused single-beam rows (exact type-1).
+    ns_blocks = source_blocks(ns)[0]
+    ns_nbl = len(ns["baselines"])
+    ns_vis, ns_launches = {}, {}
+    for precision in NS_PRECISIONS:
+        reset(counters)
+        t0 = time.perf_counter()
+        out = simulate_vis(device="cuda", precision=precision, **ns)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        got = ns_launches[precision] = read(counters)
+        want_shape = (1, 2, 2, 2, ns_nbl)
+        if out.shape != want_shape or not np.all(np.isfinite(out)):
+            raise AssertionError(f"north star precision={precision}: shape {out.shape} (want "
+                                 f"{want_shape}), finite={bool(np.all(np.isfinite(out)))}")
+        if (got["beam_eval"] != ns_blocks or got["pair_rows"] != ns_blocks
+                or got["spread"] or got["interp"] or got["beam_rows"]):
+            raise AssertionError(f"north star precision={precision}: kernel launches {got} "
+                                 f"({ns_blocks} source blocks)")
+        t0 = time.perf_counter()
+        simulate_vis(device="cuda", precision=precision, **ns)
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        ns_vis[precision] = out
+        print(f"[4] simulate_vis north-star hera-{len(ns['ants'])} {NS_BEAMS} beams "
+              f"precision={precision}: {out.shape} {out.dtype}, finite; {ns_nbl} baselines, "
+              f"{ns_blocks} source blocks; launches {got}; wall first {first:.3f} s, second "
+              f"{second:.3f} s", flush=True)
+
+    # Per-antenna type-3 at reduced depth: one spread a block for all the
+    # pairs' channels, one interpolation a pair.
+    pa_blocks = source_blocks(pa)[0]
+    npairs = pair_arrays(pa)[2].npairs
+    reset(counters)
+    t0 = time.perf_counter()
+    pa_vis = run_per_antenna_type3(pa)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    got = read(counters)
+    want_shape = (1, 1, 2, 2, nbl)
+    if pa_vis.shape != want_shape or not np.all(np.isfinite(pa_vis)):
+        raise AssertionError(f"per-antenna type-3: shape {pa_vis.shape} (want {want_shape}), "
+                             f"finite={bool(np.all(np.isfinite(pa_vis)))}")
+    if (got["spread"] != pa_blocks or got["beam_eval"] != pa_blocks
+            or got["pair_rows"] != pa_blocks or got["interp"] != npairs or got["beam_rows"]):
+        raise AssertionError(f"per-antenna type-3: kernel launches {got} ({pa_blocks} source "
+                             f"blocks, {npairs} pairs)")
+    print(f"[4] per-antenna type-3, {PA_BEAMS} beams ({npairs} pairs, {4 * npairs} channels) "
+          f"precision=1: {pa_vis.shape} {pa_vis.dtype}, finite; launches {got}; wall "
+          f"{first:.3f} s", flush=True)
 
     # The oracle: the port's float64 direct path on the CPU, where every
     # kernel takes its plain version, on every 32nd baseline.
@@ -707,9 +1214,23 @@ def main() -> int:
               f"of max|V| (gate {ORACLE_GATE[run[4]]:.0e})", flush=True)
         if not err <= ORACLE_GATE[run[4]]:
             raise AssertionError(f"{run[0]} precision={run[4]} misses its accuracy gate")
+    new_runs = [(f"north-star precision={p}", ns, ns_vis[p], p) for p in NS_PRECISIONS]
+    new_runs.append(("per-antenna type-3 precision=1", pa, pa_vis, 1))
+    for label, kw, got_vis, precision in new_runs:
+        sub = kw["baselines"][::32]
+        okw = dict(kw, baselines=sub, precision=2)
+        t0 = time.perf_counter()
+        oracle = direct_oracle(okw)
+        scale = np.abs(oracle).max()
+        err = np.abs(got_vis[..., ::32] - oracle).max() / scale
+        print(f"[5] {label} vs fp64 direct ({len(sub)} baselines, {time.perf_counter() - t0:.3f}"
+              f" s on the CPU): max err {err:.3e} of max|V| (gate "
+              f"{ORACLE_GATE[precision]:.0e})", flush=True)
+        if not err <= ORACLE_GATE[precision]:
+            raise AssertionError(f"{label} misses its accuracy gate")
 
     if "--profile" in sys.argv[1:]:
-        profile_runs(cfg)
+        profile_runs(cfg, ns)
 
     main_run = {1: 2, 2: 3}  # RUNS index of the polarized tabulated slice
     kernels = []
@@ -718,18 +1239,25 @@ def main() -> int:
         ("interp", "fftvis_tpu_torch/csrc/interp.cu", "fftvis_tpu/nufft/pallas_interp.py:162"),
         ("beam_eval", "fftvis_tpu_torch/csrc/beam_eval.cu", "fftvis_tpu/beams/pallas_eval.py:287"),
         ("beam_rows", "fftvis_tpu_torch/csrc/beam_eval.cu", "fftvis_tpu/beams/pallas_eval.py:287"),
+        # No Pallas kernel: the XLA ops of the batched pair rows.
+        ("pair_rows", "fftvis_tpu_torch/csrc/beam_eval.cu", "fftvis_tpu/tpu/program.py:340"),
     ):
         for precision, dname in ((1, "float32"), (2, "float64")):
             if kname in beam_checks:
                 err, ms, plain_ms, (b_ms, b_by), lib_ms = beam_checks[kname][dname]
             else:
                 err, ms, plain_ms, (b_ms, b_by), lib_ms = checks[dname][kname]
+            # The per-antenna kernels' launches are the north star's.
+            if kname in ("beam_eval", "pair_rows"):
+                count = ns_launches[precision][kname]
+            else:
+                count = launches[main_run[precision]][kname]
             kernels.append({
                 "name": f"{kname}_{dname}",
                 "route": "cuda",
                 "source": source,
                 "replaces": replaces,
-                "launches": launches[main_run[precision]][kname],
+                "launches": count,
                 "max_abs_err": err,
                 "ms": ms,
                 "plain_ms": plain_ms,

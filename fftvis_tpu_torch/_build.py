@@ -125,5 +125,11 @@ def load_kernels():
         # nch, sky strides (3), za0, dza, az0, daz, stream
         fn.argtypes = [P] * 6 + [I] * 9 + [L] * 3 + [D] * 4 + [P]
         fn.restype = I
+    for name in ("fftvis_pair_rows_f32", "fftvis_pair_rows_f64"):
+        fn = getattr(lib, name)
+        # evals, pair_i, pair_j, sky, mask, out, n, K, chf, c0, P, epi,
+        # complex, sky strides (3), stream
+        fn.argtypes = [P] * 6 + [I] * 7 + [L] * 3 + [P]
+        fn.restype = I
     _LIB = lib
     return lib

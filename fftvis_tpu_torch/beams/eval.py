@@ -26,6 +26,15 @@ Two entries, one CUDA source (``csrc/beam_eval.cu``) with shared tap code:
   4 threads a point split its taps and add their partial channel vectors
   in registers; lane c writes row c.
 
+A third kernel of the same source has no Pallas counterpart:
+:func:`pair_rows` forms every beam pair's masked coherency rows of one
+source block from K beams' evaluations (per-antenna beams: the
+interpolation of a stacked table by :func:`beam_eval`, then this), what
+the JAX engine does with ``apparent_coherency_rows_batched`` in XLA. Its
+(P * C, n) complex output is the largest tensor of a block (180 pairs x 4
+rows x 4096 points, 47 MB at complex128); the torch composition writes and
+reads it about eight times, the kernel writes it once.
+
 The TPU kernel bin-sorts points into tiles and rebuilds the taps as one-hot
 matrices for its matrix unit, because gathers are slow there. On the card a
 direct gather is the natural form. Cells come from an exact floor of the
@@ -39,8 +48,8 @@ fits in L2) and the points and rows, a fraction of a microsecond at the
 slice's 4096-point source blocks; a call is launch-bound, so the fused
 kernel's gain is the ~17 launches of the unfused source block it replaces.
 Each wrapper takes the plain version only for CPU tensors, launches its
-kernel for CUDA tensors and raises on any other device; ``launches`` and
-``rows_launches`` count the kernels' launches.
+kernel for CUDA tensors and raises on any other device; ``launches``,
+``rows_launches`` and ``pair_launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -50,10 +59,11 @@ from dataclasses import dataclass
 
 import torch
 
-from ..core.coherency import apparent_coherency_rows
+from ..core.coherency import apparent_coherency_rows, apparent_coherency_rows_batched
 
 launches = 0  # beam_eval_points launches: the interpolation alone
 rows_launches = 0  # beam_rows_points launches: fused source blocks
+pair_launches = 0  # pair_rows_points launches: per-antenna pair rows
 
 TWO_PI = 2.0 * math.pi
 COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -151,15 +161,26 @@ def grid_cells(az, za, grid: TableGrid):
     return yy, xx
 
 
-def table_response(vals, grid: TableGrid):
-    """(npts, chflat) interpolated channels -> the beam response: (2 vec,
-    2 feed, npts) Jones, or the selected feed's (npts,) real power."""
-    vals = vals.T.reshape(grid.ch_shape + (vals.shape[0],))
-    if grid.is_complex:
-        vals = torch.complex(vals[0], vals[1])
-    if grid.is_power:
-        return vals[0, min(grid.feed, vals.shape[1] - 1)].real
+def evals_response(evals, ch_shape: tuple, is_power: bool, feed: int = 0):
+    """(n, K * chflat) evaluations of K beams -> their responses, as the JAX
+    package's ``BatchedPreparedBeams.evaluate_all`` gives them: (K, 2 vec,
+    2 feed, n) Jones (complex for a complex table), or the selected feed's
+    (K, n) real power. ``ch_shape`` is one beam's channel shape ([2 re/im,]
+    nvec, nfeed), beam-major inside the channel axis."""
+    n = evals.shape[0]
+    vals = evals.T.reshape((-1,) + tuple(ch_shape) + (n,))
+    if len(ch_shape) == 3:
+        vals = torch.complex(vals[:, 0], vals[:, 1])
+    if is_power:
+        return vals[:, 0, min(feed, vals.shape[2] - 1)].real
     return vals
+
+
+def table_response(vals, grid: TableGrid):
+    """(npts, chflat) interpolated channels of one table -> the beam
+    response: (2 vec, 2 feed, npts) Jones, or the selected feed's (npts,)
+    real power."""
+    return evals_response(vals, grid.ch_shape, grid.is_power, grid.feed)[0]
 
 
 def _same_device(dev: int, *tensors) -> bool:
@@ -268,6 +289,85 @@ def beam_rows(data, az, za, sky, mask, grid: TableGrid,
     return beam_rows_plain(data, az, za, sky, mask, grid, polarized_sky)
 
 
+def response_channels(resp, polarized: bool) -> torch.Tensor:
+    """One beam's response -> its (n, chflat) evaluation channels: a (2 vec,
+    2 feed, n) complex Jones response as ch_shape (2 re/im, 2, 2), an (n,)
+    power response as (1, 1)."""
+    if not polarized:
+        return resp[:, None]
+    if not resp.is_complex():
+        resp = torch.complex(resp, torch.zeros_like(resp))
+    return torch.stack([resp.real, resp.imag]).reshape(8, -1).T
+
+
+def pair_rows_plain(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, is_power: bool,
+                    polarized_sky: bool = False, feed: int = 0) -> torch.Tensor:
+    """Plain torch pair rows: :func:`evals_response`,
+    ``apparent_coherency_rows_batched``, the complex cast and the mask.
+    Returns (P * C, n) complex, C = 1 (power) or 4."""
+    resp = evals_response(evals, ch_shape, is_power, feed)
+    if not is_power and resp.dtype == evals.dtype:
+        resp = resp.to(COMPLEX[evals.dtype])
+    rows = apparent_coherency_rows_batched(resp, pair_i.cpu(), pair_j.cpu(), sky,
+                                           not is_power, polarized_sky)
+    return rows.to(COMPLEX[evals.dtype]) * mask[None, :]
+
+
+def _check_pairs(evals, pair_i, pair_j, sky, mask, ch_shape, is_power, epi) -> None:
+    if not _same_device(evals.get_device(), pair_i, pair_j, sky, mask):
+        raise ValueError("pair_rows: all tensors must be on one device")
+    if evals.dtype not in COMPLEX:
+        raise TypeError(f"pair_rows: evaluations must be float32/float64, got {evals.dtype}")
+    if evals.dim() != 2 or not evals.is_contiguous():
+        raise ValueError(f"pair_rows: evaluations must be a contiguous (n, K * chflat), "
+                         f"got {tuple(evals.shape)}")
+    chf = math.prod(ch_shape)
+    if evals.shape[1] == 0 or evals.shape[1] % chf:
+        raise ValueError(f"pair_rows: {evals.shape[1]} channels are no whole number of "
+                         f"beams of {tuple(ch_shape)}")
+    if not is_power and tuple(ch_shape[-2:]) != (2, 2):
+        raise ValueError(f"pair_rows: a Jones beam has 2 x 2 channels, got {tuple(ch_shape)}")
+    for name, t in (("pair_i", pair_i), ("pair_j", pair_j)):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape != pair_i.shape:
+            raise ValueError(f"pair_rows: {name} must be (P,) int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    n = evals.shape[0]
+    if mask.dtype != evals.dtype or mask.shape != (n,):
+        raise ValueError(f"pair_rows: mask must be ({n},) {evals.dtype}")
+    if epi == JONES_IQUV:
+        if sky.dtype != COMPLEX[evals.dtype] or sky.shape != (n, 2, 2):
+            raise ValueError(f"pair_rows: an IQUV sky must be ({n}, 2, 2) "
+                             f"{COMPLEX[evals.dtype]}, got {tuple(sky.shape)} {sky.dtype}")
+    elif sky.dtype != evals.dtype or sky.shape != (n,):
+        raise ValueError(f"pair_rows: a Stokes-I sky must be ({n},) {evals.dtype}, "
+                         f"got {tuple(sky.shape)} {sky.dtype}")
+
+
+def pair_rows(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, is_power: bool,
+              polarized_sky: bool = False, feed: int = 0) -> torch.Tensor:
+    """Every beam pair's masked apparent-coherency rows of one source block.
+
+    ``evals`` the (n, K * chflat) evaluations of K beams, beam-major inside
+    the channel axis, each beam's channels laid out as ``ch_shape`` ([2
+    re/im,] nvec, nfeed; a power beam's ``feed`` selected); ``pair_i``,
+    ``pair_j`` the (P,) int32 beam indices of the pairs; ``sky`` the (n,)
+    real Stokes-I flux, or with ``polarized_sky`` the (n, 2, 2) complex
+    coherency (any strides); ``mask`` the (n,) horizon mask. Returns (P *
+    C, n) complex rows, pair-major, C = 1 (power) or 4 ordered (00, 01, 10,
+    11). A CPU tensor takes :func:`pair_rows_plain`; a CUDA tensor launches
+    the CUDA kernel; any other device raises.
+    """
+    epi = POWER if is_power else (JONES_IQUV if polarized_sky else JONES_I)
+    _check_pairs(evals, pair_i, pair_j, sky, mask, ch_shape, is_power, epi)
+    if evals.is_cuda:
+        return _pair_rows_cuda(evals, pair_i.contiguous(), pair_j.contiguous(), sky,
+                               mask.contiguous(), ch_shape, epi, feed)
+    if evals.device.type != "cpu":
+        raise ValueError(f"pair_rows: unsupported device {evals.device}")
+    return pair_rows_plain(evals, pair_i, pair_j, sky, mask, ch_shape, is_power,
+                           polarized_sky, feed)
+
+
 # ------------------------------------------------------------ launches
 
 _KERNELS = None
@@ -285,6 +385,8 @@ def _kernels():
             ("eval", torch.float64): lib.fftvis_beam_eval_f64,
             ("rows", torch.float32): lib.fftvis_beam_rows_f32,
             ("rows", torch.float64): lib.fftvis_beam_rows_f64,
+            ("pairs", torch.float32): lib.fftvis_pair_rows_f32,
+            ("pairs", torch.float64): lib.fftvis_pair_rows_f64,
         }
     return _KERNELS
 
@@ -335,4 +437,29 @@ def _beam_rows_cuda(data, az, za, sky, mask, grid: TableGrid, epi: int) -> torch
     if err != 0:
         raise RuntimeError(f"beam_rows kernel launch failed: CUDA error {err}")
     rows_launches += 1
+    return out
+
+
+def _pair_rows_cuda(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, epi: int,
+                    feed: int) -> torch.Tensor:
+    global pair_launches
+    k = _kernels()
+    n = evals.shape[0]
+    chf = math.prod(ch_shape)
+    npairs = pair_i.shape[0]
+    C = 1 if epi == POWER else 4
+    out = evals.new_empty((npairs * C, n), dtype=COMPLEX[evals.dtype])
+    if n == 0 or npairs == 0:
+        return out
+    c0 = min(feed, ch_shape[-1] - 1) if epi == POWER else 0
+    # Strides in reals: a complex element is two.
+    sp, sa, sb = (2 * s for s in sky.stride()) if epi == JONES_IQUV else (sky.stride(0), 0, 0)
+    err = k[("pairs", evals.dtype)](
+        evals.data_ptr(), pair_i.data_ptr(), pair_j.data_ptr(), sky.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), n, evals.shape[1] // chf, chf, c0, npairs,
+        epi, int(len(ch_shape) == 3), sp, sa, sb, _stream(evals),
+    )
+    if err != 0:
+        raise RuntimeError(f"pair_rows kernel launch failed: CUDA error {err}")
+    pair_launches += 1
     return out

@@ -10,13 +10,15 @@ into a single-feed power beam (matvis's prepare_beam_unpolarized); and
 A tabulated beam is prepared once on the host -- frequency interpolation,
 the za-domain check, complex -> stacked (re, im), the cubic-spline
 prefilter in float64, the channels-last relayout (nfreq, ny, nx, chflat) --
-and its table is taken into the compute dtype and onto the device once.
-``PreparedBeam.rows`` then forms one source block's masked coherency rows
-from it with :func:`~fftvis_tpu_torch.beams.eval.beam_rows` (one fused
-CUDA kernel on the card); ``evaluate`` interpolates it with
-:func:`~fftvis_tpu_torch.beams.eval.beam_eval`. The JAX package's
-prepared-beam content cache, batched stacks of same-grid beams and the
-``FFTVIS_BEAM_UPSAMPLE`` resampling are later ROADMAP items.
+and its table is taken into the compute dtype and onto the device once, at
+first use. ``PreparedBeam.rows`` then forms one source block's masked
+coherency rows from it with :func:`~fftvis_tpu_torch.beams.eval.beam_rows`
+(one fused CUDA kernel on the card); ``evaluate`` interpolates it with
+:func:`~fftvis_tpu_torch.beams.eval.beam_eval`. A per-antenna list
+(:func:`prepare_beams`) of same-grid tabulated beams is stacked by
+:func:`stack_prepared` into one device table that one ``beam_eval`` launch
+a source block interpolates. The JAX package's prepared-beam content cache
+and the ``FFTVIS_BEAM_UPSAMPLE`` resampling are later ROADMAP items.
 """
 
 from __future__ import annotations
@@ -29,7 +31,14 @@ import torch
 
 from ..core.coherency import apparent_coherency_rows
 from .analytic import AnalyticBeam
-from .eval import TableGrid, beam_eval, beam_rows, grid_cells, table_response
+from .eval import (
+    TableGrid,
+    beam_eval,
+    beam_rows,
+    evals_response,
+    grid_cells,
+    table_response,
+)
 from .gridded import GriddedBeam
 from .interp import spline_prefilter_2d
 
@@ -91,18 +100,43 @@ class PreparedBeam:
     in the dtype of ``za``. ``freq_value`` is a host float (analytic beams);
     ``freq_index`` indexes the simulation frequencies (gridded tables are
     interpolated onto them at prepare time). A tabulated beam also carries
-    its device ``table`` (nfreq, ny, nx, chflat) and its ``grid``.
+    its host table (nfreq, ny, nx, chflat) and its ``grid``; its device
+    ``table`` is uploaded at first use, so a beam that only goes into a
+    stack (:func:`stack_prepared`) never is.
     """
 
-    def __init__(self, evaluate_fn, polarized: bool, table=None,
-                 grid: TableGrid | None = None):
+    def __init__(self, evaluate_fn, polarized: bool, host_table=None,
+                 grid: TableGrid | None = None, dtype: torch.dtype = torch.float64,
+                 device="cuda"):
         self._fn = evaluate_fn
         self.polarized = polarized
-        self.table = table
+        self.host_table = host_table
         self.grid = grid
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self._table = None
+
+    @property
+    def table(self):
+        if self.host_table is not None and self._table is None:
+            self._table = torch.tensor(self.host_table, dtype=self.dtype, device=self.device)
+        return self._table
+
+    @property
+    def stack_spec(self):
+        """What beams must share to stack: table shape and grid; None for an
+        analytic beam."""
+        if self.host_table is None:
+            return None
+        return (self.host_table.shape, self.grid)
 
     def evaluate(self, az, za, freq_value: float, freq_index: int):
-        return self._fn(az, za, freq_value, freq_index)
+        if self.grid is None:
+            return self._fn(az, za, freq_value, freq_index)
+        g = self.grid
+        yy, xx = grid_cells(az, za, g)
+        return table_response(beam_eval(self.table[freq_index], yy, xx, order=g.order,
+                                        wrap_x=g.wrap), g)
 
     def rows(self, az, za, freq_value: float, freq_index: int, flux, mask,
              polarized_sky: bool, complex_dtype: torch.dtype) -> torch.Tensor:
@@ -112,13 +146,74 @@ class PreparedBeam:
         the sky at this frequency, (nsrc,) real or (nsrc, 2, 2) complex
         (IQUV). A tabulated beam takes the fused
         :func:`~fftvis_tpu_torch.beams.eval.beam_rows`."""
-        if self.table is not None:
+        if self.grid is not None:
             rows = beam_rows(self.table[freq_index], az, za, flux, mask, self.grid,
                              polarized_sky)
             return rows.to(complex_dtype)
         resp = self.evaluate(az, za, freq_value, freq_index)
         rows = apparent_coherency_rows(resp, resp, flux, self.polarized, polarized_sky)
         return rows.to(complex_dtype) * mask[None, :]
+
+
+class StackedBeams:
+    """K same-grid tabulated beams as one device table, (nfreq, ny, nx, K *
+    chflat), beam-major inside the channel axis (the JAX stacking order),
+    uploaded once. ``channels`` interpolates it at one source block with one
+    :func:`~fftvis_tpu_torch.beams.eval.beam_eval` launch; ``evaluate_all``
+    gives the responses as the JAX ``BatchedPreparedBeams.evaluate_all``
+    does: (K, 2 vec, 2 feed, n) Jones or (K, n) power."""
+
+    def __init__(self, table: torch.Tensor, grid: TableGrid, nbeams: int):
+        self.table = table
+        self.grid = grid
+        self.nbeams = nbeams
+        self.polarized = not grid.is_power
+
+    def channels(self, az, za, freq_index: int) -> torch.Tensor:
+        g = self.grid
+        yy, xx = grid_cells(az, za, g)
+        return beam_eval(self.table[freq_index], yy, xx, order=g.order, wrap_x=g.wrap)
+
+    def evaluate_all(self, az, za, freq_value: float, freq_index: int):
+        g = self.grid
+        return evals_response(self.channels(az, za, freq_index), g.ch_shape, g.is_power,
+                              g.feed)
+
+
+def stack_prepared(prepared_list) -> StackedBeams | None:
+    """Fuse same-grid tabulated :class:`PreparedBeam` s into one
+    :class:`StackedBeams`: one interpolation a source block serves all K.
+    None when the list is shorter than 2 or its beams do not share table
+    shape, grid, spline order and kind (a mixed analytic and tabulated list,
+    for one): the engine then evaluates beam by beam, as the JAX package
+    does. The stacked table goes to the first beam's device and dtype."""
+    if len(prepared_list) < 2:
+        return None
+    specs = [pb.stack_spec for pb in prepared_list]
+    if any(s is None for s in specs) or any(s != specs[0] for s in specs[1:]):
+        return None
+    first = prepared_list[0]
+    # Per-beam tables are channels-last (nfreq, ny, nx, chflat); the beam
+    # axis goes INTO the channel axis so one gather serves all K. Each
+    # table goes to the device as it is, and the stack and the dtype cast
+    # run there: on the host they cost more than the upload (PERF.md).
+    parts = [torch.from_numpy(pb.host_table).to(first.device) for pb in prepared_list]
+    stacked = torch.stack(parts, dim=3).to(first.dtype)
+    nfreq_t, ny_t, nx_t = stacked.shape[:3]
+    return StackedBeams(stacked.reshape(nfreq_t, ny_t, nx_t, -1), first.grid,
+                        len(prepared_list))
+
+
+def prepare_beams(beam_list, freqs, polarized, spline_opts=None,
+                  interpolation_function="az_za_map_coordinates", use_feed="x",
+                  dtype: torch.dtype = torch.float64, device="cuda") -> list:
+    """Prepare every beam of a list (the engine's entry point)."""
+    return [
+        prepare_beam(b, freqs, polarized, spline_opts=spline_opts,
+                     interpolation_function=interpolation_function, use_feed=use_feed,
+                     dtype=dtype, device=device)
+        for b in beam_list
+    ]
 
 
 def _spline_order(spline_opts: dict | None, interpolation_function: str) -> int:
@@ -163,7 +258,7 @@ def prepare_beam(
 ) -> PreparedBeam:
     """Compile one beam into a :class:`PreparedBeam` for the simulation
     frequencies ``freqs``; a tabulated beam's table goes to ``device`` in
-    ``dtype`` once, here."""
+    ``dtype`` once, at its first use."""
     bi = beam if isinstance(beam, BeamInterface) else BeamInterface(beam)
     inner = bi.beam
     order = _spline_order(spline_opts, interpolation_function)
@@ -172,15 +267,15 @@ def prepare_beam(
         if polarized:
             raise ValueError("Power beams cannot be evaluated polarized.")
         return PreparedBeam(lambda az, za, fv, fi: inner.power(az, za, fv),
-                            polarized=False)
+                            polarized=False, dtype=dtype, device=device)
 
     if isinstance(inner, AnalyticBeam):
         if polarized:
             return PreparedBeam(lambda az, za, fv, fi: inner.efield(az, za, fv),
-                                polarized=True)
+                                polarized=True, dtype=dtype, device=device)
         return PreparedBeam(
             lambda az, za, fv, fi: inner.power(az, za, fv, feed=use_feed),
-            polarized=False,
+            polarized=False, dtype=dtype, device=device,
         )
 
     # Gridded beams (including a PowerBeam over a gridded base).
@@ -237,8 +332,7 @@ def prepare_beam(
     ch_shape = host.shape[:freq_axis]
     host = np.moveaxis(host, freq_axis, 0)  # (nfreq, *ch_shape, ny, nx)
     nfreq_t, ny_t, nx_t = host.shape[0], host.shape[-2], host.shape[-1]
-    host = np.moveaxis(host.reshape(nfreq_t, -1, ny_t, nx_t), 1, -1)
-    table = torch.tensor(np.ascontiguousarray(host), dtype=dtype, device=device)
+    host = np.ascontiguousarray(np.moveaxis(host.reshape(nfreq_t, -1, ny_t, nx_t), 1, -1))
     is_power = gb.beam_type == "power"
     # A PowerBeam carries its own feed selection (the engine prepares
     # without use_feed).
@@ -257,9 +351,5 @@ def prepare_beam(
     grid = TableGrid(za0=za0, dza=dza, az0=az0, daz=daz, order=order, wrap=wrap,
                      ch_shape=ch_shape, is_complex=is_complex, is_power=is_power,
                      feed=feed_idx)
-
-    def eval_grid(az, za, fv, fi):
-        yy, xx = grid_cells(az, za, grid)
-        return table_response(beam_eval(table[fi], yy, xx, order=order, wrap_x=wrap), grid)
-
-    return PreparedBeam(eval_grid, polarized=not is_power, table=table, grid=grid)
+    return PreparedBeam(None, polarized=not is_power, host_table=host, grid=grid,
+                        dtype=dtype, device=device)

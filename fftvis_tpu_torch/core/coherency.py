@@ -2,8 +2,9 @@
 
 The port of ``fftvis_tpu/core/coherency.py``: the host Stokes -> coherency
 conversion (NumPy, unpolarized and IQUV), and the apparent-coherency rows
-of one beam pair on tensors -- power beams, Jones beams with a Stokes-I
-sky, and Jones beams with an IQUV sky.
+on tensors, of one beam pair or of every pair of a beam stack at once --
+power beams, Jones beams with a Stokes-I sky, and Jones beams with an IQUV
+sky.
 """
 
 from __future__ import annotations
@@ -81,3 +82,40 @@ def apparent_coherency_rows(e_i, e_j, flux, polarized: bool = False,
     # negatives near nulls; clamp at zero (the physical floor).
     amp = torch.sqrt(torch.clamp(e_i * e_j, min=0.0)) * flux
     return torch.complex(amp, torch.zeros_like(amp))[None, :]
+
+
+def apparent_coherency_rows_batched(evals, idx_i, idx_j, flux, polarized: bool = False,
+                                    polarized_sky: bool = False) -> torch.Tensor:
+    """All beam-pair coherency rows at once.
+
+    The batched form of :func:`apparent_coherency_rows`: ``evals`` stacks
+    every beam's response, (K, 2 vec, 2 feed, nsrc) complex when
+    ``polarized``, else (K, nsrc) real; ``idx_i``/``idx_j`` are the (P,)
+    beam indices of the pairs. Returns (P * nfeeds**2, nsrc) complex rows,
+    pair-major and (f1, f2) = (00, 01, 10, 11) within a pair: the order the
+    per-pair concatenation gives. It is the plain version of the pair-rows
+    kernel (:func:`~fftvis_tpu_torch.beams.eval.pair_rows`).
+    """
+    ii = torch.as_tensor(np.asarray(idx_i), dtype=torch.long, device=evals.device)
+    jj = torch.as_tensor(np.asarray(idx_j), dtype=torch.long, device=evals.device)
+    e_i, e_j = evals[ii], evals[jj]
+    if polarized and polarized_sky:
+        ai = torch.conj(torch.flip(e_i, dims=(1,)))
+        aj = torch.flip(e_j, dims=(1,))
+        coh = torch.movedim(flux, 0, -1)  # (2, 2, nsrc)
+        out = sum(
+            ai[:, a, :, None, :] * coh[a, b][None, None, None, :] * aj[:, b, None, :, :]
+            for a in range(2)
+            for b in range(2)
+        )  # (P, f, g, nsrc)
+    elif polarized:
+        eic = torch.conj(e_i)
+        out = (
+            eic[:, 0, :, None, :] * e_j[:, 0, None, :, :]
+            + eic[:, 1, :, None, :] * e_j[:, 1, None, :, :]
+        ) * flux.to(e_i.dtype)[None, None, None, :]
+    else:
+        # See apparent_coherency_rows: clamp cubic-interpolation overshoot.
+        amp = torch.sqrt(torch.clamp(e_i * e_j, min=0.0)) * flux[None, :]
+        return torch.complex(amp, torch.zeros_like(amp))
+    return out.reshape(out.shape[0] * 4, out.shape[-1])

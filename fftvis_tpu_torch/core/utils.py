@@ -2,8 +2,9 @@
 
 NumPy copies of the helpers of ``fftvis_tpu/core/utils.py`` that the port's
 slice needs: redundant-baseline grouping, the plane-to-XY rotation of a
-tilted array and the speed of light. Tests assert that each copy gives
-exactly the arrays of the original.
+tilted array, the antenna-to-beam mapping check and the speed of light.
+Tests assert that each copy gives exactly the arrays (and error messages)
+of the original.
 """
 
 from __future__ import annotations
@@ -111,3 +112,48 @@ def get_plane_to_xy_rotation_matrix(antvecs: np.ndarray) -> np.ndarray:
         ]
     )
     return np.eye(3) + np.sin(theta) * K + (1.0 - np.cos(theta)) * (K @ K)
+
+
+def validate_beam_idx(
+    beam_idx: np.ndarray | None,
+    beam_coefs: np.ndarray | None,
+    nbeam: int,
+    nant: int,
+) -> np.ndarray | None:
+    """Validate / infer the antenna-to-beam mapping.
+
+    Two mutually exclusive modes (ref core/utils.py:358-430):
+
+    - per-antenna beams (``beam_coefs is None``): ``beam_idx`` maps antennas to
+      entries of the beam list; inferred when unambiguous.
+    - eigenbeams (``beam_coefs`` given): the mapping is defined by the
+      coefficients and ``beam_idx`` must not be supplied.
+
+    Error messages match the reference because its tests assert on them.
+    """
+    if beam_coefs is not None:
+        if beam_idx is not None:
+            raise ValueError(
+                "beam_idx should not be provided when beam_coefs is given. "
+                "The mapping from antennas to beams is defined by beam_coefs."
+            )
+        return None
+
+    if beam_idx is None:
+        if nbeam == nant:
+            beam_idx = np.arange(nant)
+        elif nbeam != 1:
+            raise ValueError(
+                "If number of beams provided is not 1 or nant, beam_idx must be provided."
+            )
+
+    if beam_idx is not None:
+        beam_idx = np.asarray(beam_idx)
+        if beam_idx.shape != (nant,):
+            raise ValueError("beam_idx must be length nant")
+        if not all(0 <= i < nbeam for i in beam_idx):
+            raise ValueError(
+                "beam_idx contains indices greater than the number of beams"
+            )
+
+    return beam_idx

@@ -397,6 +397,146 @@ __global__ void beam_rows_points(
   }
 }
 
+// ------------------------------------------------ per-antenna pair rows
+//
+// pair_rows_points: every beam pair's masked apparent-coherency rows of one
+// source block from the K beams' evaluations, what the JAX engine forms
+// with apparent_coherency_rows_batched and the mask (fftvis_tpu/tpu/
+// program.py, source_block_weights; XLA there, no Pallas kernel). The
+// evaluations are (n, K * chf) reals, beam k's channels from k * chf: for
+// a Jones beam (2 re/im, 2 vec, 2 feed) or (2 vec, 2 feed), for a power
+// beam its feed at offset c0. The output is (P * C, n) complex, C = 1
+// (power) or 4 rows a pair ordered (00, 01, 10, 11), pair-major.
+//
+// A block takes a tile of TP points and stages their K * chf evaluations
+// in shared memory once, channel-major with a pad column, so that
+// neighbouring points sit in neighbouring banks; its TP x PY threads then
+// loop over its share of the pairs, thread x taking point x, and each row
+// is written with consecutive points at consecutive addresses. Reading the
+// (n, K * chf) layout straight from global memory would stride by K * chf
+// between neighbouring threads; that form (SMEM false) serves only a stack
+// too wide for shared memory. The output, (P * C, n) complex, is the
+// largest tensor of a source block and sets the bound.
+constexpr int TP = 32;             // points a tile: a warp's row write
+constexpr int PY = 8;              // pair lanes a block
+constexpr int SMEM_MAX = 200 * 1024;  // dynamic shared memory a block at most
+
+template <typename T, int EPI, bool CPLX, bool SMEM>
+__global__ void __launch_bounds__(TP * PY) pair_rows_points(
+    const T* __restrict__ ev,    // (n, kc) evaluations
+    const int* __restrict__ pi,  // (P,) first beam of each pair
+    const int* __restrict__ pj,  // (P,) second beam
+    const T* __restrict__ sky,   // real (n,) Stokes I, or complex (n, 2, 2) as reals
+    const T* __restrict__ mask,  // (n,)
+    T* __restrict__ out,         // complex (P * C, n) as reals
+    int n, int K, int chf, int c0, int P, int ppb,
+    long long sky_sp, long long sky_sa, long long sky_sb) {
+  using V2 = typename Vec2<T>::type;
+  constexpr int C = EPI == POWER ? 1 : 4;
+  extern __shared__ unsigned char smem_raw[];
+  T* sh = reinterpret_cast<T*>(smem_raw);
+  const long long kc = static_cast<long long>(K) * chf;
+  const int b0 = blockIdx.x * TP;
+  const int npt = min(TP, n - b0);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if constexpr (SMEM) {
+    const T* src = ev + static_cast<long long>(b0) * kc;
+    const int total = npt * static_cast<int>(kc);
+    for (int i = ty * TP + tx; i < total; i += TP * PY) {
+      const int pt = i / static_cast<int>(kc);
+      const int c = i - pt * static_cast<int>(kc);
+      sh[c * (TP + 1) + pt] = src[i];
+    }
+    __syncthreads();
+  }
+  if (tx >= npt) return;
+  const int b = b0 + tx;
+  auto at = [&](long long c) -> T {
+    if constexpr (SMEM) {
+      return sh[c * (TP + 1) + tx];
+    } else {
+      return __ldg(ev + static_cast<long long>(b) * kc + c);
+    }
+  };
+  const T m = mask[b];
+  const T* s = sky + sky_sp * b;
+  T flux = T(0), cr[2][2], ci[2][2];
+  if constexpr (EPI == JONES_IQUV) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int bb = 0; bb < 2; ++bb) {
+        const T* q = s + a * sky_sa + bb * sky_sb;
+        cr[a][bb] = q[0];
+        ci[a][bb] = q[1];
+      }
+    }
+  } else {
+    flux = s[0];
+  }
+  V2* o = reinterpret_cast<V2*>(out) + b;
+  const int p1 = min(P, (blockIdx.y + 1) * ppb);
+  for (int p = blockIdx.y * ppb + ty; p < p1; p += PY) {
+    V2* op = o + static_cast<long long>(p) * C * n;
+    if (m == T(0)) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) op[static_cast<long long>(c) * n] = V2{T(0), T(0)};
+      continue;
+    }
+    // A malformed index reads a wrong beam, never out of bounds.
+    const long long ei = static_cast<long long>(min(max(pi[p], 0), K - 1)) * chf;
+    const long long ej = static_cast<long long>(min(max(pj[p], 0), K - 1)) * chf;
+    if constexpr (EPI == POWER) {
+      // Cubic overshoot near nulls can go negative: clamp at the floor.
+      const T amp = sqrt(fmax(at(ei + c0) * at(ej + c0), T(0))) * flux;
+      op[0] = V2{amp * m, T(0)};
+    } else {
+      // e[v][f] of beam i and beam j.
+      T ar[2][2], ai[2][2], br[2][2], bi[2][2];
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          ar[v][f] = at(ei + v * 2 + f);
+          br[v][f] = at(ej + v * 2 + f);
+          ai[v][f] = CPLX ? at(ei + 4 + v * 2 + f) : T(0);
+          bi[v][f] = CPLX ? at(ej + 4 + v * 2 + f) : T(0);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int f = c / 2, g = c % 2;
+        T re = T(0), im = T(0);
+        if constexpr (EPI == JONES_I) {
+          // (conj(ei[0, f]) ej[0, g] + conj(ei[1, f]) ej[1, g]) * flux.
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            re += ar[v][f] * br[v][g] + ai[v][f] * bi[v][g];
+            im += ar[v][f] * bi[v][g] - ai[v][f] * br[v][g];
+          }
+          re *= flux;
+          im *= flux;
+        } else {
+          // A_i^H C A_j with the vector axis flipped: sum over (a, b) of
+          // conj(ei[1-a, f]) coh[a, b] ej[1-b, g].
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            const T xr = ar[1 - a][f], xi = -ai[1 - a][f];
+#pragma unroll
+            for (int bb = 0; bb < 2; ++bb) {
+              const T tr = xr * cr[a][bb] - xi * ci[a][bb];
+              const T ti = xr * ci[a][bb] + xi * cr[a][bb];
+              re += tr * br[1 - bb][g] - ti * bi[1 - bb][g];
+              im += tr * bi[1 - bb][g] + ti * br[1 - bb][g];
+            }
+          }
+        }
+        op[static_cast<long long>(c) * n] = V2{re * m, im * m};
+      }
+    }
+  }
+}
+
 unsigned int blocks_for(long long work, int threads) {
   return static_cast<unsigned int>((work + threads - 1) / threads);
 }
@@ -484,7 +624,103 @@ int launch_beam_rows(const void* data, const void* az, const void* za,
   return static_cast<int>(cudaGetLastError());
 }
 
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        count <= 0) {
+      count = 132;
+    }
+  }
+  return count;
+}
+
+template <typename T, int EPI, bool CPLX, bool SMEM>
+void pair_rows_instance(dim3 grid, size_t smem, cudaStream_t s, const T* ev,
+                        const int* pi, const int* pj, const T* sky, const T* mask,
+                        T* out, int n, int K, int chf, int c0, int P, int ppb,
+                        long long sp, long long sa, long long sb) {
+  if constexpr (SMEM) {
+    // Above 48 KB a kernel must opt in to its dynamic shared memory.
+    static bool opted_in = false;
+    if (!opted_in) {
+      cudaFuncSetAttribute(pair_rows_points<T, EPI, CPLX, SMEM>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+      opted_in = true;
+    }
+  }
+  pair_rows_points<T, EPI, CPLX, SMEM><<<grid, dim3(TP, PY), smem, s>>>(
+      ev, pi, pj, sky, mask, out, n, K, chf, c0, P, ppb, sp, sa, sb);
+}
+
+template <typename T>
+int launch_pair_rows(const void* ev, const void* pi, const void* pj, const void* sky,
+                     const void* mask, void* out, int n, int K, int chf, int c0,
+                     int P, int epi, int cplx, long long sp, long long sa,
+                     long long sb, void* stream) {
+  const bool power = epi == POWER;
+  if (K < 1 || chf < 1 || P < 0 || n < 0 || (epi != POWER && epi != JONES_I &&
+                                               epi != JONES_IQUV) ||
+      (power && (c0 < 0 || c0 >= chf)) || (!power && chf != (cplx ? 8 : 4))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0 || P == 0) return 0;
+  const int tiles = (n + TP - 1) / TP;
+  // Enough blocks for two a SM: split the pairs of a tile over blocks.
+  int groups = (2 * sm_count() + tiles - 1) / tiles;
+  groups = max(1, min(groups, min((P + PY - 1) / PY, 65535)));
+  const int ppb = (P + groups - 1) / groups;
+  groups = (P + ppb - 1) / ppb;
+  const dim3 grid(tiles, groups);
+  const long long bytes = static_cast<long long>(K) * chf * (TP + 1) * sizeof(T);
+  const bool smem = bytes <= SMEM_MAX;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* e = static_cast<const T*>(ev);
+  const int* ii = static_cast<const int*>(pi);
+  const int* jj = static_cast<const int*>(pj);
+  const T* k = static_cast<const T*>(sky);
+  const T* m = static_cast<const T*>(mask);
+  T* o = static_cast<T*>(out);
+#define FFTVIS_PAIRS(EPI, CPLX)                                                      \
+  if (smem) {                                                                        \
+    pair_rows_instance<T, EPI, CPLX, true>(grid, bytes, s, e, ii, jj, k, m, o, n, K, \
+                                           chf, c0, P, ppb, sp, sa, sb);             \
+  } else {                                                                           \
+    pair_rows_instance<T, EPI, CPLX, false>(grid, 0, s, e, ii, jj, k, m, o, n, K,    \
+                                            chf, c0, P, ppb, sp, sa, sb);            \
+  }
+  if (power) {
+    FFTVIS_PAIRS(POWER, false);
+  } else if (epi == JONES_I) {
+    if (cplx) { FFTVIS_PAIRS(JONES_I, true); } else { FFTVIS_PAIRS(JONES_I, false); }
+  } else {
+    if (cplx) { FFTVIS_PAIRS(JONES_IQUV, true); } else { FFTVIS_PAIRS(JONES_IQUV, false); }
+  }
+#undef FFTVIS_PAIRS
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int fftvis_pair_rows_f32(const void* ev, const void* pi, const void* pj,
+                                    const void* sky, const void* mask, void* out, int n,
+                                    int K, int chf, int c0, int P, int epi, int cplx,
+                                    long long sp, long long sa, long long sb,
+                                    void* stream) {
+  return launch_pair_rows<float>(ev, pi, pj, sky, mask, out, n, K, chf, c0, P, epi,
+                                 cplx, sp, sa, sb, stream);
+}
+
+extern "C" int fftvis_pair_rows_f64(const void* ev, const void* pi, const void* pj,
+                                    const void* sky, const void* mask, void* out, int n,
+                                    int K, int chf, int c0, int P, int epi, int cplx,
+                                    long long sp, long long sa, long long sb,
+                                    void* stream) {
+  return launch_pair_rows<double>(ev, pi, pj, sky, mask, out, n, K, chf, c0, P, epi,
+                                  cplx, sp, sa, sb, stream);
+}
 
 extern "C" int fftvis_beam_eval_f32(const void* data, const void* y,
                                     const void* x, void* out, int npts, int ny,

@@ -228,7 +228,7 @@ def _precorr_axis(p: Type3Plan, axis: int, x_axis: torch.Tensor) -> torch.Tensor
 def _forward_modes(g: torch.Tensor, nf) -> torch.Tensor:
     """FFT with the +i sign convention: G_k = sum_m g_m e^{+2 pi i k m / nf}."""
     dims = tuple(range(1, 1 + len(nf)))
-    return torch.fft.ifftn(g, dim=dims) * float(np.prod(nf))
+    return torch.fft.ifftn(g, dim=dims).mul_(float(np.prod(nf)))
 
 
 def _split_cell_frac(u: torch.Tensor):
@@ -270,34 +270,37 @@ class Type3Executor:
         self.device = torch.device(device)
         self._tables: dict = {}
 
-    def _device_tables(self, rdtype: torch.dtype):
-        """Deconvolution vectors and tap tables on the device, uploaded once
-        per real dtype: indices as int32, kernel values as ``rdtype``. The
-        tap tables' rows are put in :func:`~.interp.target_order` on the
-        device; the order and the tables' :func:`~.interp.footprint_runs`
-        follow as int32 device tensors. A plan's taps are w consecutive
-        cells (mod nf) from the first, so the runs come from the first
-        column alone."""
-        tabs = self._tables.get(rdtype)
+    def _deconv(self, rdtype: torch.dtype):
+        """The per-axis deconvolution vectors on the device, once a dtype."""
+        key = ("deconv", rdtype)
+        if key not in self._tables:
+            self._tables[key] = tuple(torch.tensor(a, dtype=rdtype, device=self.device)
+                                      for a in self.plan.deconv)
+        return self._tables[key]
+
+    def _taps(self, rdtype: torch.dtype, sel: np.ndarray | None = None):
+        """The tap tables of every target, or of the subset ``sel``, on the
+        device, built once per (dtype, subset) and kept: indices as int32,
+        kernel values as ``rdtype``, rows put in
+        :func:`~.interp.target_order`, then that order (as positions in the
+        subset) and the tables' :func:`~.interp.footprint_runs` as int32
+        device tensors. A plan's taps are w consecutive cells (mod nf) from
+        the first, so order and runs come from the first column alone."""
+        key = ("taps", rdtype, None if sel is None else np.asarray(sel).tobytes())
+        tabs = self._tables.get(key)
         if tabs is None:
             p, dev = self.plan, self.device
-            order = target_order(p.tap_idx[0][:, 0], p.tap_idx[1][:, 0])
-            runs = footprint_runs(p.tap_idx[0][order, :1], p.tap_idx[1][order, :1])
-            rows = torch.tensor(order, dtype=torch.int32, device=dev)
+            idx = [a if sel is None else a[sel] for a in p.tap_idx]
+            val = [a if sel is None else a[sel] for a in p.tap_val]
+            order = target_order(idx[0][:, 0], idx[1][:, 0])
+            runs = footprint_runs(idx[0][order, :1], idx[1][order, :1])
             tabs = (
-                tuple(torch.tensor(a, dtype=rdtype, device=dev) for a in p.deconv),
-                tuple(
-                    torch.tensor(a, dtype=torch.int32, device=dev).index_select(0, rows)
-                    for a in p.tap_idx
-                ),
-                tuple(
-                    torch.tensor(a, dtype=rdtype, device=dev).index_select(0, rows)
-                    for a in p.tap_val
-                ),
-                rows,
+                tuple(torch.tensor(a[order], dtype=torch.int32, device=dev) for a in idx),
+                tuple(torch.tensor(a[order], dtype=rdtype, device=dev) for a in val),
+                torch.tensor(order, dtype=torch.int32, device=dev),
                 torch.tensor(runs, dtype=torch.int32, device=dev),
             )
-            self._tables[rdtype] = tabs
+            self._tables[key] = tabs
         return tabs
 
     def spread(self, x: torch.Tensor, c: torch.Tensor, grid=None) -> torch.Tensor:
@@ -325,16 +328,20 @@ class Type3Executor:
         return grid
 
     def transform(self, g: torch.Tensor) -> torch.Tensor:
+        """FFT and mode deconvolution of the (C, nfy, nfx) grid; one new
+        grid-sized tensor, scaled in place."""
         p = self.plan
         G = _forward_modes(g, p.nf)
-        deconv = self._device_tables(G.real.dtype)[0]
+        deconv = self._deconv(G.real.dtype)
         for axis in range(p.d):
             s = [1] * (1 + p.d)
             s[1 + axis] = p.nf[axis]
-            G = G * deconv[axis].reshape(s)
+            G.mul_(deconv[axis].reshape(s))
         return G
 
-    def interpolate(self, G: torch.Tensor) -> torch.Tensor:
-        """Evaluate every planned target from G: (C, m) complex."""
-        _, ti, tv, order, runs = self._device_tables(G.real.dtype)
+    def interpolate(self, G: torch.Tensor, sel: np.ndarray | None = None) -> torch.Tensor:
+        """Evaluate every planned target, or the subset ``sel`` (one beam
+        pair's baselines), from G: (C, m) complex in target (subset)
+        order."""
+        ti, tv, order, runs = self._taps(G.real.dtype, sel)
         return interp(G.contiguous(), ti[0], ti[1], tv[0], tv[1], order=order, runs=runs)

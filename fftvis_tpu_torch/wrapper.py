@@ -3,9 +3,11 @@
 The signature is that of ``fftvis_tpu.simulate_vis`` (itself the reference
 fftvis/matvis wrapper's) plus ``device``, the torch device the simulation
 runs on. The port simulates unpolarized and polarized visibilities of a
-coplanar array with one beam shared by all antennas, analytic or
-tabulated; what it leaves out raises ``NotImplementedError`` naming its
-ROADMAP item, and nothing falls back to another path.
+coplanar array with one beam shared by all antennas or per-antenna beams
+(a beam list and ``beam_idx``), analytic or tabulated; a gridded array
+takes the exact type-1 transform. What it leaves out raises
+``NotImplementedError`` naming its ROADMAP item, and nothing falls back to
+another path.
 """
 
 from __future__ import annotations
@@ -17,7 +19,29 @@ import numpy as np
 from .beams.gridded import GriddedBeam
 from .beams.interface import BeamInterface, prepare_beam_unpolarized
 from .core.simulate import default_accuracy_dict
+from .core.utils import validate_beam_idx
 from .cuda.engine import CUDASimulationEngine
+
+
+def prepare_beam_list(beam, freqs, polarized, beam_coefs, use_feed, nant, beam_idx):
+    """Normalize user beams into a validated ``BeamInterface`` list and
+    ``beam_idx`` (the JAX wrapper's ``prepare_beam_list``): wrap each beam,
+    put tabulated beams on the simulation frequencies, convert to power
+    beams for unpolarized runs. ``beam_coefs`` (eigenbeams) raise."""
+    if beam_coefs is not None:
+        raise NotImplementedError("eigenbeam beam_coefs are ROADMAP item 7")
+    beams = beam if isinstance(beam, list) else [beam]
+    beam_idx = validate_beam_idx(beam_idx, beam_coefs, len(beams), nant)
+    beam_list = []
+    for b in beams:
+        bi = BeamInterface(b)
+        # Tabulated beams go onto the simulation frequencies first, so an
+        # unpolarized run takes the power of the interpolated E-field, as
+        # the JAX wrapper does.
+        if isinstance(bi.beam, GriddedBeam) and bi.beam.Nfreqs > 1:
+            bi = BeamInterface(bi.beam.interp_freq(freqs), beam_type=bi.beam_type)
+        beam_list.append(bi if polarized else prepare_beam_unpolarized(bi, use_feed=use_feed))
+    return beam_list, beam_idx
 
 
 def simulate_vis(
@@ -74,9 +98,14 @@ def simulate_vis(
     ``nprocesses``, ``nthreads``, ``force_use_ray``, ``trace_mem``,
     ``backend``, ``max_memory``, ``min_chunks``, ``source_buffer``.
 
-    Raises ``NotImplementedError`` for several beams or a ``beam_idx``,
-    ``beam_coefs``, ``mesh``, ``async_fetch``, non-coplanar arrays, and
-    gridded arrays unless type-3 is forced.
+    ``beam`` may be a list with ``beam_idx`` mapping antennas to it
+    (inferred when the list has one beam or one per antenna). Baselines are
+    routed by beam pair, and a per-antenna list always runs the exact pair
+    routing: the JAX package's eigenbeam (auto-rank) substitution is not
+    ported. Raises ``NotImplementedError`` for ``beam_coefs``, ``mesh``,
+    ``async_fetch``, non-coplanar arrays, and gridded arrays the exact
+    type-1 transform does not take (or under ``FFTVIS_TYPE1=es``) unless
+    type-3 is forced.
 
     Returns
     -------
@@ -91,15 +120,8 @@ def simulate_vis(
     if eps is None:
         eps = default_accuracy_dict[precision]
     freqs = np.atleast_1d(np.asarray(freqs, dtype=float))
-    beam_list = []
-    for b in beam if isinstance(beam, list) else [beam]:
-        bi = BeamInterface(b)
-        # Tabulated beams go onto the simulation frequencies first, so an
-        # unpolarized run takes the power of the interpolated E-field, as
-        # the JAX wrapper does.
-        if isinstance(bi.beam, GriddedBeam) and bi.beam.Nfreqs > 1:
-            bi = BeamInterface(bi.beam.interp_freq(freqs), beam_type=bi.beam_type)
-        beam_list.append(bi if polarized else prepare_beam_unpolarized(bi, use_feed=use_feed))
+    beam_list, beam_idx = prepare_beam_list(beam, freqs, polarized, beam_coefs, use_feed,
+                                            len(ants), beam_idx)
 
     engine = CUDASimulationEngine(device=device)
     return engine.simulate(
@@ -123,5 +145,4 @@ def simulate_vis(
         coord_method=coord_method,
         coord_method_params=coord_method_params,
         force_use_type3=force_use_type3,
-        beam_coefs=beam_coefs,
     )

@@ -209,13 +209,12 @@ def test_run_program_through_fused_rows(monkeypatch, precision, polarized, iquv,
     fused = engine.simulate(beam_list=[beam], **kw)
     assert len(calls) == 4  # 2 times x 2 frequencies x 1 source block
 
-    prepare = engine_mod.prepare_beam
+    prepare = engine_mod.prepare_beams
 
     def unfused(*a, **k):
-        pb = prepare(*a, **k)
-        return PreparedBeam(pb.evaluate, pb.polarized)
+        return [PreparedBeam(pb.evaluate, pb.polarized) for pb in prepare(*a, **k)]
 
-    monkeypatch.setattr(engine_mod, "prepare_beam", unfused)
+    monkeypatch.setattr(engine_mod, "prepare_beams", unfused)
     want = engine.simulate(beam_list=[beam], **kw)
     assert len(calls) == 4
     assert fused.shape == want.shape and np.all(np.isfinite(fused))

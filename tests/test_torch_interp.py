@@ -176,7 +176,7 @@ def test_footprint_runs_of_the_executor():
     tile-ordered tables beside them."""
     plan, _ = _plan_and_grid(300, 400, seed=4)
     ex = Type3Executor(Type3Plan.from_reference(plan), device="cpu")
-    _, (iy, ix), _, order, runs = ex._device_tables(torch.float64)
+    (iy, ix), _, order, runs = ex._taps(torch.float64)
     assert np.array_equal(order.numpy(), target_order(plan.tap_idx[0][:, 0],
                                                       plan.tap_idx[1][:, 0]))
     assert np.array_equal(runs.numpy(), footprint_runs(iy.numpy(), ix.numpy()))

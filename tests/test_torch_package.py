@@ -4,7 +4,9 @@
 - the NumPy host modules the port copies give exactly the arrays of the
   originals, and its tensor evaluators match the JAX ones;
 - the kernel wrappers refuse what the kernels do not take, and the slice
-  refuses what it leaves out with ``NotImplementedError``;
+  refuses what it leaves out (ES type-1, eigenbeam coefficients, meshes,
+  async fetch, 3D arrays, beam-table upsampling) with
+  ``NotImplementedError``;
 - on a CUDA card (marked ``cuda``; skipped without one), each CUDA kernel
   matches its plain torch version and counts its launches.
 """
@@ -213,19 +215,30 @@ def test_slice_refuses_what_it_leaves_out(case, monkeypatch):
                       for i in range(5)}
         kw["force_use_type3"] = True
     elif case == "polarized":
-        # Per-antenna polarized beams: the next slice.
-        kw.update(polarized=True, beam=[ShortDipoleBeam(), GaussianBeam(diameter=14.0)],
-                  beam_idx=np.array([0, 1, 0, 1]))
+        # Per-antenna polarized beams on a lattice with ES type-1 asked
+        # for: ES type-1 is not ported.
+        monkeypatch.setenv("FFTVIS_TYPE1", "es")
+        kw.update(ants=hex_array(2), polarized=True,
+                  beam=[ShortDipoleBeam(), GaussianBeam(diameter=14.0)],
+                  beam_idx=np.arange(7) % 2)
     elif case == "tabulated":
         # The opt-in table upsampling of a cubic tabulated beam.
         monkeypatch.setenv("FFTVIS_BEAM_UPSAMPLE", "2")
         kw.update(beam=structured_dipole_beam(n_az=24, n_za=10),
                   beam_spline_opts={"order": 3})
+    elif case == "beam_idx":
+        # Per-antenna beams on a lattice whose exact mode grid passes 512^2
+        # cells: only ES type-1 would take it.
+        sep = 14.6
+        pts = [(0, 0), (1, 0), (0, 1), (400, 0), (0, 400)]
+        kw.update(ants={i: np.array([a * sep, b * sep, 0.0]) for i, (a, b) in enumerate(pts)},
+                  beam=[GaussianBeam(diameter=14.0), GaussianBeam(diameter=12.0)],
+                  beam_idx=np.array([0, 1, 0, 1, 0]))
     elif case == "beams":
-        kw["beam"] = [GaussianBeam(diameter=14.0)] * 2
+        # A beam list as an eigenbeam basis.
+        kw.update(beam=[GaussianBeam(diameter=14.0)] * 2, beam_coefs=np.ones((4, 2, 1)))
     else:
-        kw[case] = {"beam_idx": np.zeros(4, int),
-                    "beam_coefs": np.ones((4, 1, 1)), "mesh": object(),
+        kw[case] = {"beam_coefs": np.ones((4, 1, 1)), "mesh": object(),
                     "async_fetch": True}[case]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         simulate_vis(**kw)

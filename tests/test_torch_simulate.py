@@ -118,8 +118,11 @@ def test_beam_from_reference():
     assert np.array_equal(a, b)
 
 
-def test_gridded_array_without_forcing_raises():
+def test_gridded_array_without_forcing_raises(monkeypatch):
+    """A lattice takes the exact type-1 path (tests/test_torch_type1.py);
+    with ES type-1 asked for, which is not ported, it raises."""
+    monkeypatch.setenv("FFTVIS_TYPE1", "es")
     kw = _common(hex_array(3), precision=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         simulate_vis(beam=GaussianBeam(diameter=14.0),
                      telescope_loc=TelescopeLocation(*SITE), device="cpu", **kw)

@@ -1,6 +1,6 @@
 """Time warm ``simulate_vis`` calls of several checkouts, in turns.
 
-    python3 tools/wall_ab.py ROOT [ROOT ...]
+    python3 tools/wall_ab.py [--north-star] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each runs in a process of its
 own, in the order given (for an A/B, parent, change, change, parent), the
@@ -8,7 +8,10 @@ polarized tabulated slice of ``chip_smoke.py`` at precision 1 and 2:
 hex_array(11, outriggers=2) with all 63,190 i<=j baselines, the nside=64
 HEALPix sky, 2 frequencies x 3 times, forced type-3, the committed
 ``structured_dipole_100MHz.beamfits`` with the order-3 spline, on one CUDA
-card. After one cold call, ``CALLS`` warm calls are timed on the host clock
+card. With ``--north-star`` first, the north star of ``chip_smoke.py``
+instead (HERA-331, 631 baselines, 37 per-antenna variants of that beam,
+polarized, 1 frequency x 2 times, ``auto`` mode: the exact type-1 path),
+for roots that have per-antenna beams. After one cold call, ``CALLS`` warm calls are timed on the host clock
 (the call returns host arrays, so each ends with the card idle), one
 more warm call runs under cProfile, and then one under torch.profiler
 (``device_profile.device_kernels``). Every line is one JSON object: the
@@ -33,11 +36,13 @@ from device_profile import device_kernels
 FREQS = (1.0e8, 1.1e8)
 CALLS = 10
 PROFILED = ("simulate_vis", "plan_transform", "prepare_beam", "run_program",
-            "_device_tables", "target_order", "footprint_runs", "beam_rows", "eval_grid",
-            "apparent_coherency_rows")
+            "_device_tables", "_taps", "target_order", "footprint_runs", "beam_rows", "eval_grid",
+            "apparent_coherency_rows", "prepare_beam_list", "prepare_beams", "stack_prepared",
+            "plan_beam_pairs", "check_antpos_griddability", "cull_never_visible", "pair_rows",
+            "spread")
 
 
-def child(root: str) -> None:
+def child(root: str, north_star: bool) -> None:
     # The root's package, and not this file's directory, comes first.
     sys.path[0] = root
     import numpy as np
@@ -62,6 +67,16 @@ def child(root: str) -> None:
         beam=read_beamfits(str(Path(root) / "tests/data/structured_dipole_100MHz.beamfits")),
         polarized=True, beam_spline_opts={"order": 3}, device="cuda",
     )
+    if north_star:
+        from fftvis_tpu_torch.beams import perturbed_variants
+        from fftvis_tpu_torch.core.utils import get_pos_reds
+
+        ants = hex_array(11, sep=14.6)
+        kw = dict(kw, ants=ants, fluxes=kw["fluxes"][:, :1], freqs=np.array(FREQS[:1]),
+                  times=2459863.2 + np.linspace(0, 4 / 60 / 24, 2),
+                  baselines=[r[0] for r in get_pos_reds(ants, include_autos=True)],
+                  force_use_type3=False, beam=perturbed_variants(kw["beam"], 37),
+                  beam_idx=np.arange(len(ants)) % 37, beam_spline_opts=None)
     for precision in (1, 2):
         simulate_vis(precision=precision, **kw)
         walls = []
@@ -77,19 +92,22 @@ def child(root: str) -> None:
             if func in PROFILED:
                 cum[func] = cum.get(func, 0.0) + ct
         dev = device_kernels(lambda: simulate_vis(precision=precision, **kw))
-        print(json.dumps({"root": root, "precision": precision, "walls_s": walls,
+        print(json.dumps({"root": root, "north_star": north_star, "precision": precision,
+                          "walls_s": walls,
                           "profiled_s": cum, "device_kernels": dev["kernels"],
                           "device_kernel_ms": dev["device_us"] / 1e3}), flush=True)
 
 
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
-        child(argv[1])
+        child(argv[1], argv[2:] == ["--north-star"])
         return 0
-    if not argv:
+    flags = [a for a in argv if a == "--north-star"]
+    roots = [a for a in argv if a != "--north-star"]
+    if not roots:
         raise SystemExit(__doc__)
-    for root in argv:
-        subprocess.run([sys.executable, __file__, "--child", str(Path(root).resolve())],
+    for root in roots:
+        subprocess.run([sys.executable, __file__, "--child", str(Path(root).resolve()), *flags],
                        check=True)
     return 0
 
