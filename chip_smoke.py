@@ -49,12 +49,13 @@ Phases, one printed line each (any failure raises and exits non-zero):
    - pair_rows (per-antenna pair rows) at the north star's K = 37 beams and
      P = 180 pairs, on its stacked tables' evaluations: power (37 x 2
      channels), Jones x Stokes I and Jones x IQUV (37 x 8), float32 and
-     float64, at 4096 points and the north star's ragged last block, about
-     half of the points masked; gate 2e-6 / 1e-12 of max|plain|; no
-     yardstick (no one PyTorch call forms them); and with one beam per
-     antenna of the north star's array (K = 331, random evaluations at
-     4096 points), where the Jones stacks take the kernel's global-memory
-     form;
+     float64, at 4096 points with every point unmasked (the north star's
+     own block) and with about half masked, and at the north star's ragged
+     last block, half masked; gate 2e-6 / 1e-12 of max|plain|; the kernel
+     alone and its share of the bound; no yardstick (no one PyTorch call
+     forms them); and with one beam per antenna of the north star's array
+     (K = 331, random evaluations at 4096 points), where the Jones stacks
+     take the kernel's global-memory form, alone and against its bound;
    - the exact type-1 product (cuBLAS, not a hand-written kernel) at the
      north star's C = 720 channels, 4096 sources and (42, 42) mode grid,
      float32 and float64 (one call by CUDA events and its device time
@@ -84,6 +85,8 @@ Phases, one printed line each (any failure raises and exits non-zero):
      precision 1, 1 frequency x 1 time, type-3 forced through
      ``CUDASimulationEngine(nufft_mode="type3")``: spread, beam_eval and
      pair_rows once a source block, interp once a pair;
+   phase 4 starts from empty caches and ends with the bytes they hold on
+   the card;
 5. hold every output against the port's float64 direct path on the CPU,
    where every kernel takes its plain version, on every 32nd baseline
    (gates 1e-4 at precision 1, 1e-5 at precision 2, relative to max|V|);
@@ -93,7 +96,29 @@ Phases, one printed line each (any failure raises and exits non-zero):
    time, idle share, the count of device kernel launches, and the
    hand-written kernels' device time and launches; the top device ops of
    each run go to ``build/profile/profile_<i>.txt``;
-7. print the kernels' JSON line, then the result line.
+7. the host layer:
+   - warm calls: the north star at precision 2 and 1 and the polarized
+     tabulated slice at precision 1, from empty caches one cold call and
+     five warm ones: each wall, the caches' hits and misses, the host
+     seconds of prepare_beams, stack_prepared and plan_transform, and of
+     the cache keys (hash_parts), in a warm call (cProfile); every warm
+     result within WARM_TOL of the cold one, every call's launches those
+     of phase 4;
+   - async_fetch: the north star at precision 1 and the JAX bench's
+     gridded row (``bench.py:340-415``: the slice array and sky,
+     GaussianBeam(14), unpolarized, precision 2, the exact type-1 path):
+     8 futures dispatched with 2 in flight, then resolved; the time a
+     dispatch takes to return, the time to ``result()`` and the pipelined
+     wall a simulation; each result within WARM_TOL of the synchronous
+     one, ``done()`` true;
+   - chunking: the north star at precision 1 with a ``max_memory`` that
+     the memory model splits into 3 chunks or more: the chunks, the source
+     blocks (pair_rows launches), the wall, and the result within the
+     precision-1 gate of phase 4's;
+   - syncs: the synchronizing CUDA calls of one warm north-star call
+     (``torch.cuda.set_sync_debug_mode("warn")``), between dispatch and
+     ``result()`` and in ``result()``;
+8. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -765,11 +790,26 @@ def pair_arrays(kw):
 PAIR_OPS = {"power": 5, "jones-I": 80, "jones-iquv": 232}
 
 
+def pair_bound(evals, mask, npairs: int, C: int, epilogue: str, name: str):
+    """The unmasked points' evaluations and sky, the whole mask and the pair
+    indices read once, the rows written once; PAIR_OPS a pair and unmasked
+    point. Returns ((bound_ms, bound_by), bytes, unmasked points)."""
+    n, kc = evals.shape
+    rb = evals.element_size()
+    active = int(mask.sum().item())
+    nbytes = (active * kc * rb + active * (8 if epilogue == "jones-iquv" else 1) * rb + n * rb
+              + 2 * npairs * 4 + C * n * 2 * rb)
+    return bound(nbytes, active * npairs * PAIR_OPS[epilogue], name), nbytes, active
+
+
 def check_pair_rows(ns) -> dict:
     """Phase 3: pair_rows against pair_rows_plain at the north star's K = 37
-    beams and P = 180 pairs, on its stacked tables' evaluations. Returns
-    {dtype: (max err, ms, plain_ms, bound, None)}, the times those of Jones
-    x Stokes I at 4096 points (the north star's source block)."""
+    beams and P = 180 pairs, on its stacked tables' evaluations: at 4096
+    points with every point unmasked (the north star's own source block:
+    its horizon cull has dropped the sources that never rise) and with
+    about half masked, and at its ragged last block. Returns {dtype: (max
+    err, ms, plain_ms, bound, None)}, the times those of Jones x Stokes I
+    at 4096 unmasked points."""
     import torch
 
     from fftvis_tpu_torch.beams import eval as eval_mod
@@ -784,7 +824,6 @@ def check_pair_rows(ns) -> dict:
     results = {}
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
-        rb = 4 if dt == torch.float32 else 8
         for epilogue in ("power", "jones-I", "jones-iquv"):
             polarized, iquv = epilogue != "power", epilogue == "jones-iquv"
             beams, _ = prepare_beam_list(ns["beam"], ns["freqs"], polarized, None, "x",
@@ -792,11 +831,12 @@ def check_pair_rows(ns) -> dict:
             stacked = stack_prepared(prepare_beams(beams, ns["freqs"], polarized, dtype=dt,
                                                    device="cuda"))
             g = stacked.grid
-            for n in (4096, ragged):
+            for n, masked in ((4096, False), (4096, True), (ragged, True)):
                 az = torch.tensor(rng.uniform(0, 2 * np.pi, n), dtype=dt, device="cuda")
                 za = torch.tensor(rng.uniform(0, np.pi / 2, n), dtype=dt, device="cuda")
                 evals = stacked.channels(az, za, 0)
-                mask = torch.tensor(rng.uniform(size=n) < 0.5, dtype=dt, device="cuda")
+                keep = rng.uniform(size=n) < 0.5 if masked else np.ones(n, dtype=bool)
+                mask = torch.tensor(keep, dtype=dt, device="cuda")
                 stokes = rng.uniform(0.1, 1.0, (n, 1))
                 if iquv:
                     pol = rng.uniform(-0.05, 0.05, (3, n, 1))
@@ -820,22 +860,21 @@ def check_pair_rows(ns) -> dict:
                 alone = kernel_us(call, "pair_rows_points")
                 plain = cuda_ms(plain_call, 10)
                 C = got.shape[0]
-                active = int(mask.sum().item())
-                kc = evals.shape[1]
-                nbytes = (active * kc * rb + active * (8 if iquv else 1) * rb + n * rb
-                          + 2 * npairs * 4 + C * n * 2 * rb)
-                b_ms, b_by = bound(nbytes, active * npairs * PAIR_OPS[epilogue], name)
-                print(f"[3] pair_rows {name} {epilogue}: K={stacked.nbeams} ({kc} channels) "
-                      f"P={npairs} n={n} ({active} unmasked), rows ({C}, {n}): max err "
+                (b_ms, b_by), nbytes, active = pair_bound(evals, mask, npairs, C, epilogue,
+                                                          name)
+                print(f"[3] pair_rows {name} {epilogue}: K={stacked.nbeams} ({evals.shape[1]} "
+                      f"channels) P={npairs} n={n} ({active} unmasked"
+                      f"{'' if masked else ', the north star case'}), rows ({C}, {n}): max err "
                       f"{err:.3e} = {err / scale:.3e} of max|plain|; kernel {ms:.4f} ms "
-                      f"(alone {alone:.2f} us), plain {plain:.4f} ms; bound {b_ms:.5f} ms "
-                      f"({b_by}, {nbytes / 1e6:.1f} MB); library call: none (no one PyTorch "
-                      f"call forms pair coherency rows)", flush=True)
+                      f"(alone {alone:.2f} us, {b_ms * 1e3 / alone:.0%} of the bound), plain "
+                      f"{plain:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.1f} MB); "
+                      f"library call: none (no one PyTorch call forms pair coherency rows)",
+                      flush=True)
                 if not err <= BEAM_TOL[name] * scale:
                     raise AssertionError(f"pair_rows {name} {epilogue} n={n} disagrees with "
                                          "its plain version")
                 prev = results.get(name, (0.0, None, None, None, None))
-                main = (epilogue, n) == ("jones-I", 4096)
+                main = (epilogue, n, masked) == ("jones-I", 4096, False)
                 timed = (ms, plain, (b_ms, b_by), None) if main else prev[1:]
                 results[name] = (max(prev[0], err), *timed)
                 del got, want, evals
@@ -890,12 +929,17 @@ def check_pair_rows_wide(ns) -> dict:
             scale = want.abs().max().item()
             err = (got - want).abs().max().item()
             ms = cuda_ms(lambda: eval_mod.pair_rows(*args), 20)
+            alone = kernel_us(lambda: eval_mod.pair_rows(*args), "pair_rows_points")
+            (b_ms, b_by), nbytes, active = pair_bound(evals, mask, npairs, got.shape[0],
+                                                      epilogue, name)
             staged = K * chf * (PAIR_TILE + 1) * evals.element_size()
             form = "shared" if staged <= PAIR_SMEM_MAX else "global"
             print(f"[3] pair_rows {name} {epilogue} wide: K={K} ({K * chf} channels) "
-                  f"P={npairs} n={n}, {form}-memory form ({staged / 1024:.0f} KiB a tile): "
-                  f"max err {err:.3e} = {err / scale:.3e} of max|plain|; kernel {ms:.4f} ms",
-                  flush=True)
+                  f"P={npairs} n={n} ({active} unmasked), {form}-memory form "
+                  f"({staged / 1024:.0f} KiB a tile): max err {err:.3e} = {err / scale:.3e} "
+                  f"of max|plain|; kernel {ms:.4f} ms (alone {alone:.2f} us, "
+                  f"{b_ms * 1e3 / alone:.0%} of the bound); bound {b_ms:.5f} ms ({b_by}, "
+                  f"{nbytes / 1e6:.1f} MB)", flush=True)
             if not err <= BEAM_TOL[name] * scale:
                 raise AssertionError(f"pair_rows {name} {epilogue} K={K} disagrees with its "
                                      "plain version")
@@ -1067,6 +1111,224 @@ def profile_runs(cfg, ns) -> None:
               f"{nkernels} device kernel launches; {'; '.join(mine)}", flush=True)
 
 
+def cache_device_bytes() -> dict:
+    """{cache: bytes of the distinct CUDA tensors its entries reach}."""
+    import torch
+
+    from fftvis_tpu_torch.cuda import engine as engine_mod
+
+    def walk(obj, seen, found):
+        if id(obj) in seen:
+            return
+        seen.add(id(obj))
+        if isinstance(obj, torch.Tensor):
+            if obj.is_cuda:
+                found[obj.untyped_storage().data_ptr()] = obj.untyped_storage().nbytes()
+        elif isinstance(obj, dict):
+            for v in obj.values():
+                walk(v, seen, found)
+        elif isinstance(obj, (list, tuple)):
+            for v in obj:
+                walk(v, seen, found)
+        elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+            walk(vars(obj), seen, found)
+
+    out = {}
+    for name, cache in engine_mod._caches().items():
+        found = {}
+        walk(cache.entries, set(), found)
+        out[name] = sum(found.values())
+    return out
+
+
+def stage_seconds(fn) -> dict:
+    """Cumulative host seconds of the PROFILED_STAGES functions in one call
+    of ``fn`` under cProfile (0.0 where a stage did not run)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    cum = dict.fromkeys(PROFILED_STAGES, 0.0)
+    for (_, _, func), (_, _, _, ct, _) in pstats.Stats(prof).stats.items():
+        if func in cum:
+            cum[func] += ct
+    return cum
+
+
+PROFILED_STAGES = ("prepare_beams", "stack_prepared", "plan_transform", "hash_parts")
+# A warm or asynchronous result against the cold or synchronous one,
+# relative to max|V|: two summation orders (the type-3 spread's atomics).
+WARM_TOL = {1: 1e-5, 2: 1e-12}
+ASYNC_SIMS, ASYNC_DEPTH = 8, 2
+
+
+def max_rel(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def warm_calls(label: str, kw, counters, want_launches) -> None:
+    """Phase 7: one cold call from empty caches and five warm ones."""
+    import torch
+
+    from fftvis_tpu_torch import cache_stats, clear_caches, simulate_vis
+
+    def call():
+        reset(counters)
+        t0 = time.perf_counter()
+        out = simulate_vis(device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if read(counters) != want_launches:
+            raise AssertionError(f"{label}: launches {read(counters)}, phase 4 had "
+                                 f"{want_launches}")
+        return out, wall
+
+    clear_caches()
+    cold, cold_wall = call()
+    errs, walls = [], []
+    for _ in range(5):
+        out, wall = call()
+        errs.append(max_rel(out, cold))
+        walls.append(wall)
+    stats = cache_stats()
+    stages = stage_seconds(lambda: simulate_vis(device="cuda", **kw))
+    precision = kw["precision"]
+    print(f"[7] warm {label}: cold wall {cold_wall:.4f} s, warm walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s (median {np.median(walls):.4f}); warm vs "
+          f"cold max err {max(errs):.3e} of max|V| (gate {WARM_TOL[precision]:.0e}, "
+          f"bitwise {max(errs) == 0}); launches a call {want_launches}; cache hits/misses "
+          + ", ".join(f"{k} {h}/{m}" for k, (h, m) in stats.items())
+          + "; host s in a warm call: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in stages.items()), flush=True)
+    if not max(errs) <= WARM_TOL[precision]:
+        raise AssertionError(f"{label}: a warm result differs from the cold one")
+    if any(stats[k][0] == 0 for k in ("plan", "input", "prepared")):
+        raise AssertionError(f"{label}: a cache never hit: {stats}")
+
+
+def pipelined(label: str, kw) -> None:
+    """Phase 7: ASYNC_SIMS futures with ASYNC_DEPTH in flight, then resolved,
+    against the synchronous result."""
+    import collections
+
+    import torch
+
+    from fftvis_tpu_torch import VisibilityFuture, simulate_vis
+
+    want = simulate_vis(device="cuda", **kw)
+    dispatch, collect, errs = [], [], []
+    pending = collections.deque()
+
+    def resolve():
+        fut = pending.popleft()
+        t0 = time.perf_counter()
+        got = fut.result()
+        collect.append(time.perf_counter() - t0)
+        if not fut.done():
+            raise AssertionError(f"{label}: done() is false after result()")
+        errs.append(max_rel(got, want))
+
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for _ in range(ASYNC_SIMS):
+        t0 = time.perf_counter()
+        fut = simulate_vis(device="cuda", async_fetch=True, **kw)
+        dispatch.append(time.perf_counter() - t0)
+        if not isinstance(fut, VisibilityFuture) or fut._event is None:
+            raise AssertionError(f"{label}: async_fetch returned {type(fut).__name__}, not a "
+                                 "pending future")
+        pending.append(fut)
+        if len(pending) == ASYNC_DEPTH:
+            resolve()
+    while pending:
+        resolve()
+    per_sim = (time.perf_counter() - t_start) / ASYNC_SIMS
+    precision = kw["precision"]
+    print(f"[7] async_fetch {label}: {ASYNC_SIMS} futures, {ASYNC_DEPTH} in flight: dispatch "
+          f"returns in {np.median(dispatch) * 1e3:.3f} ms (median; max "
+          f"{max(dispatch) * 1e3:.3f}), result() {np.median(collect) * 1e3:.3f} ms (median; "
+          f"max {max(collect) * 1e3:.3f}), pipelined wall {per_sim:.4f} s a simulation; vs "
+          f"the synchronous call max err {max(errs):.3e} of max|V| (gate "
+          f"{WARM_TOL[precision]:.0e})", flush=True)
+    if not max(errs) <= WARM_TOL[precision]:
+        raise AssertionError(f"{label}: an async result differs from the synchronous one")
+
+
+def gridded_row_config(cfg):
+    """The JAX bench's gridded row (bench.py:340-415) at its full size: the
+    slice array and sky, GaussianBeam(14), unpolarized, precision 2, the
+    exact type-1 path."""
+    from fftvis_tpu_torch.beams import GaussianBeam
+
+    kw = {k: v for k, v in cfg.items() if k != "force_use_type3"}
+    return dict(kw, beam=GaussianBeam(diameter=14.0), polarized=False, precision=2)
+
+
+def chunked(ns, counters, unchunked) -> None:
+    """Phase 7: the north star at precision 1 under a max_memory that the
+    memory model splits into 3 chunks or more."""
+    import torch
+
+    from fftvis_tpu_torch import simulate_vis
+    from fftvis_tpu_torch.core.utils import get_desired_chunks
+    from fftvis_tpu_torch.wrapper import prepare_beam_list
+
+    beams, _ = prepare_beam_list(ns["beam"], ns["freqs"], True, None, "x", len(ns["ants"]),
+                                 ns["beam_idx"])
+    max_memory = 32 * 2**20
+    nchunks, _ = get_desired_chunks(max_memory, 1, [b.beam for b in beams], 2, 2,
+                                    len(ns["ants"]), len(ns["fluxes"]), 1)
+    if nchunks < 3:
+        raise AssertionError(f"max_memory {max_memory} gives {nchunks} chunks")
+    kw = dict(ns, precision=1, max_memory=max_memory)
+    simulate_vis(device="cuda", **kw)
+    reset(counters)
+    t0 = time.perf_counter()
+    out = simulate_vis(device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    blocks = read(counters)["pair_rows"]
+    err = max_rel(out, unchunked)
+    print(f"[7] chunking north-star precision=1, max_memory {max_memory / 2**20:.0f} MiB: "
+          f"{nchunks} chunks, {blocks} source blocks (unchunked "
+          f"{source_blocks(ns)[0]}), warm wall {wall:.4f} s; vs unchunked max err {err:.3e} "
+          f"of max|V| (gate {ORACLE_GATE[1]:.0e})", flush=True)
+    if not (err <= ORACLE_GATE[1] and blocks > source_blocks(ns)[0]):
+        raise AssertionError("the chunked north star differs from the unchunked one")
+
+
+def sync_count(ns) -> None:
+    """Phase 7: the synchronizing CUDA calls of one warm north-star call."""
+    import warnings
+
+    import torch
+
+    from fftvis_tpu_torch import simulate_vis
+
+    kw = dict(ns, precision=1)
+    simulate_vis(device="cuda", **kw)
+    torch.cuda.synchronize()
+    counts = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fut = simulate_vis(device="cuda", async_fetch=True, **kw)
+            n_dispatch = len(caught)
+            fut.result()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = ["synchroniz" in str(w.message) for w in caught]
+    counts["dispatch"] = sum(syncs[:n_dispatch])
+    counts["result"] = sum(syncs[n_dispatch:])
+    where = sorted({str(w.message).splitlines()[0][:80] for w, s in zip(caught, syncs) if s})
+    print(f"[7] syncs of one warm north-star precision=1 call "
+          f"(set_sync_debug_mode warn): {counts['dispatch']} between dispatch and result(), "
+          f"{counts['result']} in result(){'; ' + ' | '.join(where) if where else ''}",
+          flush=True)
+
+
 def reset(counters) -> None:
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
@@ -1084,7 +1346,7 @@ def main() -> int:
     print("[1] card (nvidia-smi name, power.limit):", flush=True)
     print(card_line(), flush=True)
 
-    from fftvis_tpu_torch import simulate_vis
+    from fftvis_tpu_torch import clear_caches, simulate_vis
     from fftvis_tpu_torch._build import load_kernels
     from fftvis_tpu_torch.beams import eval as eval_mod
     from fftvis_tpu_torch.nufft import interp as interp_mod
@@ -1112,6 +1374,7 @@ def main() -> int:
                 "pair_rows": (eval_mod, "pair_launches")}
     nbl = len(cfg["baselines"])
     vis, launches = {}, {}
+    clear_caches()
     for i, run in enumerate(RUNS):
         kind, beam, polarized, _, precision = run
         kw = run_kwargs(cfg, run)
@@ -1195,6 +1458,10 @@ def main() -> int:
           f"precision=1: {pa_vis.shape} {pa_vis.dtype}, finite; launches {got}; wall "
           f"{first:.3f} s", flush=True)
 
+    held = cache_device_bytes()
+    print(f"[4] after phase 4 the caches hold {sum(held.values()) / 1e6:.1f} MB on the card: "
+          + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in held.items()), flush=True)
+
     # The oracle: the port's float64 direct path on the CPU, where every
     # kernel takes its plain version, on every 32nd baseline.
     sub = cfg["baselines"][::32]
@@ -1231,6 +1498,18 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         profile_runs(cfg, ns)
+
+    # The host layer: warm calls, pipelined futures, chunking, syncs.
+    for precision in NS_PRECISIONS:
+        warm_calls(f"north-star precision={precision}", dict(ns, precision=precision), counters,
+                   ns_launches[precision])
+    warm_calls("polarized tabulated slice precision=1", run_kwargs(cfg, RUNS[2]), counters,
+               launches[2])
+    pipelined("north-star precision=1", dict(ns, precision=1))
+    pipelined(f"gridded row hex-{len(cfg['ants'])} unpolarized precision=2",
+              gridded_row_config(cfg))
+    chunked(ns, counters, ns_vis[1])
+    sync_count(ns)
 
     main_run = {1: 2, 2: 3}  # RUNS index of the polarized tabulated slice
     kernels = []

@@ -9,14 +9,17 @@ use). It imports torch and NumPy, never JAX and never ``fftvis_tpu``.
 from . import beams, coords, geometry, nufft
 from .coords import TelescopeLocation
 from .core.simulate import SimulationEngine, default_accuracy_dict
-from .cuda.engine import CUDASimulationEngine
+from .cuda.engine import CUDASimulationEngine, VisibilityFuture, cache_stats, clear_caches
 from .wrapper import simulate_vis
 
 __all__ = [
     "CUDASimulationEngine",
     "SimulationEngine",
     "TelescopeLocation",
+    "VisibilityFuture",
     "beams",
+    "cache_stats",
+    "clear_caches",
     "coords",
     "default_accuracy_dict",
     "geometry",

@@ -17,8 +17,14 @@ coherency rows from it with :func:`~fftvis_tpu_torch.beams.eval.beam_rows`
 :func:`~fftvis_tpu_torch.beams.eval.beam_eval`. A per-antenna list
 (:func:`prepare_beams`) of same-grid tabulated beams is stacked by
 :func:`stack_prepared` into one device table that one ``beam_eval`` launch
-a source block interpolates. The JAX package's prepared-beam content cache
-and the ``FFTVIS_BEAM_UPSAMPLE`` resampling are later ROADMAP items.
+a source block interpolates.
+
+Both are content-cached across calls, as the JAX package caches them
+(``_PREPARED_CACHE``, ``_STACK_CACHE``): a prepared beam with its device
+table and a stacked device table are kept under a key of everything that
+changes them, so a repeated call prepares, stacks and uploads nothing. Host
+tables are frozen, so their digests are taken once. The
+``FFTVIS_BEAM_UPSAMPLE`` resampling is a later ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.coherency import apparent_coherency_rows
+from ..core.hashing import LRUCache, beam_fingerprint, hash_parts
 from .analytic import AnalyticBeam
 from .eval import (
     TableGrid,
@@ -180,34 +187,51 @@ class StackedBeams:
                               g.feed)
 
 
+# Prepared beams by content. The limit must exceed the distinct beams of one
+# call, or every call evicts the whole list (the 37-beam north star);
+# prepare_beams grows it to twice the largest list seen, capped.
+PREPARED_CACHE = LRUCache(64)
+PREPARED_CACHE_MAX_LIMIT = 1024
+# Stacked device tables by content.
+STACK_CACHE = LRUCache(8)
+
+
 def stack_prepared(prepared_list) -> StackedBeams | None:
     """Fuse same-grid tabulated :class:`PreparedBeam` s into one
     :class:`StackedBeams`: one interpolation a source block serves all K.
     None when the list is shorter than 2 or its beams do not share table
     shape, grid, spline order and kind (a mixed analytic and tabulated list,
     for one): the engine then evaluates beam by beam, as the JAX package
-    does. The stacked table goes to the first beam's device and dtype."""
+    does. The stacked table goes to the first beam's device and dtype, and
+    is kept in :data:`STACK_CACHE` under the tables' content."""
     if len(prepared_list) < 2:
         return None
     specs = [pb.stack_spec for pb in prepared_list]
     if any(s is None for s in specs) or any(s != specs[0] for s in specs[1:]):
         return None
     first = prepared_list[0]
+    key = hash_parts((specs[0], tuple(pb.host_table for pb in prepared_list),
+                      str(first.dtype), str(first.device)))
+    hit = STACK_CACHE.get(key)
+    if hit is not None:
+        return hit
     # Per-beam tables are channels-last (nfreq, ny, nx, chflat); the beam
     # axis goes INTO the channel axis so one gather serves all K. Each
     # table goes to the device as it is, and the stack and the dtype cast
     # run there: on the host they cost more than the upload (PERF.md).
-    parts = [torch.from_numpy(pb.host_table).to(first.device) for pb in prepared_list]
+    parts = [torch.tensor(pb.host_table, device=first.device) for pb in prepared_list]
     stacked = torch.stack(parts, dim=3).to(first.dtype)
     nfreq_t, ny_t, nx_t = stacked.shape[:3]
-    return StackedBeams(stacked.reshape(nfreq_t, ny_t, nx_t, -1), first.grid,
-                        len(prepared_list))
+    return STACK_CACHE.put(key, StackedBeams(stacked.reshape(nfreq_t, ny_t, nx_t, -1),
+                                             first.grid, len(prepared_list)))
 
 
 def prepare_beams(beam_list, freqs, polarized, spline_opts=None,
                   interpolation_function="az_za_map_coordinates", use_feed="x",
                   dtype: torch.dtype = torch.float64, device="cuda") -> list:
     """Prepare every beam of a list (the engine's entry point)."""
+    want = min(2 * len(beam_list), PREPARED_CACHE_MAX_LIMIT)
+    PREPARED_CACHE.limit = max(PREPARED_CACHE.limit, want)
     return [
         prepare_beam(b, freqs, polarized, spline_opts=spline_opts,
                      interpolation_function=interpolation_function, use_feed=use_feed,
@@ -258,8 +282,37 @@ def prepare_beam(
 ) -> PreparedBeam:
     """Compile one beam into a :class:`PreparedBeam` for the simulation
     frequencies ``freqs``; a tabulated beam's table goes to ``device`` in
-    ``dtype`` once, at its first use."""
+    ``dtype`` once, at its first use.
+
+    Results are kept in :data:`PREPARED_CACHE` under the beam's content and
+    every argument and environment knob that changes them, so a sweep's
+    later calls neither interpolate, prefilter nor upload a table again.
+    """
+    # Wrapped first: a UVBeam-like object becomes a GriddedBeam, keyed by
+    # its tables and not by its identity.
     bi = beam if isinstance(beam, BeamInterface) else BeamInterface(beam)
+    key = hash_parts((
+        beam_fingerprint(bi),
+        np.asarray(freqs, dtype=float),
+        bool(polarized),
+        repr(spline_opts),
+        interpolation_function,
+        use_feed,
+        # Whether a short za grid raises or clamps is decided here.
+        os.environ.get("FFTVIS_ALLOW_BEAM_CLAMP", ""),
+        os.environ.get("FFTVIS_BEAM_UPSAMPLE", ""),
+        str(dtype),
+        str(torch.device(device)),
+    ))
+    hit = PREPARED_CACHE.get(key)
+    if hit is not None:
+        return hit
+    return PREPARED_CACHE.put(key, _prepare_beam_uncached(
+        bi, freqs, polarized, spline_opts, interpolation_function, use_feed, dtype, device))
+
+
+def _prepare_beam_uncached(bi, freqs, polarized, spline_opts, interpolation_function,
+                           use_feed, dtype, device) -> PreparedBeam:
     inner = bi.beam
     order = _spline_order(spline_opts, interpolation_function)
 
@@ -333,6 +386,9 @@ def prepare_beam(
     host = np.moveaxis(host, freq_axis, 0)  # (nfreq, *ch_shape, ny, nx)
     nfreq_t, ny_t, nx_t = host.shape[0], host.shape[-2], host.shape[-1]
     host = np.ascontiguousarray(np.moveaxis(host.reshape(nfreq_t, -1, ny_t, nx_t), 1, -1))
+    if host.base is not None:  # keep a table of its own, so freezing it is safe
+        host = host.copy()
+    host.setflags(write=False)  # the stack key's digest is then taken once
     is_power = gb.beam_type == "power"
     # A PowerBeam carries its own feed selection (the engine prepares
     # without use_feed).

@@ -2,14 +2,18 @@
 
 NumPy copies of the helpers of ``fftvis_tpu/core/utils.py`` that the port's
 slice needs: redundant-baseline grouping, the plane-to-XY rotation of a
-tilted array, the antenna-to-beam mapping check and the speed of light.
-Tests assert that each copy gives exactly the arrays (and error messages)
-of the original.
+tilted array, the source-chunk memory model, the antenna-to-beam mapping
+check and the speed of light. Tests assert that each copy gives exactly the
+arrays (and error messages) of the original.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 speed_of_light = 299792458.0  # m/s
 
@@ -112,6 +116,97 @@ def get_plane_to_xy_rotation_matrix(antvecs: np.ndarray) -> np.ndarray:
         ]
     )
     return np.eye(3) + np.sin(theta) * K + (1.0 - np.cos(theta)) * (K @ K)
+
+
+def get_required_chunks(
+    freemem: int,
+    nax: int,
+    nfeed: int,
+    nant: int,
+    nsrc: int,
+    nbeam: int,
+    nbeampix: int,
+    precision: int,
+    source_buffer: float = 1.0,
+    nprocesses: int = 1,
+) -> int:
+    """Number of source chunks needed to fit the working set in ``freemem`` bytes.
+
+    Byte-level model mirroring the reference (ref core/utils.py:213-285),
+    used against the device's free memory.
+    """
+    rsize = 4 * precision
+    csize = 2 * rsize
+
+    total = freemem
+    ch = 0
+    while total >= freemem and ch < 100:
+        ch += 1
+        nchunk = int(nsrc // ch * source_buffer)
+        sizes = {
+            "antpos": nant * 3 * rsize,
+            "flux": nsrc * rsize,
+            "beam": nbeampix * nfeed * nax * csize,
+            "crd_eq": 3 * nsrc * rsize,
+            "crd_top": 3 * nsrc * rsize * nprocesses,
+            "crd_chunk": 3 * nchunk * rsize * nprocesses,
+            "flux_chunk": nchunk * rsize * nprocesses,
+            "beam_interp": nbeam * nfeed * nax * nchunk * csize * nprocesses,
+            "vis": ch * nfeed * nant * nfeed * nant * csize,
+        }
+        total = sum(sizes.values())
+        logger.debug("nchunks=%d sizes=%s total=%d", ch, sizes, total)
+
+    logger.info(
+        "Free mem %.2f GB requires %d source chunks (estimate %.2f GB)",
+        freemem / 1024**3,
+        ch,
+        total / 1024**3,
+    )
+    return ch
+
+
+def get_desired_chunks(
+    freemem: int,
+    min_chunks: int,
+    beam_list,
+    nax: int,
+    nfeed: int,
+    nant: int,
+    nsrc: int,
+    precision: int,
+    source_buffer: float = 1.0,
+) -> tuple[int, int]:
+    """Choose the number of source chunks and sources per chunk.
+
+    (ref core/utils.py:287-355)
+    """
+    nbeampix = 0
+    for beam in beam_list:
+        data = getattr(beam, "data_array", None)
+        if data is None and hasattr(beam, "beam"):
+            data = getattr(beam.beam, "data_array", None)
+        if data is not None:
+            nbeampix += data.shape[-2] * data.shape[-1]
+
+    nchunks = min(
+        max(
+            min_chunks,
+            get_required_chunks(
+                freemem,
+                nax,
+                nfeed,
+                nant,
+                nsrc,
+                len(beam_list),
+                nbeampix,
+                precision,
+                source_buffer,
+            ),
+        ),
+        nsrc,
+    )
+    return nchunks, int(np.ceil(nsrc / nchunks))
 
 
 def validate_beam_idx(

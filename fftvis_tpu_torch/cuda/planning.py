@@ -38,9 +38,11 @@ TWO_PI = 2.0 * np.pi
 DENSE_GRID_LIMIT = 512 * 512
 
 
-@dataclass
+@dataclass(frozen=True)
 class SimPlan:
-    """Host-side configuration of one simulation's transform."""
+    """Host-side configuration of one simulation's transform. The engine
+    keeps it across calls, so nothing sets its fields; its executor keeps
+    device tables that every call on its configuration shares."""
 
     mode: str  # 'type1' | 'type3' | 'direct'
     executor: Type3Executor | Type1ExactExecutor | None

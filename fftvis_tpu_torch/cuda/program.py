@@ -45,8 +45,9 @@ class Routing:
     by ``inv_perm``. With ``pad`` every pair's list is padded to the
     longest, ``m_max``: ``sel_pad`` (P, m_max), ``flip_pad`` the padded
     flip flags and ``src_pos`` every baseline's slot in the (P * m_max)
-    padded order. Built on the host once a call; the index tensors the
-    device reads are copied to ``device`` once."""
+    padded order; ``pair_i``, ``pair_j`` the pairs' beam indices (int32).
+    Built on the host; the index tensors the device reads are copied to
+    ``device`` once, and the engine keeps them across calls."""
 
     def __init__(self, pair_plan: BeamPairPlan, flipped: np.ndarray, pad: bool,
                  m_max: int, device):
@@ -56,7 +57,10 @@ class Routing:
         self.m_max = m_max
         nbl = flipped.size
         dev = torch.device(device)
-        self.flipped = torch.as_tensor(flipped, device=dev)
+        self.pair_i, self.pair_j = (
+            torch.tensor([p[k] for p in pair_plan.pairs], dtype=torch.int32, device=dev)
+            for k in (0, 1))
+        self.flipped = torch.tensor(flipped, device=dev)
         sel_concat = np.concatenate([np.asarray(s, dtype=np.int64) for s in pair_plan.bls_idxs])
         self.inv_perm = None
         if not np.array_equal(sel_concat, np.arange(nbl)):
@@ -98,21 +102,20 @@ class BlockRows:
       as channels, then ``pair_rows``.
     """
 
-    def __init__(self, prepared: list, pairs, polarized: bool, polarized_sky: bool,
-                 complex_dtype: torch.dtype, device):
+    def __init__(self, prepared: list, routing: Routing, polarized: bool,
+                 polarized_sky: bool, complex_dtype: torch.dtype):
         self.prepared = prepared
         self.polarized = polarized
         self.polarized_sky = polarized_sky
         self.complex_dtype = complex_dtype
         self.single = None
         self.stacked = None
+        pairs = routing.pair_plan.pairs
         if len(pairs) == 1 and pairs[0][0] == pairs[0][1]:
             self.single = prepared[pairs[0][0]]
             return
         self.stacked = stack_prepared(prepared)
-        dev = torch.device(device)
-        self.pair_i = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=dev)
-        self.pair_j = torch.tensor([p[1] for p in pairs], dtype=torch.int32, device=dev)
+        self.pair_i, self.pair_j = routing.pair_i, routing.pair_j
 
     def __call__(self, az, za, freq_value: float, freq_index: int, flux, mask):
         if self.single is not None:
@@ -140,6 +143,8 @@ class ProgramConfig:
     plan: SimPlan
     rows: BlockRows
     routing: Routing
+    coord: torch.Tensor  # (2, 3) plan.coord_matrix on the device
+    targets: object  # the direct path's device targets (device_tables), else None
     freqs: np.ndarray  # (nfreq,) host float64
     nbl: int
     block: int
@@ -152,16 +157,25 @@ class ProgramConfig:
         return 2 if self.polarized else 1
 
 
-def _direct_targets(cfg: ProgramConfig, dev):
-    """The direct path's signed targets on the device as the routing reads
-    them: (d, nbl); (d, P, m_max) padded; or one (d, m_p) a pair."""
-    r = cfg.routing
-    tg = torch.as_tensor(cfg.plan.targets, dtype=cfg.real_dtype, device=dev)
-    if not r.multi:
-        return tg
-    if r.pad:
-        return tg[:, torch.as_tensor(r.sel_pad, device=dev)]
-    return [tg[:, torch.as_tensor(s, device=dev)] for s in r.pair_plan.bls_idxs]
+def device_tables(plan: SimPlan, pair_plan: BeamPairPlan, flipped: np.ndarray, pad: bool,
+                  m_max: int, real_dtype: torch.dtype, device):
+    """What the loop reads besides the inputs, on ``device``, once a
+    configuration: the :class:`Routing`, the coordinate matrix and, on the
+    direct path, the signed targets as the routing reads them -- (d, nbl);
+    (d, P, m_max) padded; or one (d, m_p) a pair -- else None."""
+    dev = torch.device(device)
+    r = Routing(pair_plan, flipped, pad, m_max, dev)
+    coord = torch.tensor(plan.coord_matrix, dtype=real_dtype, device=dev)
+    targets = None
+    if plan.mode == "direct":
+        tg = torch.tensor(plan.targets, dtype=real_dtype, device=dev)
+        if not r.multi:
+            targets = tg
+        elif r.pad:
+            targets = tg[:, torch.as_tensor(r.sel_pad, device=dev)]
+        else:
+            targets = [tg[:, torch.as_tensor(s, device=dev)] for s in pair_plan.bls_idxs]
+    return r, coord, targets
 
 
 def _direct_block(cfg: ProgramConfig, acc, x, rows, targets):
@@ -224,9 +238,10 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
     mats (nt, 3, 3) ICRS->ENU rotations, abvel (nt, 3) aberration
     velocities, eq (3, nsrc) ICRS unit vectors, all in ``cfg.real_dtype``;
     coh the source coherency, (nsrc, nfreq) real for a Stokes-I sky or
-    (nsrc, nfreq, 2, 2) complex for an IQUV sky; all on one device.
-    Returns (nt, nfreq, nfeeds, nfeeds, nbl) complex visibilities on that
-    device, feed axes already in the reference's transposed order.
+    (nsrc, nfreq, 2, 2) complex for an IQUV sky; all on one device, and
+    only read (the engine keeps them across calls). Returns (nt, nfreq,
+    nfeeds, nfeeds, nbl) complex visibilities on that device, feed axes
+    already in the reference's transposed order.
     """
     plan, r = cfg.plan, cfg.routing
     dev = eq.device
@@ -234,8 +249,7 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
     nfeeds = cfg.nfeeds
     nf2 = nfeeds**2
     C = r.npairs * nf2
-    coord = torch.as_tensor(plan.coord_matrix, dtype=cfg.real_dtype, device=dev)
-    targets = _direct_targets(cfg, dev) if plan.mode == "direct" else None
+    coord, targets = cfg.coord, cfg.targets
     vis = torch.empty((nt, nfreq, nfeeds, nfeeds, cfg.nbl), dtype=cfg.complex_dtype,
                       device=dev)
 

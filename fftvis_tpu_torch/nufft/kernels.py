@@ -87,6 +87,15 @@ def _gl_nodes(n: int) -> tuple[tuple[float, ...], tuple[float, ...]]:
     return tuple(x), tuple(wts)
 
 
+@functools.lru_cache(maxsize=None)
+def _gl_tensors(dtype: torch.dtype, device: torch.device):
+    """The quadrature nodes and weights on a device, uploaded once: a
+    per-call upload would make the host wait for the card."""
+    nodes, weights = _gl_nodes(_QUAD_NODES)
+    return (torch.tensor(nodes, dtype=dtype, device=device),
+            torch.tensor(weights, dtype=dtype, device=device))
+
+
 def es_kernel_ft(xi, w: int, beta: float):
     """Fourier transform of the grid-unit kernel, psi_hat(xi).
 
@@ -99,8 +108,7 @@ def es_kernel_ft(xi, w: int, beta: float):
     """
     nodes, weights = _gl_nodes(_QUAD_NODES)
     if isinstance(xi, torch.Tensor):
-        z = torch.tensor(nodes, dtype=xi.dtype, device=xi.device)
-        q = torch.tensor(weights, dtype=xi.dtype, device=xi.device)
+        z, q = _gl_tensors(xi.dtype, xi.device)
         envelope = torch.exp(beta * (torch.sqrt(1.0 - z * z) - 1.0)) * q
         phases = xi[..., None] * (0.5 * w) * z
         return (0.5 * w) * torch.sum(torch.cos(phases) * envelope, dim=-1)

@@ -15,12 +15,13 @@ from __future__ import annotations
 from typing import Literal
 
 import numpy as np
+import torch
 
 from .beams.gridded import GriddedBeam
 from .beams.interface import BeamInterface, prepare_beam_unpolarized
 from .core.simulate import default_accuracy_dict
-from .core.utils import validate_beam_idx
-from .cuda.engine import CUDASimulationEngine
+from .core.utils import get_desired_chunks, validate_beam_idx
+from .cuda.engine import CUDASimulationEngine, VisibilityFuture
 
 
 def prepare_beam_list(beam, freqs, polarized, beam_coefs, use_feed, nant, beam_idx):
@@ -78,7 +79,7 @@ def simulate_vis(
     mesh=None,
     async_fetch: bool = False,
     device="cuda",
-) -> np.ndarray:
+) -> np.ndarray | VisibilityFuture:
     """Simulate interferometric visibilities on a torch device.
 
     Parameters mirror ``fftvis_tpu.simulate_vis``: ``ants`` {antenna: ENU
@@ -94,37 +95,57 @@ def simulate_vis(
     (default eps 6e-8 / 1e-13, floored at 5e-7 in float32). ``device``
     names the torch device (default ``"cuda"``).
 
+    ``max_memory`` (bytes, capped at the device's free memory), ``min_chunks``
+    and ``source_buffer`` choose the number of source chunks by the JAX
+    package's memory model (``get_desired_chunks``); the engine's source
+    block is then at most ``ceil(nsrc / nchunks)``. They change the blocking,
+    not the result. ``async_fetch=True`` returns a :class:`VisibilityFuture`
+    as soon as the device work and the copy of its output are enqueued;
+    ``result()`` (or ``np.asarray``) waits and assembles. On a CPU device
+    the future is already resolved.
+
     Accepted for signature parity and without effect on this path:
     ``nprocesses``, ``nthreads``, ``force_use_ray``, ``trace_mem``,
-    ``backend``, ``max_memory``, ``min_chunks``, ``source_buffer``.
+    ``backend``.
 
     ``beam`` may be a list with ``beam_idx`` mapping antennas to it
     (inferred when the list has one beam or one per antenna). Baselines are
     routed by beam pair, and a per-antenna list always runs the exact pair
     routing: the JAX package's eigenbeam (auto-rank) substitution is not
-    ported. Raises ``NotImplementedError`` for ``beam_coefs``, ``mesh``,
-    ``async_fetch``, non-coplanar arrays, and gridded arrays the exact
-    type-1 transform does not take (or under ``FFTVIS_TYPE1=es``) unless
-    type-3 is forced.
+    ported. Raises ``NotImplementedError`` for ``beam_coefs`` (ROADMAP item
+    7), ``mesh`` (item 10), non-coplanar arrays, and gridded arrays the
+    exact type-1 transform does not take (or under ``FFTVIS_TYPE1=es``)
+    unless type-3 is forced.
+
+    Plans, device tables, device inputs and prepared beams are kept across
+    calls under content keys (``cuda/engine.py``), so a sweep over one
+    configuration plans and uploads once.
 
     Returns
     -------
     np.ndarray
         (nfreqs, ntimes, nbls) complex, or (nfreqs, ntimes, 2, 2, nbls)
-        when polarized.
+        when polarized. With ``async_fetch=True``, a ``VisibilityFuture``
+        resolving to that array.
     """
-    if mesh is not None or async_fetch:
-        raise NotImplementedError(
-            "mesh and async_fetch are ROADMAP items 10 and 5"
-        )
+    if mesh is not None:
+        raise NotImplementedError("mesh (multi-device runs) is ROADMAP item 10")
     if eps is None:
         eps = default_accuracy_dict[precision]
     freqs = np.atleast_1d(np.asarray(freqs, dtype=float))
     beam_list, beam_idx = prepare_beam_list(beam, freqs, polarized, beam_coefs, use_feed,
                                             len(ants), beam_idx)
+    nfeed = 2 if polarized else 1
+    nchunks, _ = get_desired_chunks(
+        min(max_memory, available_memory(device)), min_chunks,
+        [b.beam for b in beam_list], nfeed, nfeed, len(ants), len(fluxes), precision,
+        source_buffer=source_buffer,
+    )
 
     engine = CUDASimulationEngine(device=device)
     return engine.simulate(
+        async_fetch=async_fetch,
+        nchunks=nchunks,
         ants={k: np.asarray(v) for k, v in ants.items()},
         freqs=freqs,
         fluxes=np.asarray(fluxes),
@@ -146,3 +167,19 @@ def simulate_vis(
         coord_method_params=coord_method_params,
         force_use_type3=force_use_type3,
     )
+
+
+def available_memory(device) -> float:
+    """The memory budget in bytes: the free memory of a CUDA device, else
+    the host's available memory (``/proc/meminfo``), else 8 GiB."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return float(torch.cuda.mem_get_info(device)[0])
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemAvailable"):
+                    return float(line.split()[1]) * 1024.0
+    except OSError:  # pragma: no cover
+        pass
+    return 8 * 1024**3  # pragma: no cover

@@ -5,8 +5,8 @@
   originals, and its tensor evaluators match the JAX ones;
 - the kernel wrappers refuse what the kernels do not take, and the slice
   refuses what it leaves out (ES type-1, eigenbeam coefficients, meshes,
-  async fetch, 3D arrays, beam-table upsampling) with
-  ``NotImplementedError``;
+  3D arrays, beam-table upsampling) with ``NotImplementedError``, an
+  asynchronous call at dispatch;
 - on a CUDA card (marked ``cuda``; skipped without one), each CUDA kernel
   matches its plain torch version and counts its launches.
 """
@@ -210,10 +210,13 @@ def test_slice_refuses_what_it_leaves_out(case, monkeypatch):
               freqs=np.array([1e8]), times=np.array([2459863.2]),
               beam=GaussianBeam(diameter=14.0),
               telescope_loc=TelescopeLocation(*SITE), device="cpu")
-    if case == "3d":
+    if case in ("3d", "async_fetch"):
+        # async_fetch: an asynchronous call refuses at dispatch, not at
+        # result(), what the slice leaves out.
         kw["ants"] = {i: np.array([*rng.uniform(-50, 50, 2), rng.uniform(-5, 5)])
                       for i in range(5)}
         kw["force_use_type3"] = True
+        kw["async_fetch"] = case == "async_fetch"
     elif case == "polarized":
         # Per-antenna polarized beams on a lattice with ES type-1 asked
         # for: ES type-1 is not ported.
@@ -238,8 +241,7 @@ def test_slice_refuses_what_it_leaves_out(case, monkeypatch):
         # A beam list as an eigenbeam basis.
         kw.update(beam=[GaussianBeam(diameter=14.0)] * 2, beam_coefs=np.ones((4, 2, 1)))
     else:
-        kw[case] = {"beam_coefs": np.ones((4, 1, 1)), "mesh": object(),
-                    "async_fetch": True}[case]
+        kw[case] = {"beam_coefs": np.ones((4, 1, 1)), "mesh": object()}[case]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         simulate_vis(**kw)
 

@@ -17,8 +17,9 @@ more warm call runs under cProfile, and then one under torch.profiler
 (``device_profile.device_kernels``). Every line is one JSON object: the
 root, the precision, the warm walls in seconds, the cumulative host
 seconds of the cProfiled call in the functions of ``PROFILED`` that the
-root has, and the device kernels the torch.profiler call launched and
-their device time (device-side events only, copies and fills left out).
+root has, the device kernels the torch.profiler call launched and their
+device time (device-side events only, copies and fills left out), and the
+synchronizing CUDA calls of one more warm call (``sync_count``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ PROFILED = ("simulate_vis", "plan_transform", "prepare_beam", "run_program",
             "_device_tables", "_taps", "target_order", "footprint_runs", "beam_rows", "eval_grid",
             "apparent_coherency_rows", "prepare_beam_list", "prepare_beams", "stack_prepared",
             "plan_beam_pairs", "check_antpos_griddability", "cull_never_visible", "pair_rows",
-            "spread")
+            "spread", "hash_parts")
 
 
 def child(root: str, north_star: bool) -> None:
@@ -95,7 +96,27 @@ def child(root: str, north_star: bool) -> None:
         print(json.dumps({"root": root, "north_star": north_star, "precision": precision,
                           "walls_s": walls,
                           "profiled_s": cum, "device_kernels": dev["kernels"],
-                          "device_kernel_ms": dev["device_us"] / 1e3}), flush=True)
+                          "device_kernel_ms": dev["device_us"] / 1e3,
+                          "syncs": sync_count(lambda: simulate_vis(precision=precision, **kw))}),
+              flush=True)
+
+
+def sync_count(fn) -> int:
+    """The synchronizing CUDA calls of one call of ``fn`` (a warm call, that
+    returns host arrays), as ``torch.cuda.set_sync_debug_mode("warn")``
+    reports them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def main(argv) -> int:
