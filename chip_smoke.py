@@ -56,11 +56,20 @@ Phases, one printed line each (any failure raises and exits non-zero):
      forms them); and with one beam per antenna of the north star's array
      (K = 331, random evaluations at 4096 points), where the Jones stacks
      take the kernel's global-memory form, alone and against its bound;
+   - pair_rows at the eigenbeam basis path's shapes, on stacked eigenbeam
+     evaluations at 4096 unmasked points: the eigen row's K = 6 complex
+     eigenbeams (P = 21, the k <= l list), auto-rank's K = 7 complex
+     eigenbeams of the north star at precision 1 (P = 49, the ordered
+     list) and their real parts (a real-Jones stack, P = 28); and K = 8, P
+     = 36 on random evaluations (the eigen row's basis where its beams are
+     evaluated in float32, as the JAX package does on a TPU); float32 and
+     float64, alone and against the bound; and beam_eval on the eigen row's
+     (91, 180, 48) and (91, 180, 64) stacks;
    - the exact type-1 product (cuBLAS, not a hand-written kernel) at the
      north star's C = 720 channels, 4096 sources and (42, 42) mode grid,
-     float32 and float64 (one call by CUDA events and its device time
-     alone), beside its operations bound and the factored form the port
-     does not take;
+     float32 and float64, and at auto-rank's channels in float32 (one call
+     by CUDA events and its device time alone), beside its operations
+     bound and the factored form the port does not take;
 4. run ``simulate_vis`` on the slice configuration -- hex_array(11,
    outriggers=2) with all 63,190 i<=j baselines, the nside=64 HEALPix sky,
    2 frequencies x 3 times, forced type-3 -- with
@@ -79,7 +88,17 @@ Phases, one printed line each (any failure raises and exits non-zero):
      polarized, the nside=64 sky, 1 frequency x 2 times, ``auto`` mode --
      a lattice, so the exact type-1 path -- at precision 2 and 1: beam_eval
      (the stacked table) and pair_rows once a source block, spread, interp
-     and beam_rows never;
+     and beam_rows never; at precision 1 auto-rank swaps the 37 beams for K
+     eigenbeams (its K, channels, list kind and residual printed), and the
+     run is repeated under ``FFTVIS_AUTO_RANK=0``: both configurations'
+     warm walls and device busy (torch.profiler) go on record;
+   - the JAX bench's eigenbeam row (``bench.py:545-598``) at its full size:
+     hex_array(4) (37 antennas), 37 GaussianBeam(13 + 0.05 i) decomposed by
+     ``compute_beam_basis`` in float64 (threshold 1e-8, a (91, 181) grid:
+     K = 6 eigenbeams, 21 pairs, 84 channels), ``beam_coefs``, polarized, the
+     nside=64 sky, 1 frequency x 4 times, precision 2, the exact type-1
+     path: beam_eval and pair_rows once a source block, spread, interp and
+     beam_rows never;
    - per-antenna type-3 at reduced depth: the slice array, 4 variants
      (``beam_idx = arange(355) % 4``, 10 pairs, 40 channels), polarized,
      precision 1, 1 frequency x 1 time, type-3 forced through
@@ -89,7 +108,8 @@ Phases, one printed line each (any failure raises and exits non-zero):
    the card;
 5. hold every output against the port's float64 direct path on the CPU,
    where every kernel takes its plain version, on every 32nd baseline
-   (gates 1e-4 at precision 1, 1e-5 at precision 2, relative to max|V|);
+   (the eigen row on all of them, through the same basis contraction;
+   gates 1e-4 at precision 1, 1e-5 at precision 2, relative to max|V|);
 6. with ``--profile`` only: torch.profiler over one warm call of the
    analytic p=1, polarized p=1 and p=2, unpolarized tabulated and north
    star p=2 and p=1 runs (after five timed warm calls each): device busy
@@ -104,9 +124,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
      the cache keys (hash_parts), in a warm call (cProfile); every warm
      result within WARM_TOL of the cold one, every call's launches those
      of phase 4;
-   - async_fetch: the north star at precision 1 and the JAX bench's
-     gridded row (``bench.py:340-415``: the slice array and sky,
-     GaussianBeam(14), unpolarized, precision 2, the exact type-1 path):
+   - async_fetch: the north star at precision 1, the JAX bench's gridded
+     row (``bench.py:340-415``: the slice array and sky, GaussianBeam(14),
+     unpolarized, precision 2, the exact type-1 path) and its eigen row:
      8 futures dispatched with 2 in flight, then resolved; the time a
      dispatch takes to return, the time to ``result()`` and the pipelined
      wall a simulation; each result within WARM_TOL of the synchronous
@@ -161,6 +181,10 @@ NS_TIMES = 2459863.2 + np.linspace(0, 4 / 60 / 24, 2)
 NS_PRECISIONS = (2, 1)
 # Per-antenna type-3 at reduced depth: variants of the slice's runs.
 PA_BEAMS = 4
+# The JAX bench's eigenbeam row (bench.py:545-598): hex_array(4), 37
+# GaussianBeam(13 + 0.05 i) decomposed on a (91, 181) grid, 1 freq x 4 times.
+EIGEN_HEX = 4
+EIGEN_TIMES = 2459863.2 + np.linspace(0, 4 / 60 / 24, 4)
 
 
 def card_line() -> str:
@@ -581,14 +605,17 @@ def check_beam_eval() -> dict:
     from fftvis_tpu_torch.beams import eval as eval_mod
 
     rng = np.random.default_rng(2)
-    cases = [(ch, order, dt) for ch in (8, 2) for order in (3, 1)
+    cases = [(ch, order, dt, 360) for ch in (8, 2) for order in (3, 1)
              for dt in (torch.float32, torch.float64)]
-    cases += [(8 * NS_BEAMS, 3, torch.float32), (8 * NS_BEAMS, 1, torch.float32),
-              (8 * NS_BEAMS, 1, torch.float64)]
+    cases += [(8 * NS_BEAMS, 3, torch.float32, 360), (8 * NS_BEAMS, 1, torch.float32, 360),
+              (8 * NS_BEAMS, 1, torch.float64, 360)]
+    # The eigen row's stack on its (91, 180) grid: its K = 6 complex
+    # eigenbeams, and the K = 8 a float32 evaluation of its beams keeps.
+    cases += [(8 * K, 1, dt, 180) for K in (6, 8) for dt in (torch.float64, torch.float32)]
     results = {}
-    for ch, order, dt in cases:
+    for ch, order, dt, nx in cases:
         name = str(dt).split(".")[-1]
-        ny, nx = 91, 360
+        ny = 91
         data = torch.tensor(rng.normal(size=(ny, nx, ch)), dtype=dt, device="cuda")
         y, x = (torch.tensor(a, dtype=dt, device="cuda") for a in beam_points(ny, nx, 4096, rng))
         got = eval_mod.beam_eval(data, y, x, order=order, wrap_x=True)
@@ -619,7 +646,7 @@ def check_beam_eval() -> dict:
         if not err <= BEAM_TOL[name] * scale:
             raise AssertionError(f"beam_eval {name} {(ch, order)} disagrees with its plain version")
         prev = results.get(name, (0.0, None, None, None, None))
-        main = (ch, order) == (8 * NS_BEAMS, 1)
+        main = (ch, order, nx) == (8 * NS_BEAMS, 1, 360)
         timed = (ms, plain, (b_ms, b_by), lib_ms) if main else prev[1:]
         results[name] = (max(prev[0], err), *timed)
     return results
@@ -748,6 +775,38 @@ def north_star_config():
         beam=perturbed_variants(read_beamfits(str(ASSET)), NS_BEAMS),
         beam_idx=np.arange(len(ants)) % NS_BEAMS,
         polarized=True,
+    )
+
+
+def eigen_row_config():
+    """The JAX bench's eigenbeam row (bench.py:545-598) at its full size:
+    hex_array(4) (37 antennas) with its redundant representatives, one
+    GaussianBeam(13 + 0.05 i) an antenna, decomposed by compute_beam_basis
+    (polarized, threshold 1e-8, a (91, 181) grid), the eigenbeams with
+    ``beam_coefs``, the nside=64 sky, 1 frequency x 4 times, precision 2."""
+    from fftvis_tpu_torch import TelescopeLocation, compute_beam_basis
+    from fftvis_tpu_torch.beams import GaussianBeam
+    from fftvis_tpu_torch.geometry import hex_array
+    from fftvis_tpu_torch.utils import healpix_radec
+
+    ants = hex_array(EIGEN_HEX, sep=14.6)
+    eig, coefs = compute_beam_basis([GaussianBeam(diameter=13.0 + 0.05 * i)
+                                     for i in range(len(ants))], NS_FREQS[0], polarized=True,
+                                    threshold=1e-8, n_axis1=181, n_axis2=91)
+    ra, dec = healpix_radec(64)
+    rng = np.random.default_rng(0)
+    return dict(
+        ants=ants,
+        fluxes=rng.uniform(0.1, 1.0, (ra.size, 1)),
+        ra=ra,
+        dec=dec,
+        freqs=np.array(NS_FREQS),
+        times=EIGEN_TIMES,
+        telescope_loc=TelescopeLocation(np.deg2rad(LAT), np.deg2rad(LON), ALT),
+        beam=eig,
+        beam_coefs=coefs[:, :, None],
+        polarized=True,
+        precision=2,
     )
 
 
@@ -949,6 +1008,107 @@ def check_pair_rows_wide(ns) -> dict:
     return errs
 
 
+# The north star's eps at precision 1: the default 6e-8 floored at float32's
+# 5e-7 (cuda/engine.py), auto-rank's tolerance an eighth of it.
+NS_P1_EPS = 5e-7
+
+
+def north_star_auto_rank(ns):
+    """Auto-rank's plan of the north star at precision 1, as the engine asks
+    for it (the port's planner; a cache hit after the run)."""
+    from fftvis_tpu_torch.core.auto_rank import plan_auto_rank
+    from fftvis_tpu_torch.wrapper import prepare_beam_list
+
+    beams, _ = prepare_beam_list(ns["beam"], ns["freqs"], True, None, "x", len(ns["ants"]),
+                                 ns["beam_idx"])
+    plan = plan_auto_rank(beams, tol=NS_P1_EPS / 8, npairs=pair_arrays(ns)[2].npairs,
+                          allow_sym=True)
+    if plan is None:
+        raise AssertionError("auto-rank declines the north star at precision 1")
+    return plan
+
+
+def check_pair_rows_basis(eig, ns) -> dict:
+    """Phase 3: pair_rows against pair_rows_plain at the shapes the basis
+    path gives it, at 4096 unmasked points (a source block), Stokes-I sky,
+    on stacked eigenbeam evaluations: the eigen row's K complex eigenbeams
+    and k <= l list; auto-rank's K = 7 complex eigenbeams of the north star
+    at precision 1 and their ordered list (P = 49); and real Jones tables
+    (the real parts of those 7) with the k <= l list (P = 28), the kernel's
+    real-table form. And on random evaluations, K = 8 complex and P = 36:
+    the eigen row's basis where the beams are evaluated in float32, as the
+    JAX package does on a TPU. Returns {dtype: max err}."""
+    import torch
+
+    from fftvis_tpu_torch.beams import GriddedBeam
+    from fftvis_tpu_torch.beams import eval as eval_mod
+    from fftvis_tpu_torch.beams.interface import BeamInterface, prepare_beams, stack_prepared
+
+    arp = north_star_auto_rank(ns)
+    real = [GriddedBeam(np.ascontiguousarray(e.data_array.real), e.axis1_array, e.axis2_array,
+                        e.freq_array, feeds=e.feeds) for e in arp.eigenbeams]
+
+    def half(K):
+        return [(k, l) for k in range(K) for l in range(k, K)]
+
+    shapes = (("eigen row", eig["beam"], half(len(eig["beam"]))),
+              ("north-star auto-rank", list(arp.eigenbeams), list(arp.kl_pairs)),
+              ("real-Jones", real, half(len(real))),
+              ("float32-rank eigen row", 8, half(8)))
+    rng = np.random.default_rng(8)
+    n = SPREAD_SOURCES
+    errs = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        for label, beams, pairs in shapes:
+            if isinstance(beams, int):  # random evaluations of K complex tables
+                nbeams, ch_shape = beams, (2, 2, 2)
+                evals = torch.tensor(rng.normal(size=(n, 8 * beams)), dtype=dt, device="cuda")
+            else:
+                stacked = stack_prepared(prepare_beams([BeamInterface(b) for b in beams],
+                                                       np.array(NS_FREQS), True, dtype=dt,
+                                                       device="cuda"))
+                nbeams, ch_shape = stacked.nbeams, stacked.grid.ch_shape
+                az = torch.tensor(rng.uniform(0, 2 * np.pi, n), dtype=dt, device="cuda")
+                za = torch.tensor(rng.uniform(0, np.pi / 2, n), dtype=dt, device="cuda")
+                evals = stacked.channels(az, za, 0)
+                del stacked
+            mask = torch.ones(n, dtype=dt, device="cuda")
+            sky = torch.tensor(rng.uniform(0.1, 1.0, n), dtype=dt, device="cuda")
+            pi, pj = (torch.tensor([p[k] for p in pairs], dtype=torch.int32, device="cuda")
+                      for k in (0, 1))
+            args = (evals, pi, pj, sky, mask, ch_shape, False, False, 0)
+
+            def call():
+                return eval_mod.pair_rows(*args)
+
+            def plain_call():
+                return eval_mod.pair_rows_plain(*args)
+
+            got, want = call(), plain_call()
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            ms = cuda_ms(call, 50)
+            alone = kernel_us(call, "pair_rows_points")
+            plain = cuda_ms(plain_call, 10)
+            (b_ms, b_by), nbytes, _ = pair_bound(evals, mask, len(pairs), got.shape[0],
+                                                 "jones-I", name)
+            kind = "real" if len(ch_shape) == 2 else "complex"
+            print(f"[3] pair_rows {name} jones-I {label}: K={nbeams} {kind} "
+                  f"({evals.shape[1]} channels) P={len(pairs)} n={n} (all unmasked), rows "
+                  f"({got.shape[0]}, {n}): max err {err:.3e} = {err / scale:.3e} of "
+                  f"max|plain|; kernel {ms:.4f} ms (alone {alone:.2f} us, "
+                  f"{b_ms * 1e3 / alone:.0%} of the bound), plain {plain:.4f} ms; bound "
+                  f"{b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB)", flush=True)
+            if not err <= BEAM_TOL[name] * scale:
+                raise AssertionError(f"pair_rows {name} {label} disagrees with its plain version")
+            errs[name] = max(errs.get(name, 0.0), err)
+            del got, want, evals
+    torch.cuda.empty_cache()
+    return errs
+
+
 def factored_product(ex, x, c, grid):
     """The exact type-1 product's factored form, which the JAX package also
     has and the port does not: c times the y factor, (C, n, nmy), contracted
@@ -969,49 +1129,124 @@ def check_type1_exact(ns) -> None:
     """Phase 3: the exact type-1 product at the north star's shapes against
     its operations bound (8 C n nmy nmx real operations at 67 TFLOP/s): one
     ``spread`` call by CUDA events (the host's launches included) and its
-    device time alone, beside the factored form. cuBLAS, not a hand-written
-    kernel: no kernels entry."""
+    device time alone, beside the factored form. C = 720 (the pair
+    routing) in both dtypes, and auto-rank's channels at precision 1
+    (float32; no flipped baselines). cuBLAS, not a hand-written kernel: no
+    kernels entry."""
     import torch
 
     from fftvis_tpu_torch.cuda.engine import full_precision_matmuls
-    from fftvis_tpu_torch.cuda.planning import plan_transform
 
     full_precision_matmuls()
     _, _, pp = pair_arrays(ns)
     flipped = np.zeros(len(ns["baselines"]), dtype=bool)
     for sel, fl in zip(pp.bls_idxs, pp.flipped):
         flipped[sel] = fl
+    arp = north_star_auto_rank(ns)
+    cases = [(torch.float32, torch.complex64, pp.npairs, flipped),
+             (torch.float64, torch.complex128, pp.npairs, flipped),
+             (torch.float32, torch.complex64, len(arp.kl_pairs), np.zeros_like(flipped))]
+    for rdt, cdt, npairs, flips in cases:
+        type1_product(ns, rdt, cdt, npairs, flips)
+
+
+def type1_product(ns, rdt, cdt, npairs: int, flipped) -> None:
+    """One ``[3] type1_exact`` line: C = 4 npairs channels, 4096 sources, on
+    the north star's mode grid planned with ``flipped``."""
+    import torch
+
+    from fftvis_tpu_torch.cuda.planning import plan_transform
+
     plan = plan_transform("auto", ns["ants"], ns["baselines"], ns["freqs"], 1e-13, 2, 1e-6,
-                          False, flipped, len(ns["baselines"]), 4096, 2, pp.npairs,
+                          False, flipped, len(ns["baselines"]), 4096, 2, npairs,
                           device="cuda")
     ex = plan.executor
-    nf, C, n = ex.plan.nf, 4 * pp.npairs, 4096
+    nf, C, n = ex.plan.nf, 4 * npairs, 4096
     rng = np.random.default_rng(5)
-    for rdt, cdt in ((torch.float32, torch.complex64), (torch.float64, torch.complex128)):
-        name = str(rdt).split(".")[-1]
-        x = torch.tensor(rng.uniform(-60, 60, (2, n)), dtype=rdt, device="cuda")
-        c = torch.tensor(rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n)), dtype=cdt,
-                         device="cuda")
-        grids, times, alone = {}, {}, {}
-        for form, fn in (("outer", ex.spread), ("factored", lambda x, c, grid:
-                                                 factored_product(ex, x, c, grid))):
-            grid = torch.zeros((C,) + tuple(nf), dtype=cdt, device="cuda")
-            grids[form] = fn(x, c, grid=grid).clone()
-            times[form] = cuda_ms(lambda: fn(x, c, grid=grid), 10)
-            alone[form] = device_ms(lambda: fn(x, c, grid=grid))
-        scale = grids["outer"].abs().max().item()
-        err = (grids["outer"] - grids["factored"]).abs().max().item() / scale
-        ops = 8.0 * C * n * nf[0] * nf[1]
-        b_ms = ops / MATMUL_OPS_PER_S * 1e3
-        print(f"[3] type1_exact {name}: C={C} n={n} mode grid {tuple(nf)}: outer "
-              f"{times['outer']:.4f} ms (device {alone['outer']:.4f} ms); factored form "
-              f"(not in the port) {times['factored']:.4f} ms (device {alone['factored']:.4f} "
-              f"ms); the forms agree to {err:.1e} of max; bound {b_ms:.4f} ms (operations, "
-              f"{ops:.3e} at 67 TFLOP/s); cuBLAS, not a hand-written kernel", flush=True)
-        if not err <= TOL[name]:
-            raise AssertionError(f"type1_exact {name}: the two forms disagree")
-        del grids, grid, x, c
-        torch.cuda.empty_cache()
+    name = str(rdt).split(".")[-1]
+    x = torch.tensor(rng.uniform(-60, 60, (2, n)), dtype=rdt, device="cuda")
+    c = torch.tensor(rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n)), dtype=cdt,
+                     device="cuda")
+    grids, times, alone = {}, {}, {}
+    for form, fn in (("outer", ex.spread), ("factored", lambda x, c, grid:
+                                             factored_product(ex, x, c, grid))):
+        grid = torch.zeros((C,) + tuple(nf), dtype=cdt, device="cuda")
+        grids[form] = fn(x, c, grid=grid).clone()
+        times[form] = cuda_ms(lambda: fn(x, c, grid=grid), 10)
+        alone[form] = device_ms(lambda: fn(x, c, grid=grid))
+    scale = grids["outer"].abs().max().item()
+    err = (grids["outer"] - grids["factored"]).abs().max().item() / scale
+    ops = 8.0 * C * n * nf[0] * nf[1]
+    b_ms = ops / MATMUL_OPS_PER_S * 1e3
+    print(f"[3] type1_exact {name}: C={C} n={n} mode grid {tuple(nf)}: outer "
+          f"{times['outer']:.4f} ms (device {alone['outer']:.4f} ms); factored form "
+          f"(not in the port) {times['factored']:.4f} ms (device {alone['factored']:.4f} "
+          f"ms); the forms agree to {err:.1e} of max; bound {b_ms:.4f} ms (operations, "
+          f"{ops:.3e} at 67 TFLOP/s); cuBLAS, not a hand-written kernel", flush=True)
+    if not err <= TOL[name]:
+        raise AssertionError(f"type1_exact {name}: the two forms disagree")
+    del grids, grid, x, c
+    torch.cuda.empty_cache()
+
+
+def north_star_auto_rank_runs(ns, counters, want_launches, auto_vis) -> None:
+    """Phase 4: the north star at precision 1 auto-ranks, as the JAX engine
+    does: its plan (K, channels before and after, list kind, residual);
+    then the same run under ``FFTVIS_AUTO_RANK=0`` (the pair routing, 720
+    channels), with the same launches. Both configurations' warm walls (5
+    calls) and device busy (torch.profiler, 5 warm calls) go on record: a
+    record, not a claim."""
+    import os
+
+    import torch
+
+    from fftvis_tpu_torch import simulate_vis
+
+    arp = north_star_auto_rank(ns)
+    npairs = pair_arrays(ns)[2].npairs
+    print(f"[4] north-star precision=1 auto-rank: K={arp.K} eigenbeams, {4 * npairs} -> "
+          f"{4 * len(arp.kl_pairs)} channels ({len(arp.kl_pairs)} pairs), "
+          f"{'symmetric' if arp.kl_sym else 'ordered'} channel list, residual "
+          f"{arp.residual:.3e} (tol {arp.tol:.3e})", flush=True)
+    kw = dict(ns, precision=1)
+
+    def run():
+        out = simulate_vis(device="cuda", **kw)
+        torch.cuda.synchronize()
+        return out
+
+    def walls():
+        out = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    record = {"on": (walls(), device_ms(run, 5))}
+    before = os.environ.get("FFTVIS_AUTO_RANK")
+    os.environ["FFTVIS_AUTO_RANK"] = "0"
+    try:
+        reset(counters)
+        pair_vis = run()
+        got = read(counters)
+        if got != want_launches:
+            raise AssertionError(f"north star FFTVIS_AUTO_RANK=0: launches {got}, auto-ranked "
+                                 f"{want_launches}")
+        record["off"] = (walls(), device_ms(run, 5))
+    finally:
+        if before is None:
+            os.environ.pop("FFTVIS_AUTO_RANK")
+        else:
+            os.environ["FFTVIS_AUTO_RANK"] = before
+    for key, label in (("on", f"auto-rank ({4 * len(arp.kl_pairs)} channels)"),
+                       ("off", f"FFTVIS_AUTO_RANK=0 ({4 * npairs} channels)")):
+        w, busy = record[key]
+        print(f"[4] north-star precision=1 {label}: warm walls "
+              f"{', '.join(f'{t:.4f}' for t in w)} s (median {np.median(w):.4f}), device busy "
+              f"{busy:.3f} ms a call", flush=True)
+    print(f"[4] north-star precision=1 auto-rank vs FFTVIS_AUTO_RANK=0: max diff "
+          f"{max_rel(auto_vis, pair_vis):.3e} of max|V|", flush=True)
 
 
 def run_kwargs(cfg, run):
@@ -1029,8 +1264,8 @@ def direct_oracle(kw):
     from fftvis_tpu_torch.wrapper import prepare_beam_list
 
     beams, beam_idx = prepare_beam_list(kw["beam"], np.atleast_1d(kw["freqs"]),
-                                        kw["polarized"], None, "x", len(kw["ants"]),
-                                        kw.get("beam_idx"))
+                                        kw["polarized"], kw.get("beam_coefs"), "x",
+                                        len(kw["ants"]), kw.get("beam_idx"))
     ekw = {k: v for k, v in kw.items() if k not in ("beam", "beam_idx", "force_use_type3")}
     return CUDASimulationEngine(nufft_mode="direct", device="cpu").simulate(
         beam_list=beams, beam_idx=beam_idx, **ekw)
@@ -1363,9 +1598,11 @@ def main() -> int:
     check_per_antenna_nufft(pa)
     beam_checks = {"beam_eval": check_beam_eval(), "beam_rows": check_beam_rows(),
                    "pair_rows": check_pair_rows(ns)}
-    for name, err in check_pair_rows_wide(ns).items():
-        row = beam_checks["pair_rows"][name]
-        beam_checks["pair_rows"][name] = (max(row[0], err), *row[1:])
+    eig = eigen_row_config()
+    for extra in (check_pair_rows_wide(ns), check_pair_rows_basis(eig, ns)):
+        for name, err in extra.items():
+            row = beam_checks["pair_rows"][name]
+            beam_checks["pair_rows"][name] = (max(row[0], err), *row[1:])
     check_type1_exact(ns)
 
     # Each kernel's launch counter: (module, attribute).
@@ -1435,6 +1672,34 @@ def main() -> int:
               f"precision={precision}: {out.shape} {out.dtype}, finite; {ns_nbl} baselines, "
               f"{ns_blocks} source blocks; launches {got}; wall first {first:.3f} s, second "
               f"{second:.3f} s", flush=True)
+    north_star_auto_rank_runs(ns, counters, ns_launches[1], ns_vis[1])
+
+    # The eigen row: eigenbeams with beam_coefs on the exact type-1 path,
+    # the stacked beam_eval and pair_rows once a source block.
+    eig_blocks = source_blocks(eig)[0]
+    reset(counters)
+    t0 = time.perf_counter()
+    eig_vis = simulate_vis(device="cuda", **eig)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    got = read(counters)
+    K = len(eig["beam"])
+    want_shape = (1, len(EIGEN_TIMES), 2, 2)
+    if eig_vis.shape[:4] != want_shape or not np.all(np.isfinite(eig_vis)):
+        raise AssertionError(f"eigen row: shape {eig_vis.shape}, finite="
+                             f"{bool(np.all(np.isfinite(eig_vis)))}")
+    if (got["beam_eval"] != eig_blocks or got["pair_rows"] != eig_blocks
+            or got["spread"] or got["interp"] or got["beam_rows"]):
+        raise AssertionError(f"eigen row: kernel launches {got} ({eig_blocks} source blocks)")
+    t0 = time.perf_counter()
+    simulate_vis(device="cuda", **eig)
+    torch.cuda.synchronize()
+    second = time.perf_counter() - t0
+    print(f"[4] simulate_vis eigen row hex-{len(eig['ants'])} K={K} eigenbeams (table "
+          f"{eig['beam'][0].data_array.shape}, {K * (K + 1) // 2} pairs, "
+          f"{2 * K * (K + 1)} channels) precision=2: {eig_vis.shape} {eig_vis.dtype}, finite; "
+          f"{eig_blocks} source blocks; launches {got}; wall first {first:.3f} s, second "
+          f"{second:.3f} s", flush=True)
 
     # Per-antenna type-3 at reduced depth: one spread a block for all the
     # pairs' channels, one interpolation a pair.
@@ -1495,6 +1760,16 @@ def main() -> int:
               f"{ORACLE_GATE[precision]:.0e})", flush=True)
         if not err <= ORACLE_GATE[precision]:
             raise AssertionError(f"{label} misses its accuracy gate")
+    # The eigen row on every baseline: the direct path runs the same basis
+    # semantics (the k <= l list with transpose reuse) on the CPU.
+    t0 = time.perf_counter()
+    oracle = direct_oracle(eig)
+    err = max_rel(eig_vis, oracle)
+    print(f"[5] eigen row precision=2 vs fp64 direct ({oracle.shape[-1]} baselines, "
+          f"{time.perf_counter() - t0:.3f} s on the CPU): max err {err:.3e} of max|V| (gate "
+          f"{ORACLE_GATE[2]:.0e})", flush=True)
+    if not err <= ORACLE_GATE[2]:
+        raise AssertionError("the eigen row misses its accuracy gate")
 
     if "--profile" in sys.argv[1:]:
         profile_runs(cfg, ns)
@@ -1508,6 +1783,7 @@ def main() -> int:
     pipelined("north-star precision=1", dict(ns, precision=1))
     pipelined(f"gridded row hex-{len(cfg['ants'])} unpolarized precision=2",
               gridded_row_config(cfg))
+    pipelined(f"eigen row hex-{len(eig['ants'])} K={len(eig['beam'])} precision=2", eig)
     chunked(ns, counters, ns_vis[1])
     sync_count(ns)
 

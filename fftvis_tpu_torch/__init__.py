@@ -8,6 +8,7 @@ use). It imports torch and NumPy, never JAX and never ``fftvis_tpu``.
 
 from . import beams, coords, geometry, nufft
 from .coords import TelescopeLocation
+from .core.beam_basis import compute_beam_basis
 from .core.simulate import SimulationEngine, default_accuracy_dict
 from .cuda.engine import CUDASimulationEngine, VisibilityFuture, cache_stats, clear_caches
 from .wrapper import simulate_vis
@@ -20,6 +21,7 @@ __all__ = [
     "beams",
     "cache_stats",
     "clear_caches",
+    "compute_beam_basis",
     "coords",
     "default_accuracy_dict",
     "geometry",

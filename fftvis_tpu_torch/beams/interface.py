@@ -2,7 +2,9 @@
 
 The port of ``fftvis_tpu/beams/interface.py``: ``BeamInterface`` wraps an
 analytic beam, a :class:`~fftvis_tpu_torch.beams.gridded.GriddedBeam` or a
-(duck-typed) UVBeam; ``PowerBeam`` / ``prepare_beam_unpolarized`` turn it
+(duck-typed) UVBeam and evaluates it on the host in the UVBeam layout
+(``compute_response``, which ``compute_beam_basis`` calls);
+``PowerBeam`` / ``prepare_beam_unpolarized`` turn it
 into a single-feed power beam (matvis's prepare_beam_unpolarized); and
 :func:`prepare_beam` compiles it into a :class:`PreparedBeam` whose
 ``rows`` and ``evaluate`` run on tensors inside the engine's loop.
@@ -68,6 +70,30 @@ class BeamInterface:
         else:
             raise TypeError(f"Unsupported beam object: {type(beam)}")
         self.beam_type = beam_type or getattr(self.beam, "beam_type", "efield")
+
+    @property
+    def _isuvbeam(self) -> bool:
+        """True when the underlying beam is tabulated (UVBeam-like)."""
+        return isinstance(self.beam, GriddedBeam)
+
+    def compute_response(self, az_array, za_array, freq_array, spline_opts: dict | None = None,
+                         interpolation_function: str = "az_za_map_coordinates",
+                         **kwargs) -> np.ndarray:
+        """Host-side response evaluation with the UVBeam output layout:
+        (Naxes_vec, Nfeeds, Nfreqs, Nsrc) complex for an efield beam, (1, 1,
+        Nfreqs, Nsrc) real for a power beam. The beam is prepared in
+        float64 on the CPU, as the JAX package pins its evaluation to the
+        CPU, and the result comes back as a NumPy array."""
+        freq_array = np.atleast_1d(np.asarray(freq_array, dtype=float))
+        efield = self.beam_type == "efield"
+        prepared = prepare_beam(self, freq_array, polarized=efield, spline_opts=spline_opts,
+                                interpolation_function=interpolation_function,
+                                dtype=torch.float64, device="cpu")
+        az = torch.as_tensor(np.asarray(az_array, dtype=float))
+        za = torch.as_tensor(np.asarray(za_array, dtype=float))
+        out = np.stack([prepared.evaluate(az, za, float(f), fi).numpy()
+                        for fi, f in enumerate(freq_array)])  # (nfreq, ..., nsrc)
+        return np.moveaxis(out, 0, 2) if efield else out[None, None]
 
 
 class PowerBeam:

@@ -2,10 +2,15 @@
 
 The port of ``TPUSimulationEngine`` (``fftvis_tpu/tpu/engine.py``): eps
 floor, baselines, the antenna-to-beam mapping and its beam-pair routing (one
-shared beam, or per-antenna beams with ``beam_idx``), horizon cull,
-transform planning, source blocks, beam preparation, device inputs, and
-``_assemble_output``'s layout: (nfreq, ntimes, nbl), or (nfreq, ntimes,
-nfeeds, nfeeds, nbl) when polarized.
+shared beam, or per-antenna beams with ``beam_idx``) or eigenbeam basis
+(``beam_coefs``), horizon cull, transform planning, source blocks, beam
+preparation, device inputs, and ``_assemble_output``'s layout: (nfreq,
+ntimes, nbl), or (nfreq, ntimes, nfeeds, nfeeds, nbl) when polarized.
+
+Auto-rank (``core/auto_rank.py``) replaces a polarized per-antenna list of
+8 beam pairs or more with K eigenbeams and per-antenna coefficients when
+eps >= 1e-9 and an SVD of the tables reaches eps / 8 with at most half the
+channels, as the JAX engine does; ``FFTVIS_AUTO_RANK=0`` turns it off.
 
 Its host layer keeps what a sweep of calls on one configuration shares, each
 cache keyed on the content of everything that changes its entries:
@@ -17,17 +22,15 @@ cache keyed on the content of everything that changes its entries:
 - :data:`PROGRAM_CACHE`: the device routing tables, the coordinate matrix
   and the direct path's targets;
 - :data:`INPUT_CACHE`, the JAX ``_INPUT_CACHE``: the device inputs;
-- the prepared-beam and stacked-table caches of ``beams/interface.py``.
+- the prepared-beam and stacked-table caches of ``beams/interface.py``, and
+  auto-rank's plans and declines (``core/auto_rank.py``).
 
 A call hashes each user array at most once (``consistent_inputs``), enqueues
 the device loop and the copy of its output into pinned host memory, and
 returns a :class:`VisibilityFuture` (``async_fetch``) or its result.
 ``nchunks`` caps the source block at ``ceil(nsrc / nchunks)``. The JAX
-engine's banding, eigenbeams (given ``beam_coefs``, or its auto-rank
-substitution of a per-antenna list) and meshes are later ROADMAP items; a
-per-antenna list runs the exact pair routing, the reference's semantics.
-Whatever the port leaves out raises ``NotImplementedError`` instead of
-running another path.
+engine's banding and meshes are later ROADMAP items. Whatever the port
+leaves out raises ``NotImplementedError`` instead of running another path.
 """
 
 from __future__ import annotations
@@ -42,11 +45,13 @@ import numpy as np
 import torch
 
 from ..beams import interface
-from ..beams.interface import prepare_beams
+from ..beams.interface import BeamInterface, prepare_beams
 from ..coords.erfa_lite import TelescopeLocation, times_to_jd
 from ..coords.rotation import SourceRotation
+from ..core import auto_rank
 from ..core import coherency as coh_mod
 from ..core import utils as core_utils
+from ..core.auto_rank import plan_auto_rank
 from ..core.beams import plan_beam_pairs
 from ..core.hashing import LRUCache, consistent_inputs, hash_parts
 from ..core.simulate import SimulationEngine, default_accuracy_dict, resolve_precision
@@ -78,7 +83,8 @@ INPUT_CACHE = LRUCache(32)
 
 def _caches() -> dict:
     return {"plan": PLAN_CACHE, "program": PROGRAM_CACHE, "input": INPUT_CACHE,
-            "prepared": interface.PREPARED_CACHE, "stack": interface.STACK_CACHE}
+            "prepared": interface.PREPARED_CACHE, "stack": interface.STACK_CACHE,
+            "autorank": auto_rank.AUTORANK_CACHE}
 
 
 def cache_stats() -> dict:
@@ -206,8 +212,6 @@ class CUDASimulationEngine(SimulationEngine):
         beam_coefs: np.ndarray | None = None,
         nchunks: int = 1,
     ) -> VisibilityFuture:
-        if beam_coefs is not None:
-            raise NotImplementedError("eigenbeam beam_coefs are ROADMAP item 7")
         beam_idx = core_utils.validate_beam_idx(beam_idx, beam_coefs, len(beam_list),
                                                 len(ants))
         coord_method_params = coord_method_params or {}
@@ -243,15 +247,54 @@ class CUDASimulationEngine(SimulationEngine):
                 red[0] for red in core_utils.get_pos_reds(ants, include_autos=True)])
         nbl = len(baselines)
         bl_index = _baseline_index(antnums, baselines)
-        pp_key = hash_parts(("pairs-v1", tuple(map(repr, antnums)), bl_index,
-                             None if beam_idx is None else np.asarray(beam_idx)))
-        pair_plan, flipped_global = PLAN_CACHE.get_or_build(
-            pp_key, lambda: _pair_plan(antnums, baselines, beam_idx, nbl))
-        pad_routing, m_max = pair_routing(pair_plan, nbl)
-
         fluxes_arr = np.asarray(fluxes)
         polarized_sky = coh_mod.classify_sky(fluxes_arr, polarized_beam=polarized)
         nfeeds = 2 if polarized else 1
+
+        # Pair routing, or an eigenbeam basis: the arguments of its Basis,
+        # (kl_pairs, kl_sym, bl_index, flip_transpose).
+        basis = pp_key = pair_plan = None
+        if beam_coefs is not None:
+            # User coefficients follow the reference's basis semantics: the
+            # k <= l half-list with transpose reuse and no flip bookkeeping.
+            K = len(beam_list)
+            basis = ([(k, l) for k in range(K) for l in range(k, K)], True, bl_index, None)
+        else:
+            pp_key = hash_parts(("pairs-v1", tuple(map(repr, antnums)), bl_index,
+                                 None if beam_idx is None else np.asarray(beam_idx)))
+            pair_plan, flipped_global = PLAN_CACHE.get_or_build(
+                pp_key, lambda: _pair_plan(antnums, baselines, beam_idx, nbl))
+            arp = None
+            if (polarized and pair_plan.npairs >= 8 and eps >= 1e-9
+                    and os.environ.get("FFTVIS_AUTO_RANK", "") != "0"):
+                arp = plan_auto_rank(beam_list, tol=eps / 8.0, npairs=pair_plan.npairs,
+                                     allow_sym=not polarized_sky)
+            if arp is not None:
+                logger.info(
+                    "auto-rank: %d-pair per-antenna routing compressed to K=%d eigenbeams "
+                    "(%d -> %d channels, %s channel list, residual %.2e)",
+                    pair_plan.npairs, arp.K, pair_plan.npairs * nfeeds**2,
+                    len(arp.kl_pairs) * nfeeds**2,
+                    "symmetric" if arp.kl_sym else "ordered", arp.residual,
+                )
+                beam_list = [BeamInterface(eb) for eb in arp.eigenbeams]
+                # A transparent substitute for the pair routing: on the
+                # baselines it flipped, the reference's convention (the
+                # conjugate without a feed swap) is the feed transpose of
+                # the basis result.
+                basis = (arp.kl_pairs, arp.kl_sym, bl_index, flipped_global)
+                beam_coefs = np.repeat(
+                    arp.coefs[np.asarray(beam_idx)][:, :, None].astype(np.complex128),
+                    freqs.size, axis=2)
+        if basis is None:
+            npairs = pair_plan.npairs
+            pad_routing, m_max = pair_routing(pair_plan, nbl)
+        else:
+            npairs, pad_routing, m_max = len(basis[0]), False, 0
+            flipped_global = np.zeros(nbl, dtype=bool)  # every baseline as given
+        # What the plan and program tables depend on beyond the pair plan.
+        basis_key = None if basis is None else ("basis-v1", tuple(map(tuple, basis[0])),
+                                                basis[1], basis[3])
 
         include_ab = coord_method_params.get("include_aberration", True)
         rot_key = hash_parts((
@@ -266,18 +309,19 @@ class CUDASimulationEngine(SimulationEngine):
         plan_key = hash_parts((
             "plan-v1", antpos, bl_index, float(np.max(freqs)), float(eps),
             float(upsample_factor), float(flat_array_tol), bool(force_use_type3),
-            flipped_global, nsrc, nfeeds, pair_plan.npairs, self.nufft_mode,
+            flipped_global, nsrc, nfeeds, npairs, self.nufft_mode,
             str(dev), str(real_dtype), os.environ.get("FFTVIS_TYPE1", "auto"),
+            basis_key, os.environ.get("FFTVIS_AUTO_RANK", ""),
         ))
         plan = PLAN_CACHE.get_or_build(plan_key, lambda: plan_transform(
             self.nufft_mode, ants, baselines, freqs, eps, upsample_factor,
             flat_array_tol, force_use_type3, flipped_global, nbl, nsrc,
-            nfeeds=nfeeds, npairs=pair_plan.npairs, device=dev,
+            nfeeds=nfeeds, npairs=npairs, device=dev,
         ))
-        C = pair_plan.npairs * nfeeds**2
+        C = npairs * nfeeds**2
         nchunks = max(1, min(int(nchunks), nsrc))
-        block = min(source_block(plan, C, nbl, pair_plan.npairs, pad_routing, m_max,
-                                 complex_dtype), -(-nsrc // nchunks))
+        block = min(source_block(plan, C, nbl, npairs, pad_routing, m_max, complex_dtype),
+                    -(-nsrc // nchunks))
         if plan.mode == "type3":
             # The fine grid of every channel, and the FFT's output beside it.
             grid_bytes = C * int(np.prod(plan.executor.plan.nf)) * complex_dtype.itemsize
@@ -288,11 +332,17 @@ class CUDASimulationEngine(SimulationEngine):
             beam_list, freqs, polarized, spline_opts=beam_spline_opts,
             interpolation_function=interpolation_function, dtype=real_dtype, device=dev,
         )
-        # plan_key holds the device and the dtype.
+        # plan_key holds the device, the dtype and the basis.
         routing, coord, targets = PROGRAM_CACHE.get_or_build(
             hash_parts(("program-v1", plan_key, pp_key)),
             lambda: device_tables(plan, pair_plan, flipped_global, pad_routing, m_max,
-                                  real_dtype, dev))
+                                  real_dtype, dev, basis=basis))
+
+        def upload(key_parts, build, dtype):
+            key = hash_parts(key_parts + (str(dtype), str(dev)))
+            return INPUT_CACHE.get_or_build(
+                key, lambda: torch.tensor(build(), dtype=dtype, device=dev))
+
         cfg = ProgramConfig(
             plan=plan,
             rows=BlockRows(prepared, routing, polarized, polarized_sky, complex_dtype),
@@ -305,12 +355,12 @@ class CUDASimulationEngine(SimulationEngine):
             real_dtype=real_dtype,
             complex_dtype=complex_dtype,
             polarized=polarized,
+            # Copied to the device at dispatch: the caller may then change
+            # its array in place without changing this call's result.
+            coefs=None if basis is None else upload(
+                ("coefs", np.asarray(beam_coefs)), lambda: np.asarray(beam_coefs),
+                complex_dtype),
         )
-
-        def upload(key_parts, build, dtype):
-            key = hash_parts(key_parts + (str(dtype), str(dev)))
-            return INPUT_CACHE.get_or_build(
-                key, lambda: torch.tensor(build(), dtype=dtype, device=dev))
 
         abvel = upload(("abvel", rot.aberration, rot.ntimes), lambda: (
             rot.aberration if rot.aberration is not None else np.zeros((rot.ntimes, 3))),

@@ -1,9 +1,11 @@
 """The simulation loop nest on the device.
 
 The port of ``build_program`` (``fftvis_tpu/tpu/program.py``) without its
-eigenbeam basis, double-single, banding and mesh paths: unpolarized (one
-feed) and polarized (two feeds), one shared beam or per-antenna beams
-routed by beam pair, on the direct, type-3 and exact type-1 transforms.
+double-single, banding and mesh paths: unpolarized (one feed) and polarized
+(two feeds), one shared beam, per-antenna beams routed by beam pair, or an
+eigenbeam basis (given ``beam_coefs``, or auto-rank's substitute for a
+per-antenna list) contracted with its coefficients on the device, on the
+direct, type-3 and exact type-1 transforms.
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` nest over (times,
 freqs, source blocks) becomes Python loops over tensors:
 
@@ -18,7 +20,7 @@ freqs, source blocks) becomes Python loops over tensors:
                 the mode gather (type-1), per pair or batched over the
                 padded routing; flip conjugation without a feed swap, the
                 reference's feed transpose, the inverse permutation of the
-                pair routing
+                pair routing; or the basis contraction
 
 Ragged last blocks are simply shorter: eager tensors need no padding.
 """
@@ -38,6 +40,46 @@ from ..nufft.direct import direct_type3
 from .planning import SimPlan
 
 
+class Basis:
+    """The eigenbeam basis of a call, the ``use_basis`` branch of
+    ``build_program`` (``fftvis_tpu/tpu/program.py``): channel pair p is
+    eigenbeams (k, l) = ``kl_pairs[p]``, computed at every baseline, and
+    :meth:`contract` weighs it by the antennas' coefficients. With ``sym``
+    (the k <= l half-list) the (l, k) channel is the feed transpose of (k,
+    l); ``flip_transpose`` marks the baselines whose result is
+    feed-transposed (auto-rank's stand-in for the pair routing's flips), or
+    is None. The index tensors go to ``device`` once."""
+
+    def __init__(self, kl_pairs, sym: bool, bl_index: np.ndarray, flip_transpose, device):
+        dev = torch.device(device)
+        self.kl_pairs = tuple(tuple(p) for p in kl_pairs)
+        self.sym = sym
+        pairs = np.asarray(self.kl_pairs, dtype=np.int64).reshape(-1, 2)
+        self.k, self.l = (torch.as_tensor(pairs[:, c].copy(), device=dev) for c in (0, 1))
+        self.offdiag = torch.as_tensor(pairs[:, 0] != pairs[:, 1], device=dev)
+        self.ant1, self.ant2 = (torch.as_tensor(bl_index[:, c].copy(), device=dev)
+                                for c in (0, 1))
+        self.transpose = None
+        if flip_transpose is not None and flip_transpose.any():
+            self.transpose = torch.tensor(flip_transpose, device=dev)
+
+    def contract(self, per_pair, coefs, fi: int) -> torch.Tensor:
+        """(P, nfeeds, nfeeds, nbl) channel visibilities -> (nbl, g, f)
+        visibilities: ``sum_p conj(c[ant1, k_p]) c[ant2, l_p] V_p^T``, plus
+        with ``sym`` the transposed (l, k) term of every off-diagonal pair,
+        then the feed swap of the ``flip_transpose`` baselines. ``coefs``
+        (nant, K, nfreq) on the device, in the output's dtype."""
+        c = coefs[:, :, fi]
+        c1, c2 = torch.conj(c[self.ant1]), c[self.ant2]  # (nbl, K)
+        vis = torch.einsum("bp,pfgb->bgf", c1[:, self.k] * c2[:, self.l], per_pair)
+        if self.sym:
+            w_lk = c1[:, self.l] * c2[:, self.k] * self.offdiag
+            vis = vis + torch.einsum("bp,pfgb->bfg", w_lk, per_pair)
+        if self.transpose is not None:
+            vis = torch.where(self.transpose[:, None, None], vis.transpose(1, 2), vis)
+        return vis
+
+
 class Routing:
     """The pair routing of baselines, the tables of ``build_program``
     (``fftvis_tpu/tpu/program.py``): pair p covers the baselines
@@ -46,23 +88,29 @@ class Routing:
     longest, ``m_max``: ``sel_pad`` (P, m_max), ``flip_pad`` the padded
     flip flags and ``src_pos`` every baseline's slot in the (P * m_max)
     padded order; ``pair_i``, ``pair_j`` the pairs' beam indices (int32).
-    Built on the host; the index tensors the device reads are copied to
-    ``device`` once, and the engine keeps them across calls."""
+    With a :class:`Basis` (and no pair plan) the pairs are its eigenbeam
+    pairs, every one at every baseline. Built on the host; the index
+    tensors the device reads are copied to ``device`` once, and the engine
+    keeps them across calls."""
 
-    def __init__(self, pair_plan: BeamPairPlan, flipped: np.ndarray, pad: bool,
-                 m_max: int, device):
+    def __init__(self, pair_plan: BeamPairPlan | None, flipped: np.ndarray, pad: bool,
+                 m_max: int, device, basis: Basis | None = None):
         self.pair_plan = pair_plan
-        self.npairs = pair_plan.npairs
+        self.basis = basis
+        self.pairs = list(basis.kl_pairs if basis is not None else pair_plan.pairs)
+        self.npairs = len(self.pairs)
         self.pad = pad
         self.m_max = m_max
         nbl = flipped.size
         dev = torch.device(device)
         self.pair_i, self.pair_j = (
-            torch.tensor([p[k] for p in pair_plan.pairs], dtype=torch.int32, device=dev)
+            torch.tensor([p[k] for p in self.pairs], dtype=torch.int32, device=dev)
             for k in (0, 1))
         self.flipped = torch.tensor(flipped, device=dev)
-        sel_concat = np.concatenate([np.asarray(s, dtype=np.int64) for s in pair_plan.bls_idxs])
         self.inv_perm = None
+        if basis is not None:
+            return
+        sel_concat = np.concatenate([np.asarray(s, dtype=np.int64) for s in pair_plan.bls_idxs])
         if not np.array_equal(sel_concat, np.arange(nbl)):
             inv_perm = np.empty(nbl, dtype=np.int64)
             inv_perm[sel_concat] = np.arange(nbl, dtype=np.int64)
@@ -83,7 +131,9 @@ class Routing:
 
     @property
     def multi(self) -> bool:
-        return self.npairs > 1
+        """Whether pairs cover their own baselines (a basis computes every
+        channel at every baseline)."""
+        return self.basis is None and self.npairs > 1
 
 
 class BlockRows:
@@ -100,6 +150,9 @@ class BlockRows:
       ``pair_rows`` kernel;
     - any other list (analytic and tabulated mixed): each beam's response,
       as channels, then ``pair_rows``.
+
+    An eigenbeam basis runs the same way on its K eigenbeams and (k, l)
+    pairs.
     """
 
     def __init__(self, prepared: list, routing: Routing, polarized: bool,
@@ -110,7 +163,7 @@ class BlockRows:
         self.complex_dtype = complex_dtype
         self.single = None
         self.stacked = None
-        pairs = routing.pair_plan.pairs
+        pairs = routing.pairs
         if len(pairs) == 1 and pairs[0][0] == pairs[0][1]:
             self.single = prepared[pairs[0][0]]
             return
@@ -151,20 +204,25 @@ class ProgramConfig:
     real_dtype: torch.dtype
     complex_dtype: torch.dtype
     polarized: bool = False
+    # An eigenbeam basis's (nant, K, nfreq) coefficients on the device, in
+    # complex_dtype; None without a basis.
+    coefs: torch.Tensor | None = None
 
     @property
     def nfeeds(self) -> int:
         return 2 if self.polarized else 1
 
 
-def device_tables(plan: SimPlan, pair_plan: BeamPairPlan, flipped: np.ndarray, pad: bool,
-                  m_max: int, real_dtype: torch.dtype, device):
+def device_tables(plan: SimPlan, pair_plan: BeamPairPlan | None, flipped: np.ndarray,
+                  pad: bool, m_max: int, real_dtype: torch.dtype, device, basis=None):
     """What the loop reads besides the inputs, on ``device``, once a
-    configuration: the :class:`Routing`, the coordinate matrix and, on the
-    direct path, the signed targets as the routing reads them -- (d, nbl);
-    (d, P, m_max) padded; or one (d, m_p) a pair -- else None."""
+    configuration: the :class:`Routing` (of ``basis``, the arguments of a
+    :class:`Basis`, when given), the coordinate matrix and, on the direct
+    path, the signed targets as the routing reads them -- (d, nbl); (d, P,
+    m_max) padded; or one (d, m_p) a pair -- else None."""
     dev = torch.device(device)
-    r = Routing(pair_plan, flipped, pad, m_max, dev)
+    r = Routing(pair_plan, flipped, pad, m_max, dev,
+                basis=None if basis is None else Basis(*basis, dev))
     coord = torch.tensor(plan.coord_matrix, dtype=real_dtype, device=dev)
     targets = None
     if plan.mode == "direct":
@@ -197,10 +255,11 @@ def _direct_block(cfg: ProgramConfig, acc, x, rows, targets):
     return acc
 
 
-def _assemble(cfg: ProgramConfig, acc) -> torch.Tensor:
+def _assemble(cfg: ProgramConfig, acc, fi: int) -> torch.Tensor:
     """One (time, freq)'s accumulator -> (nbl, g, f) visibilities: the
     transform's last steps, flip conjugation without a feed swap, the
-    reference's feed transpose and the routing's inverse permutation."""
+    reference's feed transpose and the routing's inverse permutation; or a
+    basis's contraction with the coefficients of frequency ``fi``."""
     plan, r, nf = cfg.plan, cfg.routing, cfg.nfeeds
     nf2 = nf * nf
     ex = plan.executor
@@ -209,6 +268,8 @@ def _assemble(cfg: ProgramConfig, acc) -> torch.Tensor:
             acc = ex.interpolate(ex.transform(acc))
         elif plan.mode == "type1":
             acc = ex.gather(ex.transform(acc))
+        if r.basis is not None:  # no flips: every channel at every baseline
+            return r.basis.contract(acc.reshape(r.npairs, nf, nf, cfg.nbl), cfg.coefs, fi)
         out = torch.where(r.flipped[None, :], torch.conj(acc), acc)
         return out.reshape(nf, nf, cfg.nbl).permute(2, 1, 0)
     if r.pad and plan.mode != "type3":
@@ -284,5 +345,5 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
                     acc = _direct_block(cfg, acc, x, rows, targets)
                 else:
                     plan.executor.spread(x, rows, grid=acc)
-            vis[t, fi] = _assemble(cfg, acc).permute(1, 2, 0)
+            vis[t, fi] = _assemble(cfg, acc, fi).permute(1, 2, 0)
     return vis

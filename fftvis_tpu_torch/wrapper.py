@@ -3,11 +3,11 @@
 The signature is that of ``fftvis_tpu.simulate_vis`` (itself the reference
 fftvis/matvis wrapper's) plus ``device``, the torch device the simulation
 runs on. The port simulates unpolarized and polarized visibilities of a
-coplanar array with one beam shared by all antennas or per-antenna beams
-(a beam list and ``beam_idx``), analytic or tabulated; a gridded array
-takes the exact type-1 transform. What it leaves out raises
-``NotImplementedError`` naming its ROADMAP item, and nothing falls back to
-another path.
+coplanar array with one beam shared by all antennas, per-antenna beams
+(a beam list and ``beam_idx``) or an eigenbeam basis (``beam_coefs``),
+analytic or tabulated; a gridded array takes the exact type-1 transform.
+What it leaves out raises ``NotImplementedError`` naming its ROADMAP item,
+and nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -28,9 +28,8 @@ def prepare_beam_list(beam, freqs, polarized, beam_coefs, use_feed, nant, beam_i
     """Normalize user beams into a validated ``BeamInterface`` list and
     ``beam_idx`` (the JAX wrapper's ``prepare_beam_list``): wrap each beam,
     put tabulated beams on the simulation frequencies, convert to power
-    beams for unpolarized runs. ``beam_coefs`` (eigenbeams) raise."""
-    if beam_coefs is not None:
-        raise NotImplementedError("eigenbeam beam_coefs are ROADMAP item 7")
+    beams for unpolarized runs. Eigenbeams with ``beam_coefs`` must be
+    polarized and take no ``beam_idx``."""
     beams = beam if isinstance(beam, list) else [beam]
     beam_idx = validate_beam_idx(beam_idx, beam_coefs, len(beams), nant)
     beam_list = []
@@ -41,6 +40,11 @@ def prepare_beam_list(beam, freqs, polarized, beam_coefs, use_feed, nant, beam_i
         # the JAX wrapper does.
         if isinstance(bi.beam, GriddedBeam) and bi.beam.Nfreqs > 1:
             bi = BeamInterface(bi.beam.interp_freq(freqs), beam_type=bi.beam_type)
+        if not polarized and beam_coefs is not None:
+            raise ValueError(
+                "Basis decomposition is not compatible with unpolarized "
+                "simulations. Set polarized=True to use beam_coefs."
+            )
         beam_list.append(bi if polarized else prepare_beam_unpolarized(bi, use_feed=use_feed))
     return beam_list, beam_idx
 
@@ -109,13 +113,17 @@ def simulate_vis(
     ``backend``.
 
     ``beam`` may be a list with ``beam_idx`` mapping antennas to it
-    (inferred when the list has one beam or one per antenna). Baselines are
-    routed by beam pair, and a per-antenna list always runs the exact pair
-    routing: the JAX package's eigenbeam (auto-rank) substitution is not
-    ported. Raises ``NotImplementedError`` for ``beam_coefs`` (ROADMAP item
-    7), ``mesh`` (item 10), non-coplanar arrays, and gridded arrays the
-    exact type-1 transform does not take (or under ``FFTVIS_TYPE1=es``)
-    unless type-3 is forced.
+    (inferred when the list has one beam or one per antenna), or K
+    eigenbeams (``compute_beam_basis``) with ``beam_coefs`` (nant, K,
+    nfreq), polarized only. Baselines are routed by beam pair. Auto-rank, as
+    in the JAX package: a polarized per-antenna list of 8 beam pairs or more
+    at an eps of 1e-9 or more is replaced by K eigenbeams and per-antenna
+    coefficients when an SVD of its tables reaches a residual of ``eps / 8``
+    with at most half the channels (logged at INFO;
+    ``FFTVIS_AUTO_RANK=0`` turns it off). Raises ``NotImplementedError``
+    for ``mesh`` (ROADMAP item 10), non-coplanar arrays, and gridded arrays
+    the exact type-1 transform does not take (or under
+    ``FFTVIS_TYPE1=es``) unless type-3 is forced.
 
     Plans, device tables, device inputs and prepared beams are kept across
     calls under content keys (``cuda/engine.py``), so a sweep over one
@@ -166,6 +174,7 @@ def simulate_vis(
         coord_method=coord_method,
         coord_method_params=coord_method_params,
         force_use_type3=force_use_type3,
+        beam_coefs=beam_coefs,
     )
 
 

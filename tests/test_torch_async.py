@@ -3,7 +3,7 @@
 The JAX package's future tests (``tests/test_wrapper.py``,
 ``tests/test_batched_paths.py``) on the port, at their small sizes, with
 the same seeded inputs through ``fftvis_tpu`` beside them: the port agrees
-with it within 1e-9 of max|V| (precision=2; the JAX side with
+with it within 1e-9 of max|V| (precision=2; both sides with
 ``FFTVIS_AUTO_RANK=0``). On the CPU a future comes back resolved; the
 future's own mechanics (the lock, the release after ``result()``, ``done()``
 against a concurrent ``result()``) are held on a pending future built by
@@ -27,7 +27,12 @@ from fftvis_tpu import TelescopeLocation as JaxLocation
 from fftvis_tpu import simulate_vis as jax_simulate_vis
 from fftvis_tpu.beams import GaussianBeam as JaxGaussian
 from fftvis_tpu.beams import GriddedBeam as JaxGridded
-from fftvis_tpu_torch import TelescopeLocation, VisibilityFuture, simulate_vis
+from fftvis_tpu_torch import (
+    TelescopeLocation,
+    VisibilityFuture,
+    compute_beam_basis,
+    simulate_vis,
+)
 from fftvis_tpu_torch.beams import GaussianBeam, GriddedBeam
 from fftvis_tpu_torch.cuda import engine as engine_mod
 
@@ -103,8 +108,8 @@ def test_future_array_copy_semantics():
 def test_async_fetch_snapshots_inputs():
     """Every user array the call reads is consumed at dispatch: mutating
     them in place before result() leaves the result as it was (the JAX
-    package's beam_coefs snapshot test, on the inputs the port takes;
-    beam_coefs itself is ROADMAP item 7)."""
+    package's beam_coefs snapshot test, on the other inputs;
+    ``test_async_fetch_snapshots_beam_coefs`` has beam_coefs)."""
     kw, jkw = _kwargs(np.random.default_rng(9))
     want = simulate_vis(**{k: (v.copy() if isinstance(v, np.ndarray) else v)
                            for k, v in kw.items()})
@@ -114,6 +119,28 @@ def test_async_fetch_snapshots_inputs():
         kw[name] *= 0.5
     kw["ants"][1][:] = 0.0
     np.testing.assert_array_equal(fut.result(), want)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_async_fetch_snapshots_beam_coefs(device):
+    """An eigenbeam call's coefficients go to the device at dispatch: a
+    caller that changes its ``beam_coefs`` in place for the next call while
+    a future is in flight does not change the in-flight result (the JAX
+    package's snapshot of beam_coefs)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw, _ = _kwargs(np.random.default_rng(11), nant=5, nsrc=36, nfreq=1)
+    eig, coefs = compute_beam_basis([_gridded(11.0 + 0.4 * i)[0] for i in range(3)], 1.0e8,
+                                    True)
+    coefs = coefs[np.arange(5) % 3][:, :, None]
+    kw.update(beam=eig, polarized=True, device=device)
+    want = simulate_vis(beam_coefs=coefs.copy(), **kw)
+    live = coefs.copy()
+    fut = simulate_vis(beam_coefs=live, async_fetch=True, **kw)
+    live *= 0.5
+    np.testing.assert_allclose(fut.result(), want, rtol=0,
+                               atol=ORDER_TOL[2] * np.abs(want).max())
+    assert not np.allclose(simulate_vis(beam_coefs=live, **kw), want)
 
 
 def test_async_fetch_immune_to_flux_mutation_after_dispatch():

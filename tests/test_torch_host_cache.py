@@ -7,11 +7,13 @@ that a sweep of ``simulate_vis`` calls shares, on the CPU.
 - a repeated call hits the plan, program, input, prepared-beam and stack
   caches, and its result equals the cold call's and the JAX package's on
   the same seeded inputs (1e-9 of max|V| at precision=2, 1e-4 at
-  precision=1; the JAX side with ``FFTVIS_AUTO_RANK=0``, which keeps a
-  polarized per-antenna list on the pair routing the port runs);
+  precision=1; both sides with ``FFTVIS_AUTO_RANK=0``, which keeps a
+  polarized per-antenna list on the pair routing);
 - every input and knob that changes the result changes a key: after it
   changes, the warm caches give exactly the answer of cold caches (or raise
-  as they do);
+  as they do); auto-rank's knob, the ``beam_coefs`` values and its channel
+  list's kind among them, and a warm auto-ranked call takes its plan and
+  its stacked eigenbeam table from the caches;
 - ``min_chunks`` and ``max_memory`` change the source blocks and not the
   answer: 1e-12 / 1e-5 of max|V| at precision 2 / 1, what another
   summation order gives in the dtype.
@@ -39,7 +41,12 @@ from fftvis_tpu.beams.interface import BeamInterface as JaxBeamInterface
 from fftvis_tpu.beams.interface import prepare_beam_unpolarized as jax_unpolarized
 from fftvis_tpu.core import hashing as jax_hashing
 from fftvis_tpu.core import utils as jax_utils
-from fftvis_tpu_torch import CUDASimulationEngine, TelescopeLocation, simulate_vis
+from fftvis_tpu_torch import (
+    CUDASimulationEngine,
+    TelescopeLocation,
+    compute_beam_basis,
+    simulate_vis,
+)
 from fftvis_tpu_torch.beams import GaussianBeam, GriddedBeam, perturbed_variants, read_beamfits
 from fftvis_tpu_torch.beams import interface
 from fftvis_tpu_torch.beams.interface import (
@@ -68,8 +75,8 @@ ORDER_TOL = {2: 1e-12, 1: 1e-5}
 
 @pytest.fixture(autouse=True)
 def _cold(monkeypatch):
-    """Every test starts from empty caches; the JAX side keeps the pair
-    routing."""
+    """Every test starts from empty caches; both sides keep the pair
+    routing unless a test turns auto-rank on."""
     monkeypatch.setenv("FFTVIS_AUTO_RANK", "0")
     engine_mod.clear_caches()
     yield
@@ -312,12 +319,21 @@ def _knob_inputs(knob):
               freqs=np.array([1.0e8, 1.1e8]), times=JD0 + np.linspace(0, 0.01, 2),
               telescope_loc=TelescopeLocation(*SITE), precision=2)
     mode = "type3"
-    if knob in ("FFTVIS_TYPE1", "beam_idx"):
+    if knob in ("FFTVIS_TYPE1", "beam_idx", "FFTVIS_AUTO_RANK", "kl_sym"):
         ants = hex_array(2)
         kw.update(ants=ants, polarized=True, fluxes=kw["fluxes"][:, :1],
                   freqs=kw["freqs"][:1])
         mode = "auto"
-    if knob in ("data_array", "uvbeam", "beam_idx", "FFTVIS_TYPE1", "polarized"):
+    if knob in ("FFTVIS_AUTO_RANK", "kl_sym"):
+        # 7 beams of a near-low-rank family on all 28 baselines i <= j, so
+        # 28 pairs: auto-rank engages.
+        kw.update(beam=_gaussian_tables(7), beam_idx=np.arange(7), eps=1e-6,
+                  baselines=[(i, j) for i in range(7) for j in range(i, 7)])
+    elif knob == "beam_coefs":
+        eig, coefs = compute_beam_basis(_gaussian_tables(3), 1.0e8, True)
+        kw.update(beam=eig, beam_coefs=coefs[np.arange(5) % 3][:, :, None].copy(),
+                  polarized=True, fluxes=kw["fluxes"][:, :1], freqs=kw["freqs"][:1])
+    elif knob in ("data_array", "uvbeam", "beam_idx", "FFTVIS_TYPE1", "polarized"):
         kw["beam"] = perturbed_variants(read_beamfits(ASSET), 2)
         kw["beam_idx"] = np.arange(len(kw["ants"])) % 2
         kw["fluxes"], kw["freqs"] = kw["fluxes"][:, :1], kw["freqs"][:1]
@@ -339,6 +355,12 @@ def _knob_inputs(knob):
             axis2_array=b.axis2_array, freq_array=b.freq_array, beam_type=b.beam_type,
             feed_array=np.array(b.feeds)), kw["beam"][1]]
     return CUDASimulationEngine(nufft_mode=mode, device="cpu"), kw
+
+
+def _gaussian_tables(n):
+    """GaussianBeam(14 + 0.02 i) tabulated on one (16, 31) grid."""
+    return [GriddedBeam.from_function(GaussianBeam(diameter=14.0 + 0.02 * i), n_az=31,
+                                      n_za=16, freqs=(1.0e8,)) for i in range(n)]
 
 
 def _change(knob, kw, monkeypatch):
@@ -376,13 +398,24 @@ def _change(knob, kw, monkeypatch):
         monkeypatch.delenv("FFTVIS_ALLOW_BEAM_CLAMP")
     elif knob == "FFTVIS_BEAM_UPSAMPLE":
         monkeypatch.setenv("FFTVIS_BEAM_UPSAMPLE", "2")
+    elif knob == "FFTVIS_AUTO_RANK":
+        monkeypatch.setenv("FFTVIS_AUTO_RANK", "0")
+    elif knob == "beam_coefs":
+        kw["beam_coefs"][:, 0] *= 1.5  # in place
+    elif knob == "kl_sym":
+        # A polarized sky: auto-rank's ordered list in place of the
+        # symmetric one.
+        stokes = kw["fluxes"]
+        pol = 0.05 * np.random.default_rng(12).uniform(-1, 1, (3,) + stokes.shape)
+        kw["fluxes"] = np.stack([stokes, *pol], axis=-1)
 
 
 def _outcome(engine, kw):
     from fftvis_tpu_torch.wrapper import prepare_beam_list
 
     beams, beam_idx = prepare_beam_list(kw["beam"], kw["freqs"], kw.get("polarized", False),
-                                        None, "x", len(kw["ants"]), kw.get("beam_idx"))
+                                        kw.get("beam_coefs"), "x", len(kw["ants"]),
+                                        kw.get("beam_idx"))
     ekw = {k: v for k, v in kw.items() if k not in ("beam", "beam_idx")}
     try:
         return engine.simulate(beam_list=beams, beam_idx=beam_idx, **ekw)
@@ -392,7 +425,8 @@ def _outcome(engine, kw):
 
 KNOBS = ["fluxes", "ra", "times", "freqs", "ants", "baselines", "beam_idx", "data_array",
          "uvbeam", "eps", "precision", "polarized", "aberration", "FFTVIS_TYPE1",
-         "FFTVIS_ALLOW_BEAM_CLAMP", "FFTVIS_BEAM_UPSAMPLE"]
+         "FFTVIS_ALLOW_BEAM_CLAMP", "FFTVIS_BEAM_UPSAMPLE", "FFTVIS_AUTO_RANK", "beam_coefs",
+         "kl_sym"]
 
 
 @pytest.mark.parametrize("knob", KNOBS)
@@ -402,6 +436,8 @@ def test_cache_key_covers(knob, monkeypatch):
     first."""
     if knob == "FFTVIS_ALLOW_BEAM_CLAMP":
         monkeypatch.setenv("FFTVIS_ALLOW_BEAM_CLAMP", "1")
+    if knob in ("FFTVIS_AUTO_RANK", "kl_sym"):
+        monkeypatch.setenv("FFTVIS_AUTO_RANK", "1")
     engine, kw = _knob_inputs(knob)
     if knob == "baselines":
         kw["baselines"] = [(0, 1), (1, 2), (0, 3), (2, 4), (1, 4)]
@@ -417,6 +453,26 @@ def test_cache_key_covers(knob, monkeypatch):
         return
     np.testing.assert_array_equal(got, want)
     assert got.shape != base.shape or not np.array_equal(got, base)
+
+
+def test_warm_auto_rank_call_reuses_plan_and_stack(monkeypatch):
+    """A repeated auto-ranked call takes its plan from the auto-rank cache
+    (no second SVD) and its stacked eigenbeam table from the stack cache,
+    and gives the cold call's answer."""
+    monkeypatch.setenv("FFTVIS_AUTO_RANK", "1")
+    engine, kw = _knob_inputs("FFTVIS_AUTO_RANK")
+    cold = _outcome(engine, kw)
+    first = engine_mod.cache_stats()
+    assert first["autorank"] == (0, 1) and first["stack"][1] == 1
+    stacks = dict(interface.STACK_CACHE.entries)
+    (table,) = [s.table for s in stacks.values()]
+    assert table.shape[-1] == 3 * 4  # K = 3 real Jones eigenbeams
+    warm = _outcome(engine, kw)
+    stats = engine_mod.cache_stats()
+    assert stats["autorank"] == (1, 1)
+    assert stats["stack"][1] == 1 and stats["stack"][0] > first["stack"][0]
+    assert interface.STACK_CACHE.entries == stacks
+    np.testing.assert_array_equal(warm, cold)
 
 
 @pytest.mark.parametrize("limit", ["min_chunks", "max_memory"])

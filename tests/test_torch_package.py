@@ -4,9 +4,9 @@
 - the NumPy host modules the port copies give exactly the arrays of the
   originals, and its tensor evaluators match the JAX ones;
 - the kernel wrappers refuse what the kernels do not take, and the slice
-  refuses what it leaves out (ES type-1, eigenbeam coefficients, meshes,
-  3D arrays, beam-table upsampling) with ``NotImplementedError``, an
-  asynchronous call at dispatch;
+  refuses what it leaves out (ES type-1, meshes, 3D arrays, beam-table
+  upsampling; on the eigenbeam basis path too) with
+  ``NotImplementedError``, an asynchronous call at dispatch;
 - on a CUDA card (marked ``cuda``; skipped without one), each CUDA kernel
   matches its plain torch version and counts its launches.
 """
@@ -62,7 +62,8 @@ SITE = (np.deg2rad(-30.72), np.deg2rad(21.43), 1000.0)
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, fftvis_tpu_torch, fftvis_tpu_torch.cuda.engine, "
-        "fftvis_tpu_torch._build; "
+        "fftvis_tpu_torch._build, fftvis_tpu_torch.core.auto_rank, "
+        "fftvis_tpu_torch.core.beam_basis; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fftvis_tpu')); print(bad); sys.exit(bool(bad))"
     )
@@ -238,10 +239,17 @@ def test_slice_refuses_what_it_leaves_out(case, monkeypatch):
                   beam=[GaussianBeam(diameter=14.0), GaussianBeam(diameter=12.0)],
                   beam_idx=np.array([0, 1, 0, 1, 0]))
     elif case == "beams":
-        # A beam list as an eigenbeam basis.
-        kw.update(beam=[GaussianBeam(diameter=14.0)] * 2, beam_coefs=np.ones((4, 2, 1)))
+        # An eigenbeam basis on a lattice with ES type-1 asked for.
+        monkeypatch.setenv("FFTVIS_TYPE1", "es")
+        kw.update(ants=hex_array(2), polarized=True, beam_coefs=np.ones((7, 2, 1)),
+                  beam=[GaussianBeam(diameter=14.0), GaussianBeam(diameter=12.0)])
+    elif case == "beam_coefs":
+        # An eigenbeam basis on a non-coplanar array.
+        kw.update(ants={i: np.array([*rng.uniform(-50, 50, 2), rng.uniform(-5, 5)])
+                        for i in range(4)},
+                  force_use_type3=True, polarized=True, beam_coefs=np.ones((4, 1, 1)))
     else:
-        kw[case] = {"beam_coefs": np.ones((4, 1, 1)), "mesh": object()}[case]
+        kw["mesh"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         simulate_vis(**kw)
 

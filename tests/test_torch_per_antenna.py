@@ -17,9 +17,9 @@ relative to max|V|:
 - stacked evaluations and pair rows vs JAX: 1e-6 (float32), 1e-12
   (float64).
 
-The JAX engine swaps a polarized per-antenna list for eigenbeams at 8
-pairs and more (auto-rank, not ported); ``FFTVIS_AUTO_RANK=0`` keeps it
-on the pair routing the port runs.
+Both engines swap a polarized per-antenna list for eigenbeams at 8 pairs
+and more (auto-rank, ``test_torch_auto_rank.py``); ``FFTVIS_AUTO_RANK=0``
+keeps both on the pair routing these cases hold.
 """
 
 from pathlib import Path

@@ -54,8 +54,8 @@ EXEC_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 @pytest.fixture(autouse=True)
 def _pair_routing_on_both_sides(monkeypatch):
-    # The JAX engine's eigenbeam substitution of a per-antenna list (not
-    # ported) stays off: both sides run the pair routing.
+    # The engines' eigenbeam substitution of a per-antenna list (auto-rank,
+    # test_torch_auto_rank.py) stays off: both sides run the pair routing.
     monkeypatch.setenv("FFTVIS_AUTO_RANK", "0")
 
 
