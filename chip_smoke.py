@@ -70,6 +70,12 @@ Phases, one printed line each (any failure raises and exits non-zero):
      float32 and float64, and at auto-rank's channels in float32 (one call
      by CUDA events and its device time alone), beside its operations
      bound and the factored form the port does not take;
+   - spread and interp at the JAX bench's 3D row's own shapes, taken from
+     the port's planner: C*K channels (K Chebyshev z modes of one channel)
+     on its 2D fine grid, float32 at precision 1 (low-rank-z in auto mode)
+     and float64 at precision 2 with type-3 forced, 4096 sources and its
+     14,365 targets; gates 1e-5 / 1e-12 of max|plain|, the kernel alone,
+     the bound and the sparse yardsticks beside each;
 4. run ``simulate_vis`` on the slice configuration -- hex_array(11,
    outriggers=2) with all 63,190 i<=j baselines, the nside=64 HEALPix sky,
    2 frequencies x 3 times, forced type-3 -- with
@@ -104,18 +110,34 @@ Phases, one printed line each (any failure raises and exits non-zero):
      precision 1, 1 frequency x 1 time, type-3 forced through
      ``CUDASimulationEngine(nufft_mode="type3")``: spread, beam_eval and
      pair_rows once a source block, interp once a pair;
+   - the JAX bench's 3D row (``bench.py:494-543``) at its full size:
+     hex_array(8) with seed-23 uniform(-2, 2) m of z scatter, all 14,365
+     i<=j baselines, the nside=64 sky, 2 frequencies x 3 times,
+     GaussianBeam(14), unpolarized; at precision 1 in auto mode (low-rank-z
+     type-3: spread once a source block, interp once a (time, freq)), at
+     precision 2 in auto mode (the direct path: neither) and at precision
+     2 with type-3 forced; its path, K, fine grid and width printed;
+   - the JAX bench's 24h row (``bench.py:731-771``) at its full size:
+     hex_array(8) with its redundant representatives, the nside=128 sky, 24
+     times over one day, 2 frequencies, GaussianBeam(14), precision 2, the
+     exact type-1 path, banded and under ``FFTVIS_BAND=0``: the band plan,
+     and the type-1 products of each run (banded 2 x the active blocks
+     summed over the times, unbanded 2 x 24 x the blocks);
    phase 4 starts from empty caches and ends with the bytes they hold on
    the card;
 5. hold every output against the port's float64 direct path on the CPU,
    where every kernel takes its plain version, on every 32nd baseline
    (the eigen row on all of them, through the same basis contraction;
-   gates 1e-4 at precision 1, 1e-5 at precision 2, relative to max|V|);
+   the 24h row on every 128th, unbanded; gates 1e-4 at precision 1, 1e-5
+   at precision 2, relative to max|V|), and the banded 24h run against its
+   unbanded run on the card (1e-11 of max|V|);
 6. with ``--profile`` only: torch.profiler over one warm call of the
-   analytic p=1, polarized p=1 and p=2, unpolarized tabulated and north
-   star p=2 and p=1 runs (after five timed warm calls each): device busy
-   time, idle share, the count of device kernel launches, and the
-   hand-written kernels' device time and launches; the top device ops of
-   each run go to ``build/profile/profile_<i>.txt``;
+   analytic p=1, polarized p=1 and p=2, unpolarized tabulated, north
+   star p=2 and p=1, 3D row p=1 and 24h row banded and unbanded runs
+   (after five timed warm calls each): device busy time, idle share, the
+   count of device kernel launches, and the hand-written kernels' device
+   time, launches and share of busy; the top device ops of each run go to
+   ``build/profile/profile_<i>.txt``;
 7. the host layer:
    - warm calls: the north star at precision 2 and 1 and the polarized
      tabulated slice at precision 1, from empty caches one cold call and
@@ -138,12 +160,15 @@ Phases, one printed line each (any failure raises and exits non-zero):
    - syncs: the synchronizing CUDA calls of one warm north-star call
      (``torch.cuda.set_sync_debug_mode("warn")``), between dispatch and
      ``result()`` and in ``result()``;
+   - banding: warm walls of the 24h row, banded and unbanded in turns;
 8. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -185,6 +210,14 @@ PA_BEAMS = 4
 # GaussianBeam(13 + 0.05 i) decomposed on a (91, 181) grid, 1 freq x 4 times.
 EIGEN_HEX = 4
 EIGEN_TIMES = 2459863.2 + np.linspace(0, 4 / 60 / 24, 4)
+# The JAX bench's 3D row (bench.py:494-543): (mode, precision) of its runs.
+Z3D_RUNS = (("auto", 1), ("auto", 2), ("type3", 2))
+# The engine's eps at each precision (cuda/engine.py: float32 floored).
+EPS = {1: 5e-7, 2: 1e-13}
+# The JAX bench's 24h row (bench.py:731-771): 24 times over one day.
+OBS24_TIMES = 2459863.2 + np.linspace(0, 1.0, 24)
+# The banded 24h run against its FFTVIS_BAND=0 run, relative to max|V|.
+BAND_TOL = 1e-11
 
 
 def card_line() -> str:
@@ -277,6 +310,29 @@ def device_ms(fn, reps: int = 10) -> float:
             us = getattr(ev, "self_device_time_total", None)
             total += ev.self_cuda_time_total if us is None else us
     return total / reps / 1e3
+
+
+def device_launches(fn, reps: int = 5) -> tuple[float, float]:
+    """(device kernels, their device us) of one call of ``fn``: the
+    device-side profiler events, copies and fills left out, over ``reps``
+    calls after one warm-up (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    count = us = 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.key.startswith(
+                ("Memcpy", "Memset")):
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+            count += ev.count
+    return count / reps, us / reps
 
 
 def bound(nbytes: float, ops: float, name: str) -> tuple[float, str]:
@@ -374,10 +430,11 @@ def spread_sources(case: str, nfy: int, nfx: int, C: int, rng):
 
 
 def check_spread(name, rdt, cdt, grid, w: int, beta: float, C: int, case: str, rng,
-                 label: str = ""):
+                 label: str = "", alone: bool = False):
     """One phase-3 spread case through the wrapper against its plain
     version on the same card tensors; ``sparse.addmm`` beside the uniform
-    case. Returns (err, ms, plain_ms, (bound_ms, bound_by), library_ms)."""
+    case, and with ``alone`` the kernel's own device time. Returns (err, ms,
+    plain_ms, (bound_ms, bound_by), library_ms)."""
     import torch
 
     from fftvis_tpu_torch.nufft import spread as spread_mod
@@ -395,6 +452,10 @@ def check_spread(name, rdt, cdt, grid, w: int, beta: float, C: int, case: str, r
     acc = torch.zeros_like(got)
     ms = cuda_ms(lambda: spread_mod.spread(uy, ux, wts, acc, w, beta), 20)
     plain = cuda_ms(lambda: spread_mod.spread_plain(uy, ux, wts, acc, w, beta), 5)
+    alone_txt = ""
+    if alone:
+        us = kernel_us(lambda: spread_mod.spread(uy, ux, wts, acc, w, beta), "spread_gm")
+        alone_txt = f" (alone {us:.2f} us)"
     del got, acc
     flat_idx = spread_mod.spread_taps(uy, ux, nfy, nfx, w, beta)[0].cpu().numpy()
     (b_ms, b_by), cells = spread_bound(flat_idx, wts, w, name)
@@ -408,13 +469,66 @@ def check_spread(name, rdt, cdt, grid, w: int, beta: float, C: int, case: str, r
             lib_txt = f"; sparse.addmm {lib_ms:.4f} ms (err {lib_err / scale:.1e})"
     print(f"[3] spread {name} {case}{label}: grid ({nfy}, {nfx}) w={w} n={SPREAD_SOURCES} "
           f"C={C}: max err {err:.3e} = {err / scale:.3e} of max|plain|; "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"kernel {ms:.4f} ms{alone_txt}, plain {plain:.4f} ms; bound {b_ms:.4f} ms "
           f"({b_by}, {cells} cells){lib_txt or ''}", flush=True)
     if not err <= TOL[name] * scale:
         raise AssertionError(f"spread {name} {case} C={C} disagrees with its plain version")
     del want
     torch.cuda.empty_cache()
     return err, ms, plain, (b_ms, b_by), lib_ms
+
+
+def check_interp(name, rdt, cdt, plan, C: int, rng, label: str = "", alone: bool = False):
+    """One phase-3 interp case: the wrapper on the executor's tables (rows
+    in target order, the order and the footprint runs) against its plain
+    version on the plan's tables, for a random (C, nfy, nfx) grid;
+    ``sparse.mm`` beside it, and with ``alone`` the kernel's own device
+    time. Returns (err, ms, plain_ms, (bound_ms, bound_by), library_ms)."""
+    import torch
+
+    from fftvis_tpu_torch.nufft import interp as interp_mod
+
+    w, (nfy, nfx) = plan.kernel.w, plan.nf
+
+    def dev(a, dtype):
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    iy, ix = (dev(a, torch.int32) for a in plan.tap_idx)
+    vy, vx = (dev(a, rdt) for a in plan.tap_val)
+    order_np = interp_mod.target_order(plan.tap_idx[0][:, 0], plan.tap_idx[1][:, 0])
+    order = dev(order_np, torch.int32)
+    runs = dev(interp_mod.footprint_runs(*(a[order_np] for a in plan.tap_idx)), torch.int32)
+    tabs = [dev(a[order_np], torch.int32) for a in plan.tap_idx]
+    tabs += [dev(a[order_np], rdt) for a in plan.tap_val]
+    G = dev(rng.normal(size=(C, nfy, nfx)) + 1j * rng.normal(size=(C, nfy, nfx)), cdt)
+    got = interp_mod.interp(G, *tabs, order=order, runs=runs)
+    want = interp_mod.interp_plain(G, iy, ix, vy, vx)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    i_err = (got - want).abs().max().item()
+    i_ms = cuda_ms(lambda: interp_mod.interp(G, *tabs, order=order, runs=runs), 20)
+    i_plain = cuda_ms(lambda: interp_mod.interp_plain(G, iy, ix, vy, vx), 5)
+    alone_txt = ""
+    if alone:
+        us = kernel_us(lambda: interp_mod.interp(G, *tabs, order=order, runs=runs),
+                       "interp_runs")
+        alone_txt = f" (alone {us:.2f} us)"
+    (b_ms, b_by), cells = interp_bound(plan.tap_idx[0], plan.tap_idx[1], C, nfx, name)
+    lib_ms, lib_txt = None, ""
+    lib = library(f"interp {name} C={C}", lambda: interp_library(G, iy, ix, vy, vx))
+    if lib is not None:
+        lib_err = (lib().T - want).abs().max().item()
+        lib_ms = cuda_ms(lib, 10)
+        lib_txt = f"; sparse.mm {lib_ms:.4f} ms (err {lib_err / scale:.1e})"
+    print(f"[3] interp {name}{label}: grid ({nfy}, {nfx}) w={w} m={iy.shape[0]} C={C}: "
+          f"max err {i_err:.3e} = {i_err / scale:.3e} of max|plain|; "
+          f"kernel {i_ms:.4f} ms{alone_txt}, plain {i_plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}, {cells} cells){lib_txt}", flush=True)
+    if not i_err <= TOL[name] * scale:
+        raise AssertionError(f"interp {name}{label} C={C} disagrees with its plain version")
+    del G, got, want, lib
+    torch.cuda.empty_cache()
+    return i_err, i_ms, i_plain, (b_ms, b_by), lib_ms
 
 
 def check_nufft_kernels(cfg) -> dict:
@@ -425,7 +539,6 @@ def check_nufft_kernels(cfg) -> dict:
     import torch
 
     from fftvis_tpu_torch.core.utils import speed_of_light
-    from fftvis_tpu_torch.nufft import interp as interp_mod
     from fftvis_tpu_torch.nufft.transform import plan_type3
 
     ants, bls = cfg["ants"], cfg["baselines"]
@@ -440,50 +553,15 @@ def check_nufft_kernels(cfg) -> dict:
         name = str(rdt).split(".")[-1]
         plan = plan_type3(targets, x_extent=x_ext, eps=eps)
         w, beta, (nfy, nfx) = plan.kernel.w, plan.kernel.beta, plan.nf
-
-        def dev(a, dtype):
-            return torch.tensor(a, dtype=dtype, device="cuda")
-
-        iy, ix = (dev(a, torch.int32) for a in plan.tap_idx)
-        vy, vx = (dev(a, rdt) for a in plan.tap_val)
-        # The executor's tables: rows in target order, the order and the runs.
-        order_np = interp_mod.target_order(plan.tap_idx[0][:, 0], plan.tap_idx[1][:, 0])
-        order = dev(order_np, torch.int32)
-        runs = dev(interp_mod.footprint_runs(*(a[order_np] for a in plan.tap_idx)), torch.int32)
-        tabs = [dev(a[order_np], torch.int32) for a in plan.tap_idx]
-        tabs += [dev(a[order_np], rdt) for a in plan.tap_val]
         results[name] = {}
         for C in (1, 4):
             for case in ("uniform", "dense", "half-zero"):
                 row = check_spread(name, rdt, cdt, (nfy, nfx), w, beta, C, case, rng)
                 if case == "uniform" and C == 4:
                     results[name]["spread"] = row
-
-            G = dev(rng.normal(size=(C, nfy, nfx)) + 1j * rng.normal(size=(C, nfy, nfx)), cdt)
-            got = interp_mod.interp(G, *tabs, order=order, runs=runs)
-            want = interp_mod.interp_plain(G, iy, ix, vy, vx)
-            torch.cuda.synchronize()
-            scale = want.abs().max().item()
-            i_err = (got - want).abs().max().item()
-            i_ms = cuda_ms(lambda: interp_mod.interp(G, *tabs, order=order, runs=runs), 20)
-            i_plain = cuda_ms(lambda: interp_mod.interp_plain(G, iy, ix, vy, vx), 5)
-            (b_ms, b_by), cells = interp_bound(plan.tap_idx[0], plan.tap_idx[1], C, nfx, name)
-            lib_ms, lib_txt = None, ""
-            lib = library(f"interp {name} C={C}", lambda: interp_library(G, iy, ix, vy, vx))
-            if lib is not None:
-                lib_err = (lib().T - want).abs().max().item()
-                lib_ms = cuda_ms(lib, 10)
-                lib_txt = f"; sparse.mm {lib_ms:.4f} ms (err {lib_err / scale:.1e})"
-            print(f"[3] interp {name}: grid ({nfy}, {nfx}) w={w} m={iy.shape[0]} C={C}: "
-                  f"max err {i_err:.3e} = {i_err / scale:.3e} of max|plain|; "
-                  f"kernel {i_ms:.4f} ms, plain {i_plain:.4f} ms; bound {b_ms:.4f} ms "
-                  f"({b_by}, {cells} cells){lib_txt}", flush=True)
-            if not i_err <= TOL[name] * scale:
-                raise AssertionError(f"interp {name} C={C} disagrees with its plain version")
+            row = check_interp(name, rdt, cdt, plan, C, rng)
             if C == 4:
-                results[name]["interp"] = (i_err, i_ms, i_plain, (b_ms, b_by), lib_ms)
-            del G, got, want, lib
-            torch.cuda.empty_cache()
+                results[name]["interp"] = row
     return results
 
 
@@ -1271,27 +1349,16 @@ def direct_oracle(kw):
         beam_list=beams, beam_idx=beam_idx, **ekw)
 
 
-def run_per_antenna_type3(kw):
-    """A per-antenna run with type-3 forced, through the engine."""
-    from fftvis_tpu_torch import CUDASimulationEngine
-    from fftvis_tpu_torch.wrapper import prepare_beam_list
-
-    beams, beam_idx = prepare_beam_list(kw["beam"], kw["freqs"], True, None, "x",
-                                        len(kw["ants"]), kw["beam_idx"])
-    ekw = {k: v for k, v in kw.items() if k not in ("beam", "beam_idx")}
-    return CUDASimulationEngine(nufft_mode="type3", device="cuda").simulate(
-        beam_list=beams, beam_idx=beam_idx, **ekw)
-
-
 PROFILE_RUNS = (0, 2, 3, 4)  # RUNS indices: analytic p=1 and the tabulated runs
 KERNEL_NAMES = {"spread": "spread_gm", "interp": "interp_runs", "beam_eval": "beam_eval_points",
                 "beam_rows": "beam_rows_points", "pair_rows": "pair_rows_points"}
 
 
-def profile_runs(cfg, ns) -> None:
+def profile_runs(cfg, ns, z3d, obs) -> None:
     """Phase 6: five timed warm calls, then one profiled call, of each of
-    PROFILE_RUNS and the north-star runs; device time from the profiler's
-    CUDA kernel events."""
+    PROFILE_RUNS, the north-star runs, the 3D row at precision 1 (low-rank
+    z) and the 24h row banded and unbanded; device time from the profiler's
+    CUDA kernel events, and the hand-written kernels' share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1306,18 +1373,23 @@ def profile_runs(cfg, ns) -> None:
     for k, precision in enumerate(NS_PRECISIONS):
         calls.append((len(RUNS) + k, f"north-star precision={precision}",
                       dict(ns, precision=precision)))
+    n = len(RUNS) + len(NS_PRECISIONS)
+    calls.append((n, "3D row precision=1 (low-rank-z)", dict(z3d, precision=1)))
+    calls.append((n + 1, "24h row banded", obs))
+    calls.append((n + 2, "24h row FFTVIS_BAND=0", obs))
     for i, label, kw in calls:
         walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            simulate_vis(device="cuda", **kw)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            simulate_vis(device="cuda", **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        with band_env("FFTVIS_BAND=0" in label):
+            for _ in range(5):
+                t0 = time.perf_counter()
+                simulate_vis(device="cuda", **kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                simulate_vis(device="cuda", **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
         # Device-side events only (kernels, copies, fills): an aten op's
         # row repeats the time of the kernels it launched.
         rows = []
@@ -1332,12 +1404,14 @@ def profile_runs(cfg, ns) -> None:
         rows.sort(reverse=True)
         busy_ms = sum(r[0] for r in rows) / 1e3
         nkernels = sum(c for _, c, key in rows if not key.startswith(("Memcpy", "Memset")))
-        mine = []
+        mine, mine_us = [], 0.0
         for kname, sym in KERNEL_NAMES.items():
             hits = [r for r in rows if sym in r[2]]
             if hits:
                 us, count = sum(r[0] for r in hits), sum(r[1] for r in hits)
+                mine_us += us
                 mine.append(f"{kname} {us / 1e3:.4f} ms / {count} = {us / count:.2f} us")
+        mine.append(f"their share of busy {mine_us / 1e3 / busy_ms:.4f}")
         (out_dir / f"profile_{i}.txt").write_text("".join(
             f"{us / 1e3:10.4f} ms {count:6d}  {key[:160]}\n" for us, count, key in rows[:40]))
         print(f"[6] profile {label}: warm walls "
@@ -1564,6 +1638,332 @@ def sync_count(ns) -> None:
           flush=True)
 
 
+def z3d_config():
+    """The JAX bench's 3D row (bench.py:494-506) at its full size:
+    hex_array(8) with seed-23 uniform(-2, 2) m of z scatter (169 antennas,
+    all 14,365 i <= j baselines), the nside=64 sky, 2 frequencies x 3
+    times, GaussianBeam(14), unpolarized."""
+    from fftvis_tpu_torch import TelescopeLocation
+    from fftvis_tpu_torch.beams import GaussianBeam
+    from fftvis_tpu_torch.geometry import hex_array
+    from fftvis_tpu_torch.utils import healpix_radec
+
+    rng_z = np.random.default_rng(23)
+    ants = {k: np.array([p[0], p[1], rng_z.uniform(-2.0, 2.0)])
+            for k, p in hex_array(8, sep=14.6).items()}
+    keys = list(ants)
+    ra, dec = healpix_radec(64)
+    rng = np.random.default_rng(0)
+    return dict(
+        ants=ants,
+        fluxes=rng.uniform(0.1, 1.0, (ra.size, len(FREQS))),
+        ra=ra,
+        dec=dec,
+        freqs=np.array(FREQS),
+        times=2459863.2 + np.linspace(0, 0.01, 3),
+        telescope_loc=TelescopeLocation(np.deg2rad(LAT), np.deg2rad(LON), ALT),
+        baselines=[(keys[i], keys[j]) for i in range(len(keys)) for j in range(i, len(keys))],
+        beam=GaussianBeam(diameter=14.0),
+        polarized=False,
+    )
+
+
+def obs24_config():
+    """The JAX bench's 24h row (bench.py:738-751) at its full size:
+    hex_array(8) with its redundant representatives, the nside=128 sky
+    (196,608 sources), 24 times over one day, 2 frequencies,
+    GaussianBeam(14), unpolarized, precision 2: the exact type-1 path."""
+    from fftvis_tpu_torch import TelescopeLocation
+    from fftvis_tpu_torch.beams import GaussianBeam
+    from fftvis_tpu_torch.core.utils import get_pos_reds
+    from fftvis_tpu_torch.geometry import hex_array
+    from fftvis_tpu_torch.utils import healpix_radec
+
+    ants = hex_array(8, sep=14.6)
+    ra, dec = healpix_radec(128)
+    rng = np.random.default_rng(0)
+    return dict(
+        ants=ants,
+        fluxes=rng.uniform(0.1, 1.0, (ra.size, len(FREQS))),
+        ra=ra,
+        dec=dec,
+        freqs=np.array(FREQS),
+        times=OBS24_TIMES,
+        telescope_loc=TelescopeLocation(np.deg2rad(LAT), np.deg2rad(LON), ALT),
+        baselines=[red[0] for red in get_pos_reds(ants, include_autos=True)],
+        beam=GaussianBeam(diameter=14.0),
+        polarized=False,
+        precision=2,
+    )
+
+
+def culled_rotation(kw):
+    from fftvis_tpu_torch.coords.rotation import SourceRotation
+
+    rot = SourceRotation(kw["ra"], kw["dec"], kw["times"], kw["telescope_loc"])
+    rot.cull_never_visible()
+    return rot
+
+
+def engine_plan(kw, mode: str, precision: int):
+    """The transform plan the engine makes for an unpolarized shared-beam
+    run of ``kw`` (cuda/planning.py plan_transform on the culled sky)."""
+    from fftvis_tpu_torch.cuda.planning import plan_transform
+
+    bls = kw["baselines"]
+    return plan_transform(mode, kw["ants"], bls, kw["freqs"], EPS[precision], 2, 1e-6, False,
+                          np.zeros(len(bls), dtype=bool), len(bls),
+                          culled_rotation(kw).nsrc, 1, 1, device="cuda")
+
+
+def run_mode(kw, mode: str):
+    """One run through simulate_vis (``auto``) or, for a forced mode, the
+    engine with that mode."""
+    from fftvis_tpu_torch import CUDASimulationEngine, simulate_vis
+    from fftvis_tpu_torch.wrapper import prepare_beam_list
+
+    if mode == "auto":
+        return simulate_vis(device="cuda", **kw)
+    beams, beam_idx = prepare_beam_list(kw["beam"], kw["freqs"], kw["polarized"], None, "x",
+                                        len(kw["ants"]), kw.get("beam_idx"))
+    ekw = {k: v for k, v in kw.items() if k not in ("beam", "beam_idx")}
+    return CUDASimulationEngine(nufft_mode=mode, device="cuda").simulate(
+        beam_list=beams, beam_idx=beam_idx, **ekw)
+
+
+def check_noncoplanar_nufft(z3d) -> None:
+    """Phase 3: spread and interp at the 3D row's own shapes, from the
+    port's planner: C*K channels (unpolarized, C = 1: K Chebyshev z modes)
+    on its 2D fine grid, float32 at precision 1 (auto: low-rank-z) and
+    float64 at precision 2 (type-3 forced), 4096 sources and its 14,365
+    targets; kernel alone, bound and the sparse yardsticks beside each;
+    then the device kernels and time of one low-rank-z spread and
+    interpolate call (the Chebyshev weights and the K-mode contraction
+    around the kernels) against the 2D executor's."""
+    import torch
+
+    from fftvis_tpu_torch.core.utils import speed_of_light
+    from fftvis_tpu_torch.nufft.transform import Type3Executor
+
+    rng = np.random.default_rng(8)
+    for mode, precision, rdt, cdt in (("auto", 1, torch.float32, torch.complex64),
+                                      ("type3", 2, torch.float64, torch.complex128)):
+        name = str(rdt).split(".")[-1]
+        ex = engine_plan(z3d, mode, precision).executor
+        K, p = ex.channel_multiplier, ex.plan
+        label = f" 3D row p={precision} (C*K = 1*{K})"
+        check_spread(name, rdt, cdt, p.nf, p.kernel.w, p.kernel.beta, K, "uniform", rng,
+                     label=label, alone=True)
+        check_interp(name, rdt, cdt, p, K, rng, label=label, alone=True)
+        # The torch ops around the kernels: one executor call on a 4096-source
+        # block (in the sky's range) and one interpolation, against the 2D
+        # executor's on the same 2D plan.
+        zp, n = ex.zplan, SPREAD_SOURCES
+        x_ext = 2 * np.pi * max(FREQS) / speed_of_light  # the planner's source extent
+        lo, hi = zp.x_center_z - zp.x_half_z, zp.x_center_z + zp.x_half_z
+        x = torch.tensor(np.stack([rng.uniform(-x_ext, x_ext, n), rng.uniform(-x_ext, x_ext, n),
+                                   rng.uniform(lo, hi, n)]), dtype=rdt, device="cuda")
+        c = torch.ones((1, n), dtype=cdt, device="cuda")
+        ex2 = Type3Executor(p, device="cuda")
+        grid = torch.zeros((K,) + tuple(p.nf), dtype=cdt, device="cuda")
+        G = ex.transform(ex.spread(x, c))
+        rows = []
+        for what, fn3, fn2 in (
+            ("spread", lambda: ex.spread(x, c, grid=grid),
+             lambda: ex2.spread(x[:2], c, grid=grid[:1])),
+            ("interpolate", lambda: ex.interpolate(G), lambda: ex2.interpolate(G[:1])),
+        ):
+            (n3, us3), (n2, us2) = device_launches(fn3), device_launches(fn2)
+            rows.append(f"{what} {n3:.0f} kernels / {us3:.1f} us (2D executor {n2:.0f} / "
+                        f"{us2:.1f} us)")
+        print(f"[3] low-rank-z executor {name} p={precision} K={K}, one call on the card: "
+              + "; ".join(rows), flush=True)
+        del x, c, grid, G
+        torch.cuda.empty_cache()
+
+
+def run_z3d(z3d, counters) -> dict:
+    """Phase 4: the 3D row at precision 1 (auto: low-rank-z), 2 (auto: the
+    direct path) and 2 with type-3 forced. A low-rank-z run launches the
+    spread once a source block (every K modes in one launch) and interp
+    once a (time, freq); the direct path neither. Returns {run: vis}."""
+    import torch
+
+    blocks = source_blocks(z3d)[0]
+    tf = len(z3d["times"]) * len(z3d["freqs"])
+    out = {}
+    for mode, precision in Z3D_RUNS:
+        plan = engine_plan(z3d, mode, precision)
+        ex = plan.executor
+        reset(counters)
+        t0 = time.perf_counter()
+        vis = run_mode(dict(z3d, precision=precision), mode)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        got = read(counters)
+        want_shape = (len(FREQS), len(z3d["times"]), len(z3d["baselines"]))
+        if vis.shape != want_shape or not np.all(np.isfinite(vis)):
+            raise AssertionError(f"3D row {mode} p={precision}: shape {vis.shape}, finite="
+                                 f"{bool(np.all(np.isfinite(vis)))}")
+        want = ({"spread": blocks, "interp": tf} if plan.mode == "type3"
+                else {"spread": 0, "interp": 0})
+        want.update(beam_eval=0, beam_rows=0, pair_rows=0)
+        if got != want:
+            raise AssertionError(f"3D row {mode} p={precision} ({plan.mode}): launches {got}, "
+                                 f"want {want}")
+        t0 = time.perf_counter()
+        run_mode(dict(z3d, precision=precision), mode)
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        shape = ("" if ex is None else f", K={ex.channel_multiplier}, nf={ex.plan.nf}, "
+                 f"w={ex.plan.kernel.w}")
+        print(f"[4] simulate_vis 3D row hex-{len(z3d['ants'])} +-2 m z, {mode} precision="
+              f"{precision}: path {plan.mode}{' low-rank-z' if ex is not None else ''}{shape}; "
+              f"{vis.shape} {vis.dtype}, finite; launches {got}; wall first {first:.3f} s, "
+              f"second {second:.3f} s", flush=True)
+        out[(mode, precision)] = vis
+    return out
+
+
+def obs24_band(obs):
+    """The band plan the engine makes for the 24h row: (perm, active_idx,
+    active_val), the banded block and the unbanded blocks a time."""
+    import torch
+
+    from fftvis_tpu_torch.cuda.engine import band_plan, source_block
+
+    rot = culled_rotation(obs)
+    plan = engine_plan(obs, "auto", 2)
+    block = source_block(plan, 1, len(obs["baselines"]), 1, False, 0, torch.complex128)
+    hit = band_plan(rot, rot.nsrc, block)
+    if hit is None:
+        raise AssertionError("the 24h row plans no horizon banding")
+    band, _, blk = hit
+    return band, blk, -(-rot.nsrc // block), rot.nsrc
+
+
+@contextlib.contextmanager
+def band_env(off: bool):
+    """``FFTVIS_BAND=0`` inside the block when ``off``."""
+    before = os.environ.pop("FFTVIS_BAND", None)
+    if off:
+        os.environ["FFTVIS_BAND"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("FFTVIS_BAND", None)
+        if before is not None:
+            os.environ["FFTVIS_BAND"] = before
+
+
+def run_obs24(obs, counters) -> dict:
+    """Phase 4: the 24h row banded and under FFTVIS_BAND=0; the type-1
+    products each run adds: 2 freqs x the active blocks of each time,
+    banded, and 2 x 24 x the blocks, unbanded. Returns {banded: vis}."""
+    import torch
+
+    from fftvis_tpu_torch import simulate_vis
+    from fftvis_tpu_torch.nufft import type1
+
+    (_, idx, val), blk, nblocks, nsrc = obs24_band(obs)
+    active = (val > 0).sum(axis=1)
+    nt, nf = len(obs["times"]), len(obs["freqs"])
+    print(f"[4] 24h row band plan: {nsrc} sources after the cull, {idx.shape[1]} of "
+          f"{-(-nsrc // blk)} blocks of {blk} at the worst time, {active.mean():.2f} active on "
+          f"average ({active.sum()} of {nt * (-(-nsrc // blk))} block-times); unbanded "
+          f"{nblocks} blocks a time", flush=True)
+    out = {}
+    for banded in (True, False):
+        with band_env(not banded):
+            reset(counters)
+            type1.products = 0
+            t0 = time.perf_counter()
+            vis = simulate_vis(device="cuda", **obs)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            products, got = type1.products, read(counters)
+            t0 = time.perf_counter()
+            simulate_vis(device="cuda", **obs)
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+        want = nf * int(active.sum()) if banded else nf * nt * nblocks
+        label = "banded" if banded else "FFTVIS_BAND=0"
+        if vis.shape != (nf, nt, len(obs["baselines"])) or not np.all(np.isfinite(vis)):
+            raise AssertionError(f"24h row {label}: shape {vis.shape}")
+        if products != want or any(got.values()):
+            raise AssertionError(f"24h row {label}: {products} type-1 products (want {want}), "
+                                 f"kernel launches {got}")
+        print(f"[4] simulate_vis 24h row hex-{len(obs['ants'])} nside 128 {label}: {vis.shape} "
+              f"{vis.dtype}, finite; {products} type-1 products (want {want}); launches {got}; "
+              f"wall first {first:.3f} s, second {second:.3f} s", flush=True)
+        out[banded] = vis
+    return out
+
+
+def banding_walls(obs, rounds: int = 8) -> None:
+    """Phase 7: warm walls of the 24h row, banded and unbanded in turns (the
+    order flipped each round, after one warm-up call of each: the caches
+    keep both configurations' entries), and the rounds the banded call
+    won."""
+    import torch
+
+    from fftvis_tpu_torch import simulate_vis
+
+    def wall(banded: bool) -> float:
+        with band_env(not banded):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            simulate_vis(device="cuda", **obs)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    wall(True), wall(False)
+    walls = {True: [], False: []}
+    for r in range(rounds):
+        for banded in ((True, False) if r % 2 == 0 else (False, True)):
+            walls[banded].append(wall(banded))
+    b, u = (np.percentile(walls[k], (25, 50, 75)) for k in (True, False))
+    wins = sum(x < y for x, y in zip(walls[True], walls[False]))
+    print(f"[7] 24h row warm walls, interleaved ({rounds} rounds): banded "
+          f"{', '.join(f'{w:.4f}' for w in walls[True])} s (median {b[1]:.4f}, quartiles "
+          f"{b[0]:.4f}-{b[2]:.4f}), FFTVIS_BAND=0 {', '.join(f'{w:.4f}' for w in walls[False])} "
+          f"s (median {u[1]:.4f}, quartiles {u[0]:.4f}-{u[2]:.4f}); unbanded / banded medians "
+          f"{u[1] / b[1]:.3f}; banded faster in {wins} of {rounds} rounds", flush=True)
+
+
+def check_new_rows(z3d, z_vis, obs, obs_vis) -> None:
+    """Phase 5 for the 3D and 24h rows: the 3D runs against the port's
+    float64 direct path on the CPU on every 32nd baseline; the banded 24h
+    run against its FFTVIS_BAND=0 run on the card, and against the CPU
+    float64 direct path (unbanded) on every 128th baseline."""
+    sub = z3d["baselines"][::32]
+    t0 = time.perf_counter()
+    oracle = direct_oracle(dict(z3d, baselines=sub, precision=2))
+    took = time.perf_counter() - t0
+    for (mode, precision), vis in z_vis.items():
+        err = max_rel(vis[..., ::32], oracle)
+        print(f"[5] 3D row {mode} precision={precision} vs fp64 direct ({len(sub)} baselines, "
+              f"{took:.3f} s on the CPU): max err {err:.3e} of max|V| (gate "
+              f"{ORACLE_GATE[precision]:.0e})", flush=True)
+        if not err <= ORACLE_GATE[precision]:
+            raise AssertionError(f"the 3D row {mode} p={precision} misses its accuracy gate")
+    err = max_rel(obs_vis[True], obs_vis[False])
+    print(f"[5] 24h row banded vs FFTVIS_BAND=0 on the card: max diff {err:.3e} of max|V| "
+          f"(gate {BAND_TOL:.0e})", flush=True)
+    if not err <= BAND_TOL:
+        raise AssertionError("the banded 24h row differs from its unbanded run")
+    sub = obs["baselines"][::128]
+    t0 = time.perf_counter()
+    with band_env(True):
+        oracle = direct_oracle(dict(obs, baselines=sub))
+    err = max_rel(obs_vis[True][..., ::128], oracle)
+    print(f"[5] 24h row banded precision=2 vs fp64 direct ({len(sub)} baselines, "
+          f"{time.perf_counter() - t0:.3f} s on the CPU): max err {err:.3e} of max|V| (gate "
+          f"{ORACLE_GATE[2]:.0e})", flush=True)
+    if not err <= ORACLE_GATE[2]:
+        raise AssertionError("the banded 24h row misses its accuracy gate")
+
+
 def reset(counters) -> None:
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
@@ -1604,6 +2004,8 @@ def main() -> int:
             row = beam_checks["pair_rows"][name]
             beam_checks["pair_rows"][name] = (max(row[0], err), *row[1:])
     check_type1_exact(ns)
+    z3d = z3d_config()
+    check_noncoplanar_nufft(z3d)
 
     # Each kernel's launch counter: (module, attribute).
     counters = {"spread": (spread_mod, "launches"), "interp": (interp_mod, "launches"),
@@ -1707,7 +2109,7 @@ def main() -> int:
     npairs = pair_arrays(pa)[2].npairs
     reset(counters)
     t0 = time.perf_counter()
-    pa_vis = run_per_antenna_type3(pa)
+    pa_vis = run_mode(pa, "type3")
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     got = read(counters)
@@ -1722,6 +2124,11 @@ def main() -> int:
     print(f"[4] per-antenna type-3, {PA_BEAMS} beams ({npairs} pairs, {4 * npairs} channels) "
           f"precision=1: {pa_vis.shape} {pa_vis.dtype}, finite; launches {got}; wall "
           f"{first:.3f} s", flush=True)
+
+    # The JAX bench's 3D and 24h rows at their full size.
+    z_vis = run_z3d(z3d, counters)
+    obs = obs24_config()
+    obs_vis = run_obs24(obs, counters)
 
     held = cache_device_bytes()
     print(f"[4] after phase 4 the caches hold {sum(held.values()) / 1e6:.1f} MB on the card: "
@@ -1770,9 +2177,10 @@ def main() -> int:
           f"{ORACLE_GATE[2]:.0e})", flush=True)
     if not err <= ORACLE_GATE[2]:
         raise AssertionError("the eigen row misses its accuracy gate")
+    check_new_rows(z3d, z_vis, obs, obs_vis)
 
     if "--profile" in sys.argv[1:]:
-        profile_runs(cfg, ns)
+        profile_runs(cfg, ns, z3d, obs)
 
     # The host layer: warm calls, pipelined futures, chunking, syncs.
     for precision in NS_PRECISIONS:
@@ -1786,6 +2194,7 @@ def main() -> int:
     pipelined(f"eigen row hex-{len(eig['ants'])} K={len(eig['beam'])} precision=2", eig)
     chunked(ns, counters, ns_vis[1])
     sync_count(ns)
+    banding_walls(obs)
 
     main_run = {1: 2, 2: 3}  # RUNS index of the polarized tabulated slice
     kernels = []

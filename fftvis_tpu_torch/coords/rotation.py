@@ -104,6 +104,20 @@ class SourceRotation:
         self.eq_vectors = self.eq_vectors[:, keep]
         return keep
 
+    def topo_at(self, t: int, eq: np.ndarray | None = None) -> np.ndarray:
+        """Topocentric ENU vectors at one time, replaying the device chain
+        (aberration add + renormalize + rotate) in float64: (3, n).
+
+        The horizon-band planner uses it, so its visibility table sees the
+        positions the device produces (modulo float32 jitter, which its
+        margin covers). ``eq`` defaults to the catalog vectors.
+        """
+        eq = self.eq_vectors if eq is None else eq
+        if self.aberration is not None:
+            eq = eq + self.aberration[t][:, None]
+            eq = eq / np.linalg.norm(eq, axis=0, keepdims=True)
+        return self.matrices[t] @ eq
+
 
 def _simple_spin_matrices(jd: np.ndarray, loc: TelescopeLocation) -> np.ndarray:
     """Sidereal-spin-only ENU matrices (no precession): for synthetic tests."""

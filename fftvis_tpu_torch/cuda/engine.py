@@ -28,9 +28,16 @@ cache keyed on the content of everything that changes its entries:
 A call hashes each user array at most once (``consistent_inputs``), enqueues
 the device loop and the copy of its output into pinned host memory, and
 returns a :class:`VisibilityFuture` (``async_fetch``) or its result.
-``nchunks`` caps the source block at ``ceil(nsrc / nchunks)``. The JAX
-engine's banding and meshes are later ROADMAP items. Whatever the port
-leaves out raises ``NotImplementedError`` instead of running another path.
+``nchunks`` caps the source block at ``ceil(nsrc / nchunks)``.
+
+Horizon banding (``coords/banding.py``) engages as in the JAX engine: 8
+times or more, 4096 sources or more, and ``FFTVIS_BAND`` not ``"0"``; its
+blocks number ``max(nblocks, nsrc // FFTVIS_BAND_BLOCK, 8)`` (at most
+nsrc; ``FFTVIS_BAND_BLOCK`` defaults to 4096), and it is kept when at
+least 15% of the worst time's block work drops. The band plan and the
+permuted catalog live in :data:`PLAN_CACHE`. The JAX engine's meshes are a
+later ROADMAP item. Whatever the port leaves out raises
+``NotImplementedError`` instead of running another path.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 
 from ..beams import interface
 from ..beams.interface import BeamInterface, prepare_beams
+from ..coords.banding import plan_horizon_bands
 from ..coords.erfa_lite import TelescopeLocation, times_to_jd
 from ..coords.rotation import SourceRotation
 from ..core import auto_rank
@@ -323,10 +331,23 @@ class CUDASimulationEngine(SimulationEngine):
         block = min(source_block(plan, C, nbl, npairs, pad_routing, m_max, complex_dtype),
                     -(-nsrc // nchunks))
         if plan.mode == "type3":
-            # The fine grid of every channel, and the FFT's output beside it.
-            grid_bytes = C * int(np.prod(plan.executor.plan.nf)) * complex_dtype.itemsize
-            check_device_memory(2 * grid_bytes, f"the type-3 grids ({C} channels of "
+            # The fine grid of every channel (C*K on a non-coplanar array),
+            # and the FFT's output beside it.
+            CK = C * plan.executor.channel_multiplier
+            grid_bytes = CK * int(np.prod(plan.executor.plan.nf)) * complex_dtype.itemsize
+            check_device_memory(2 * grid_bytes, f"the type-3 grids ({CK} channels of "
                                 f"{plan.executor.plan.nf})", dev)
+        band_perm = active = None
+        band = band_plan(rot, nsrc, block)
+        if band is not None:
+            (band_perm, active_idx, active_val), banded_eq, block = band
+            # Re-assigned on the call's copy, never written into the cached
+            # rotation.
+            rot.eq_vectors = banded_eq
+            active = tuple(tuple(int(b) for b in idx[val > 0])
+                           for idx, val in zip(active_idx, active_val))
+            logger.info("horizon banding engaged: at most %d of %d source blocks a time",
+                        active_idx.shape[1], -(-nsrc // block))
 
         prepared = prepare_beams(
             beam_list, freqs, polarized, spline_opts=beam_spline_opts,
@@ -360,21 +381,25 @@ class CUDASimulationEngine(SimulationEngine):
             coefs=None if basis is None else upload(
                 ("coefs", np.asarray(beam_coefs)), lambda: np.asarray(beam_coefs),
                 complex_dtype),
+            active=active,
         )
 
         abvel = upload(("abvel", rot.aberration, rot.ntimes), lambda: (
             rot.aberration if rot.aberration is not None else np.zeros((rot.ntimes, 3))),
             real_dtype)
-        coh = upload(
-            ("coh", fluxes_arr, src_keep, polarized_sky),
-            lambda: coh_mod.build_coherency(
-                fluxes_arr if src_keep is None else fluxes_arr[src_keep], polarized_sky),
-            complex_dtype if polarized_sky else real_dtype)
+
+        def sky():
+            fl = fluxes_arr if src_keep is None else fluxes_arr[src_keep]
+            return coh_mod.build_coherency(fl if band_perm is None else fl[band_perm],
+                                           polarized_sky)
+
+        coh = upload(("coh", fluxes_arr, src_keep, band_perm, polarized_sky), sky,
+                     complex_dtype if polarized_sky else real_dtype)
         vis = run_program(
             cfg,
             upload(("mats", rot.matrices), lambda: rot.matrices, real_dtype),
             abvel,
-            upload(("eq", rot.eq_vectors), lambda: rot.eq_vectors, real_dtype),
+            upload(("eq", rot.eq_vectors, band_perm), lambda: rot.eq_vectors, real_dtype),
             coh,
         )
         return fetch(vis, polarized)
@@ -429,6 +454,46 @@ def _culled_rotation(ra, dec, times, telescope_loc, coord_method, include_ab):
     return rot, src_keep
 
 
+def band_plan(rot, nsrc: int, block: int):
+    """Horizon banding of a call, or None: ``(plan_horizon_bands' (perm,
+    active_idx, active_val), the permuted catalog (frozen), the banded
+    block)``, kept in :data:`PLAN_CACHE` under the rotation's content and
+    the blocking. It engages on the JAX engine's gates (its gate on the
+    type-1, type-3 and direct modes holds every path of the port); the JAX
+    engine's ``_type3_compact_ok`` gate and ``spread_n`` size its
+    capacity-planned TPU spreaders, and the port's spreader has no
+    capacity, so neither is ported."""
+    if rot.ntimes < 8 or nsrc < 4096 or os.environ.get("FFTVIS_BAND", "") == "0":
+        return None
+    nblocks = -(-nsrc // block)
+    band_block = int(os.environ.get("FFTVIS_BAND_BLOCK", "4096"))
+    # nb >= nblocks: the banded block is never larger than the budgeted one.
+    nb = min(max(nblocks, nsrc // band_block, 8), nsrc)
+    blk = -(-nsrc // nb)
+    pad = blk * nb
+    key = hash_parts(("band-v1", rot.eq_vectors, rot.matrices, rot.aberration, blk, nb, pad))
+
+    def build():
+        band = plan_horizon_bands(rot, blk, nb, pad)
+        if band is None:
+            return None
+        # Materialized once and frozen (the plan's arrays too): a fresh
+        # array a call would be hashed afresh by every later key.
+        banded_eq = rot.eq_vectors[:, band[0]]
+        for arr in (*band, banded_eq):
+            arr.setflags(write=False)
+        return band, banded_eq, blk
+
+    # A call that plans no banding keeps that answer too.
+    hit = PLAN_CACHE.get_or_build(key, lambda: build() or _NO_BAND)
+    return None if hit is _NO_BAND else hit
+
+
+# PLAN_CACHE's entry for a blocking that bands nothing (the cache reads None
+# as a miss).
+_NO_BAND = "no-band"
+
+
 def pair_routing(pair_plan, nbl: int) -> tuple[bool, int]:
     """(pad_routing, m_max): whether the pair routing pads every pair's
     baseline list to the longest, m_max, and batches over pairs (the JAX
@@ -446,12 +511,14 @@ def source_block(plan, C: int, nbl: int, npairs: int, pad_routing: bool, m_max: 
     a block's temporaries would pass their budget -- the direct path's
     (block, baselines) phase matrix (padded to npairs * m_max with the
     padded routing), or a transform's (C, block) rows (twice: the rows and
-    their pre-phased copy) plus the exact type-1's (block, nmy * nmx)
-    outer factor."""
+    their pre-phased copy) plus the low-rank-z type-3's (C*K, block) z-mode
+    weights or the exact type-1's (block, nmy * nmx) outer factor."""
     if plan.mode == "direct":
         eff_bl = npairs * m_max if pad_routing else nbl
         return max(1, min(SOURCE_BLOCK, DIRECT_BLOCK_BYTES // (16 * eff_bl)))
     per_source = 2 * C * complex_dtype.itemsize
+    if plan.mode == "type3" and plan.executor.channel_multiplier > 1:
+        per_source += C * plan.executor.channel_multiplier * complex_dtype.itemsize
     if plan.mode == "type1":
         per_source += int(np.prod(plan.executor.plan.nf)) * complex_dtype.itemsize
     return max(1, min(SOURCE_BLOCK, BLOCK_BYTES // per_source))

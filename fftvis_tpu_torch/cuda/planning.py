@@ -1,19 +1,25 @@
 """Host-side transform planning for the CUDA engine.
 
 The port of ``plan_transform`` and ``select_gridded_path``
-(``fftvis_tpu/tpu/planning.py``) for coplanar arrays:
+(``fftvis_tpu/tpu/planning.py``):
 
 - a gridded array (antennas on an integer lattice) takes the exact type-1
   transform at the baselines' integer lattice modes, or the direct path
   when it is asked for;
-- any other coplanar array takes the exact direct path or the type-3
-  NUFFT, from a cost model whose spread term is the scatter cost ``16 *
-  nsrc * w^2`` -- the card's spreader, like a scatter, does O(w^2) work per
-  source; the TPU matrix-unit spread terms do not apply.
+- any other array takes the exact direct path or the type-3 NUFFT, from a
+  cost model whose spread term is the scatter cost ``16 * nsrc * w^2`` --
+  the card's spreader, like a scatter, does O(w^2) work per source; the
+  TPU matrix-unit spread terms do not apply;
+- a non-coplanar (3D) array's type-3 is the low-rank z factorization
+  (:class:`~fftvis_tpu_torch.nufft.transform.Type3LowrankZExecutor`): its
+  K Chebyshev z modes multiply the spread, FFT and interpolation terms of
+  the cost model, and an array too tall for the expansion takes the direct
+  path.
 
 The JAX package's ES type-1 (``Type1Executor``) is not ported: where the
 exact transform does not apply, or ``FFTVIS_TYPE1=es`` asks for ES, the
-planner raises ``NotImplementedError``.
+planner raises ``NotImplementedError``; ``FFTVIS_TYPE1=exact`` forces the
+exact transform, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +33,13 @@ import numpy as np
 from ..core import utils as core_utils
 from ..core.antenna_gridding import check_antpos_griddability
 from ..core.utils import speed_of_light
-from ..nufft.transform import Type3Executor, fit_plan_precorr, plan_type3
+from ..nufft.transform import (
+    Type3Executor,
+    Type3LowrankZExecutor,
+    fit_plan_precorr,
+    plan_type3,
+    plan_type3_lowrank_z,
+)
 from ..nufft.type1 import Type1ExactExecutor, plan_type1_exact
 
 logger = logging.getLogger(__name__)
@@ -45,19 +57,23 @@ class SimPlan:
     device tables that every call on its configuration shares."""
 
     mode: str  # 'type1' | 'type3' | 'direct'
-    executor: Type3Executor | Type1ExactExecutor | None
-    # direct mode: (2, nbl) signed targets, meters (or lattice modes)
+    executor: Type3Executor | Type3LowrankZExecutor | Type1ExactExecutor | None
+    # direct mode: (d, nbl) signed targets, meters (or lattice modes)
     targets: np.ndarray | None
     rotation_matrix: np.ndarray  # (3, 3) applied to topo for NUFFT coords
     # gridded arrays: (3, 3) topo -> lattice coordinates over c, (basis / c).T
     lattice_matrix: np.ndarray | None = None
+    # False for a non-coplanar array: d = 3 source coordinates and targets.
+    is_coplanar: bool = True
 
     @property
     def coord_matrix(self) -> np.ndarray:
-        """(2, 3): topocentric source vectors -> the array-plane position
-        (meters) or, on a lattice, the lattice coordinates over c."""
-        m = self.rotation_matrix if self.lattice_matrix is None else self.lattice_matrix
-        return m[:2]
+        """(d, 3): topocentric source vectors -> the array-plane position
+        (meters; with the height off the plane on a non-coplanar array, d =
+        3) or, on a lattice, the lattice coordinates over c (d = 2)."""
+        if self.lattice_matrix is not None:
+            return self.lattice_matrix[:2]
+        return self.rotation_matrix[: 2 if self.is_coplanar else 3]
 
     def coord_scale(self, freq: float) -> float:
         """What takes :attr:`coord_matrix` coordinates to the transform's
@@ -119,28 +135,50 @@ def plan_transform(
     rot_ants = (rotation @ antvecs.T).T
     pos = {a: rot_ants[i] for i, a in enumerate(ants)}
     blvec = np.array([pos[bj] - pos[bi] for bi, bj in baselines]).T  # (3, nbl)
-    if not np.all(np.abs(blvec[2]) <= flat_array_tol):
-        raise NotImplementedError(
-            "non-coplanar (3D) arrays are ROADMAP item 8"
-        )
-    targets = np.where(flipped_global[None, :], -blvec[:2], blvec[:2])
+    is_coplanar = bool(np.all(np.abs(blvec[2]) <= flat_array_tol))
+    d = 2 if is_coplanar else 3
+    targets = np.where(flipped_global[None, :], -blvec[:d], blvec[:d])
 
     # Cost model: exact direct vs spread + FFT + interp.
     direct_cost = 8.0 * nsrc * nbl
-    x_ext = [TWO_PI * fmax / speed_of_light] * 2
-    # fit_precorr deferred: the chebfit host time is only paid if the
-    # type-3 path wins the comparison.
-    probe = plan_type3(
-        targets, x_extent=x_ext, eps=eps,
-        upsample_factor=upsample_factor, fit_precorr=False,
-    )
+    x_ext = [TWO_PI * fmax / speed_of_light] * d
+    if d == 2:
+        # fit_precorr deferred: the chebfit host time is only paid if the
+        # type-3 path wins the comparison.
+        probe = plan_type3(
+            targets, x_extent=x_ext, eps=eps,
+            upsample_factor=upsample_factor, fit_precorr=False,
+        )
+        K = 1
+    else:
+        # The low-rank z factorization: K Chebyshev z modes batched through
+        # the 2D spread, its bandwidth bounded by the z range of the rotated
+        # upper-hemisphere source vectors.
+        zlo, zhi = upper_hemisphere_z_range(rotation[2])
+        scale = TWO_PI * fmax / speed_of_light
+        pad = 1e-3  # aberration + float slop before the executor's clamp
+        try:
+            probe_z = plan_type3_lowrank_z(
+                targets, x_extent=x_ext, eps=eps, upsample_factor=upsample_factor,
+                x_range_z=((zlo - pad) * scale, (zhi + pad) * scale), fit_precorr=False,
+            )
+        except ValueError as err:
+            # z bandwidth beyond the expansion's reach (very tall arrays):
+            # the exact direct path is the only accurate option.
+            logger.warning(
+                "3D type-3 low-rank factorization unavailable (%s); "
+                "using the exact direct path", err,
+            )
+            return SimPlan("direct", None, targets, rotation, is_coplanar=False)
+        probe = probe_z.plan2d
+        K = probe_z.K
     w = probe.kernel.w
     C = max(1, npairs * nfeeds**2)
     nf_cells = float(np.prod(probe.nf))
     nufft_cost = (
-        16.0 * nsrc * w**2
-        + 5.0 * nf_cells * np.log2(max(nf_cells, 2)) / C
-        + 16.0 * nbl * w**2
+        K * (16.0 * nsrc * w**2)
+        + 5.0 * K * nf_cells * np.log2(max(nf_cells, 2)) / C
+        + 16.0 * nbl * w**2 * K
     )
     if nufft_mode == "direct" or (
         nufft_mode == "auto" and direct_cost < nufft_cost
@@ -149,11 +187,27 @@ def plan_transform(
             "Using exact direct path (cost %.2e < nufft %.2e)",
             direct_cost, nufft_cost,
         )
-        return SimPlan("direct", None, targets, rotation)
+        return SimPlan("direct", None, targets, rotation, is_coplanar=is_coplanar)
 
-    logger.info("Using type-3 NUFFT path (nf=%s, w=%d)", probe.nf, w)
-    executor = Type3Executor(fit_plan_precorr(probe), device=device)
-    return SimPlan("type3", executor, None, rotation)
+    if d == 3:
+        logger.info("Using type-3 NUFFT path (3D lowrank-z: nf=%s, w=%d, K=%d)",
+                    probe.nf, w, K)
+        executor = Type3LowrankZExecutor(fit_plan_precorr(probe_z), device=device)
+    else:
+        logger.info("Using type-3 NUFFT path (nf=%s, w=%d)", probe.nf, w)
+        executor = Type3Executor(fit_plan_precorr(probe), device=device)
+    return SimPlan("type3", executor, None, rotation, is_coplanar=is_coplanar)
+
+
+def upper_hemisphere_z_range(r: np.ndarray) -> tuple[float, float]:
+    """(lo, hi) of ``r . v`` over the upper hemisphere, |v| = 1 and v_z >=
+    0: the maximum is 1 when ``r`` points up (else on the horizon circle,
+    |r_xy|), the minimum -1 when it points down (else -|r_xy|). ``r`` is a
+    unit row of the plane rotation."""
+    rxy = float(np.hypot(r[0], r[1]))
+    zhi = 1.0 if r[2] >= 0 else rxy
+    zlo = -1.0 if r[2] <= 0 else -rxy
+    return zlo, zhi
 
 
 def select_gridded_path(nufft_mode: str, bls_signed: np.ndarray, device):
@@ -162,23 +216,33 @@ def select_gridded_path(nufft_mode: str, bls_signed: np.ndarray, device):
 
     The exact transform applies while its mode grid holds at most
     :data:`DENSE_GRID_LIMIT` cells and its factor phases stay exact in
-    float32 (kmax * nm < 2^23 an axis). Beyond its reach, and under
+    float32 (kmax * nm < 2^23 an axis); ``FFTVIS_TYPE1=exact`` forces it
+    past both checks, with a warning where the float32 phases are not
+    exact, as the JAX planner does. Beyond its reach, and under
     ``FFTVIS_TYPE1=es``, the JAX package runs ES type-1, which the port does
     not have yet: that raises.
     """
     if nufft_mode == "direct":
         return "direct", None, bls_signed.astype(float)
     t1_env = os.environ.get("FFTVIS_TYPE1", "auto")
-    if t1_env not in ("auto", "es"):
-        raise ValueError(f"FFTVIS_TYPE1={t1_env!r}: expected 'auto' or 'es'")
+    if t1_env not in ("auto", "exact", "es"):
+        raise ValueError(f"FFTVIS_TYPE1={t1_env!r}: expected 'auto', 'exact' or 'es'")
     xplan = plan_type1_exact(bls_signed)
     f32_safe = all(k * n < 2**23 for k, n in zip(xplan.kmax, xplan.nf))
-    if t1_env == "auto" and f32_safe and int(np.prod(xplan.nf)) <= DENSE_GRID_LIMIT:
+    if t1_env == "exact" and not f32_safe:
+        logger.warning(
+            "FFTVIS_TYPE1=exact forced on a lattice whose factor phases "
+            "exceed the f32-exact bound (kmax*nm >= 2^23 on some axis, mode "
+            "grid %s); expect degraded accuracy in float32.", xplan.nf,
+        )
+    if t1_env == "exact" or (
+        t1_env == "auto" and f32_safe and int(np.prod(xplan.nf)) <= DENSE_GRID_LIMIT
+    ):
         logger.info("Gridded path: exact separable DFT (mode grid %s)", xplan.nf)
         return "type1", Type1ExactExecutor(xplan, device=device), None
     raise NotImplementedError(
         f"ES type-1 (Type1Executor) is ROADMAP item 4: the exact type-1 "
         f"transform does not take this lattice (mode grid {xplan.nf}, "
-        f"FFTVIS_TYPE1={t1_env}); pass force_use_type3=True or "
-        f"nufft_mode='direct'"
+        f"FFTVIS_TYPE1={t1_env}); pass force_use_type3=True, "
+        f"nufft_mode='direct' or FFTVIS_TYPE1=exact"
     )

@@ -1,18 +1,21 @@
 """The simulation loop nest on the device.
 
 The port of ``build_program`` (``fftvis_tpu/tpu/program.py``) without its
-double-single, banding and mesh paths: unpolarized (one feed) and polarized
-(two feeds), one shared beam, per-antenna beams routed by beam pair, or an
+double-single and mesh paths: unpolarized (one feed) and polarized (two
+feeds), one shared beam, per-antenna beams routed by beam pair, or an
 eigenbeam basis (given ``beam_coefs``, or auto-rank's substitute for a
 per-antenna list) contracted with its coefficients on the device, on the
-direct, type-3 and exact type-1 transforms.
+direct, type-3 (2D, or low-rank z on a non-coplanar array) and exact type-1
+transforms, with or without horizon banding.
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` nest over (times,
 freqs, source blocks) becomes Python loops over tensors:
 
     per time:   aberration + normalisation + rotation to topocentric,
-                horizon mask, (az, za), transform coordinates
+                horizon mask, (az, za), transform coordinates (d = 2, or
+                3 on a non-coplanar array)
       per freq:
-        per source block of ``block``:
+        per source block of ``block`` (banded: per block active at this
+        time):
                 beam responses -> coherency rows x mask (C = P * nfeeds^2
                 channels, pair-major) -> direct sum, spread into the fine
                 grid (type-3) or add to the mode grid (type-1)
@@ -23,6 +26,16 @@ freqs, source blocks) becomes Python loops over tensors:
                 pair routing; or the basis contraction
 
 Ragged last blocks are simply shorter: eager tensors need no padding.
+
+Horizon banding (``ProgramConfig.active``): the engine orders the catalog so
+that sources visible together share blocks, and at time t only the blocks
+that hold a source above the horizon run -- their beam rows, pre-phase and
+spread or direct product. The JAX package needs two execution forms for
+that (a scan over a static count of active blocks, and a per-time
+compaction for type-3) because its shapes are static and its spread pays
+an O(grid) fold a call; the loop here is dynamic and the spread accumulates
+in place, so one form serves every path, and it skips each time's own
+inactive blocks rather than the worst time's.
 """
 
 from __future__ import annotations
@@ -196,7 +209,7 @@ class ProgramConfig:
     plan: SimPlan
     rows: BlockRows
     routing: Routing
-    coord: torch.Tensor  # (2, 3) plan.coord_matrix on the device
+    coord: torch.Tensor  # (d, 3) plan.coord_matrix on the device
     targets: object  # the direct path's device targets (device_tables), else None
     freqs: np.ndarray  # (nfreq,) host float64
     nbl: int
@@ -207,6 +220,9 @@ class ProgramConfig:
     # An eigenbeam basis's (nant, K, nfreq) coefficients on the device, in
     # complex_dtype; None without a basis.
     coefs: torch.Tensor | None = None
+    # Horizon banding: per time, the indices of the source blocks to run
+    # (host ints); None runs every block at every time.
+    active: tuple | None = None
 
     @property
     def nfeeds(self) -> int:
@@ -219,7 +235,8 @@ def device_tables(plan: SimPlan, pair_plan: BeamPairPlan | None, flipped: np.nda
     configuration: the :class:`Routing` (of ``basis``, the arguments of a
     :class:`Basis`, when given), the coordinate matrix and, on the direct
     path, the signed targets as the routing reads them -- (d, nbl); (d, P,
-    m_max) padded; or one (d, m_p) a pair -- else None."""
+    m_max) padded; or one (d, m_p) a pair -- else None; d = 3 on a
+    non-coplanar array."""
     dev = torch.device(device)
     r = Routing(pair_plan, flipped, pad, m_max, dev,
                 basis=None if basis is None else Basis(*basis, dev))
@@ -272,6 +289,9 @@ def _assemble(cfg: ProgramConfig, acc, fi: int) -> torch.Tensor:
             return r.basis.contract(acc.reshape(r.npairs, nf, nf, cfg.nbl), cfg.coefs, fi)
         out = torch.where(r.flipped[None, :], torch.conj(acc), acc)
         return out.reshape(nf, nf, cfg.nbl).permute(2, 1, 0)
+    # Grid channels a weight channel: K z-modes (c*K + k) on a non-coplanar
+    # array's type-3.
+    cm = ex.channel_multiplier if plan.mode == "type3" else 1
     if r.pad and plan.mode != "type3":
         # Batched over the padded routing: (P, nf2, m_max).
         out = acc if plan.mode == "direct" else ex.gather_padded(ex.transform(acc), r.sel_pad)
@@ -283,7 +303,7 @@ def _assemble(cfg: ProgramConfig, acc, fi: int) -> torch.Tensor:
     else:
         G = ex.transform(acc)
         get = ex.interpolate if plan.mode == "type3" else ex.gather
-        pair_outs = [get(G[p * nf2:(p + 1) * nf2], sel)
+        pair_outs = [get(G[p * nf2 * cm:(p + 1) * nf2 * cm], sel)
                      for p, sel in enumerate(r.pair_plan.bls_idxs)]
     vps = []
     for p, vp in enumerate(pair_outs):
@@ -310,9 +330,12 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
     nfeeds = cfg.nfeeds
     nf2 = nfeeds**2
     C = r.npairs * nf2
+    # Grid channels: C, or C*K (c*K + k) on a non-coplanar array's type-3.
+    CK = C * (plan.executor.channel_multiplier if plan.mode == "type3" else 1)
     coord, targets = cfg.coord, cfg.targets
     vis = torch.empty((nt, nfreq, nfeeds, nfeeds, cfg.nbl), dtype=cfg.complex_dtype,
                       device=dev)
+    every_block = range(0, nsrc, cfg.block)
 
     for t in range(nt):
         eqa = eq + abvel[t][:, None]
@@ -320,14 +343,16 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
         topo = mats[t] @ eqa  # (3, nsrc)
         mask = (topo[2] > 0).to(cfg.real_dtype)
         az, za = enu_to_az_za(topo[0], topo[1], orientation="uvbeam")
-        xr = coord @ topo  # (2, nsrc) array-plane or lattice coordinates
+        xr = coord @ topo  # (d, nsrc) array-frame or lattice coordinates
+        starts = (every_block if cfg.active is None
+                  else [b * cfg.block for b in cfg.active[t]])
 
         for fi in range(nfreq):
             fv = float(cfg.freqs[fi])
             scale = plan.coord_scale(fv)
             flux_f = coh[:, fi]
             if plan.mode != "direct":
-                acc = torch.zeros((C,) + tuple(plan.executor.plan.nf),
+                acc = torch.zeros((CK,) + tuple(plan.executor.plan.nf),
                                   dtype=cfg.complex_dtype, device=dev)
             elif not r.multi:
                 acc = torch.zeros((C, cfg.nbl), dtype=cfg.complex_dtype, device=dev)
@@ -337,7 +362,7 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
             else:
                 acc = [torch.zeros((nf2, len(s)), dtype=cfg.complex_dtype, device=dev)
                        for s in r.pair_plan.bls_idxs]
-            for b0 in range(0, nsrc, cfg.block):
+            for b0 in starts:
                 sl = slice(b0, b0 + cfg.block)
                 rows = cfg.rows(az[sl], za[sl], fv, fi, flux_f[sl], mask[sl])
                 x = xr[:, sl] * scale

@@ -1,13 +1,18 @@
 """Type-3 NUFFT: host planning (NumPy) + device execution (torch).
 
-The port's counterpart of ``fftvis_tpu/nufft/transform.py`` for the coplanar
-type-3 transform
+The port's counterpart of ``fftvis_tpu/nufft/transform.py`` for the type-3
+transform
 
     pre-phase + pre-correction -> ES-spread -> batched (i)FFT ->
     grid deconvolution -> ES-interpolation at the nonuniform targets
 
-Planning (:func:`plan_type3`, :func:`fit_plan_precorr`) is a NumPy copy and
-gives exactly the JAX package's plan arrays. Execution runs on the plan's
+in 2D (coplanar arrays, :class:`Type3Executor`) and in 3D through the
+low-rank z factorization (non-coplanar arrays,
+:class:`Type3LowrankZExecutor`: K Chebyshev z modes ride the 2D spread and
+interpolation as C*K channels, then a contraction with host-planned target
+coefficients). Planning (:func:`plan_type3`, :func:`plan_type3_lowrank_z`,
+:func:`fit_plan_precorr`) is a NumPy copy and gives exactly the JAX
+package's plan arrays. Execution runs on the plan's
 torch device: the spread and interpolation go through the hand-written CUDA
 kernels of :mod:`.spread` and :mod:`.interp` on a CUDA tensor and through
 their plain torch versions on a CPU tensor; the FFT is ``torch.fft`` (cuFFT
@@ -96,6 +101,137 @@ class Type3Plan:
             ),
             ft_xi_max=tuple(float(v) for v in plan.ft_xi_max),
         )
+
+
+@dataclass(frozen=True)
+class Type3LowrankZPlan:
+    """Plan for a 3D type-3 transform as K z-modes of a batched 2D type-3.
+
+    The z phase factor is factored at low rank,
+
+        exp(i s_z x_z) = exp(i s_zc x_z)                 [device pre-phase]
+                       * exp(i s'_z x_c)                 [folded into g]
+                       * sum_k a_k(s'_z zh) T_k(t),      t = (x_z - x_c)/zh
+
+    a Chebyshev (Jacobi-Anger) expansion whose length K ~ |s'|_max zh +
+    O(log 1/eps) is small for near-coplanar arrays: each z-mode multiplies
+    the weights by T_k(t), giving a 2D type-3 with C*K channels on the 2D
+    fine grid. The target-side coefficients g (m, K) come from a
+    Chebyshev-node DCT on the host.
+    """
+
+    plan2d: Type3Plan
+    K: int
+    s_center_z: float
+    x_center_z: float
+    x_half_z: float
+    # (m, K) complex128: a_k(s'_m zh) * exp(i s'_m x_c).
+    g: np.ndarray
+    n_targets: int
+
+    @classmethod
+    def from_reference(cls, zplan) -> "Type3LowrankZPlan":
+        """Build the port's plan from a ``fftvis_tpu``
+        ``Type3LowrankZPlan``, its 2D plan through
+        :meth:`Type3Plan.from_reference`, so both packages' executors can
+        run one plan."""
+        return cls(
+            plan2d=Type3Plan.from_reference(zplan.plan2d),
+            K=int(zplan.K),
+            s_center_z=float(zplan.s_center_z),
+            x_center_z=float(zplan.x_center_z),
+            x_half_z=float(zplan.x_half_z),
+            g=np.asarray(zplan.g),
+            n_targets=int(zplan.n_targets),
+        )
+
+
+def plan_type3_lowrank_z(
+    targets: np.ndarray,
+    x_extent,
+    eps: float,
+    upsample_factor: float = 2.0,
+    prefer_pow2: bool = False,
+    x_range_z: tuple[float, float] | None = None,
+    max_modes: int = 160,
+    fit_precorr: bool = True,
+) -> Type3LowrankZPlan:
+    """Plan a 3D type-3 transform via the low-rank z factorization.
+
+    Parameters match :func:`plan_type3` (d must be 3); ``x_range_z``
+    optionally tightens the source z-coordinate range to (lo, hi) -- e.g.
+    (0, X) for topocentric up-hemisphere sources -- which halves the
+    Chebyshev bandwidth versus the symmetric default (-X, X). Raises
+    ``ValueError`` when the expansion would need more than ``max_modes``
+    modes (the planner then takes the direct path).
+    """
+    targets = np.atleast_2d(np.asarray(targets, dtype=np.float64))
+    d, m = targets.shape
+    if d != 3:
+        raise ValueError(f"lowrank-z planning requires d=3, got {d}")
+    x_extent = np.broadcast_to(np.asarray(x_extent, dtype=np.float64), (3,))
+
+    plan2d = plan_type3(
+        targets[:2], x_extent[:2], eps, upsample_factor, prefer_pow2,
+        fit_precorr=fit_precorr,
+    )
+
+    sz = targets[2]
+    s_zc = 0.5 * (float(sz.min()) + float(sz.max()))
+    s_prime = sz - s_zc
+
+    if x_range_z is None:
+        zlo, zhi = -float(x_extent[2]), float(x_extent[2])
+    else:
+        zlo, zhi = float(x_range_z[0]), float(x_range_z[1])
+    x_c = 0.5 * (zlo + zhi)
+    zh = max(0.5 * (zhi - zlo), 1e-12)
+
+    lam = s_prime * zh  # per-target Chebyshev bandwidth
+    lam_max = float(np.max(np.abs(lam))) if m else 0.0
+
+    # Chebyshev coefficients of exp(i lam t) on t in [-1, 1] via a DCT at
+    # Chebyshev-Gauss nodes. Upper bound on the needed degree: lam + a
+    # superexponential-decay tail (|J_k(lam)| ~ (e lam / 2k)^k for k > lam).
+    K_need = int(np.ceil(lam_max + 10.0 * np.log10(1.0 / eps) + 12))
+    if K_need > max_modes:
+        # The expansion has not started its superexponential decay before
+        # the cap: truncation error would be O(1), not O(eps).
+        raise ValueError(
+            f"lowrank-z expansion needs ~{K_need} Chebyshev modes "
+            f"(z bandwidth lam_max={lam_max:.1f}, eps={eps:.0e}) but "
+            f"max_modes={max_modes}: the array's z extent is too large for "
+            f"the low-rank factorization; use the direct path or raise "
+            f"max_modes"
+        )
+    K_hi = max(K_need, 4)
+    Q = 2 * K_hi
+    theta = np.pi * (np.arange(Q) + 0.5) / Q
+    tq = np.cos(theta)  # (Q,)
+    # h[m, q] = exp(i lam_m t_q); a[m, k] = (2/Q) sum_q h cos(k theta_q).
+    h = np.exp(1j * lam[:, None] * tq[None, :])  # (m, Q)
+    cosmat = np.cos(np.outer(np.arange(K_hi), theta))  # (K_hi, Q)
+    a = (2.0 / Q) * (h @ cosmat.T)  # (m, K_hi)
+    a[:, 0] *= 0.5
+
+    # Truncate where every target's tail is below eps (coefficients decay
+    # superexponentially past lam, so this cutoff is sharp).
+    amax = np.max(np.abs(a), axis=0)
+    keep = np.nonzero(amax > 0.1 * eps)[0]
+    K = int(keep[-1]) + 1 if keep.size else 1
+    K = max(K, 1)
+
+    g = a[:, :K] * np.exp(1j * s_prime * x_c)[:, None]
+    g.setflags(write=False)
+    return Type3LowrankZPlan(
+        plan2d=plan2d,
+        K=K,
+        s_center_z=float(s_zc),
+        x_center_z=float(x_c),
+        x_half_z=float(zh),
+        g=g,
+        n_targets=m,
+    )
 
 
 def plan_type3(
@@ -193,13 +329,18 @@ def plan_type3(
     )
 
 
-def fit_plan_precorr(plan: Type3Plan) -> Type3Plan:
+def fit_plan_precorr(plan):
     """Return ``plan`` with the log-Chebyshev pre-correction fitted.
 
-    Fills any ``None`` entries of ``ft_coefs``; entries the fit cannot reach
-    stay ``None`` (the executor then uses the quadrature). No-op for fully
-    fitted plans.
+    Fills any ``None`` entries of ``ft_coefs`` (of the 2D plan of a
+    :class:`Type3LowrankZPlan`); entries the fit cannot reach stay ``None``
+    (the executor then uses the quadrature). No-op for fully fitted plans.
     """
+    if isinstance(plan, Type3LowrankZPlan):
+        plan2d = fit_plan_precorr(plan.plan2d)
+        if plan2d is plan.plan2d:
+            return plan
+        return dataclasses.replace(plan, plan2d=plan2d)
     if all(c is not None for c in plan.ft_coefs):
         return plan
     coefs = tuple(
@@ -261,10 +402,17 @@ class Type3Executor:
     ``interpolate`` evaluates every planned target.
     """
 
+    # Grid channels a weight channel: 1 here, K z-modes in the low-rank-z
+    # executor.
+    channel_multiplier = 1
+
     def __init__(self, plan: Type3Plan, device="cuda"):
         if plan.d != 2:
+            # The engine's 3D arrays take Type3LowrankZExecutor; a full 3D
+            # fine grid belongs to the public NUFFT surface.
             raise NotImplementedError(
-                f"d={plan.d} type-3 (non-coplanar arrays) is ROADMAP item 8"
+                f"d={plan.d} Type3Executor (the public NUFFT surface's 3D "
+                "grid) is ROADMAP item 12"
             )
         self.plan = plan
         self.device = torch.device(device)
@@ -312,19 +460,27 @@ class Type3Executor:
         of allocating and summing one per block -- else into a new grid.
         """
         p = self.plan
-        w, beta = p.kernel.w, p.kernel.beta
         phase = sum(p.s_center[axis] * x[axis] for axis in range(p.d))
+        return self._spread_weights(x, c * self._prephase(x, phase)[None, :], grid)
+
+    def _prephase(self, x: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+        """exp(i phase) over the amplitude pre-correction of the two spread
+        axes: (n,) complex."""
+        p = self.plan
         corr = torch.ones_like(x[0])
         for axis in range(p.d):
             corr = corr * _precorr_axis(p, axis, x[axis])
-        pre = torch.complex(torch.cos(phase), torch.sin(phase)) / corr
-        wts = c * pre[None, :]
+        return torch.complex(torch.cos(phase), torch.sin(phase)) / corr
 
+    def _spread_weights(self, x: torch.Tensor, wts: torch.Tensor, grid) -> torch.Tensor:
+        """The ES spread of the (C', n) weights at the sources' first two
+        coordinates into ``grid`` (C', nfy, nfx), or a new grid."""
+        p = self.plan
         u = [_fmod_positive(x[axis] / p.h[axis], p.nf[axis]) for axis in range(p.d)]
         if grid is None:
-            grid = torch.zeros((c.shape[0],) + tuple(p.nf), dtype=c.dtype,
-                               device=c.device)
-        spread(u[0], u[1], wts, grid, w, beta)
+            grid = torch.zeros((wts.shape[0],) + tuple(p.nf), dtype=wts.dtype,
+                               device=wts.device)
+        spread(u[0], u[1], wts, grid, p.kernel.w, p.kernel.beta)
         return grid
 
     def transform(self, g: torch.Tensor) -> torch.Tensor:
@@ -345,3 +501,74 @@ class Type3Executor:
         order."""
         ti, tv, order, runs = self._taps(G.real.dtype, sel)
         return interp(G.contiguous(), ti[0], ti[1], tv[0], tv[1], order=order, runs=runs)
+
+
+class Type3LowrankZExecutor(Type3Executor):
+    """Split-phase 3D type-3 execution via the low-rank z factorization.
+
+    Drop-in for :class:`Type3Executor` with (3, n) source coordinates: the
+    engine's spread -> transform -> interpolate steps are unchanged, grids
+    carry C*K channels in the c*K + k layout (``channel_multiplier``), and
+    :meth:`interpolate` contracts the K z-modes with the plan's target
+    coefficients on the device. ``.plan`` is the inner 2D plan, so grid
+    sizing sees the true 2D fine grid. The spread and interpolation run
+    the hand-written kernels of :mod:`.spread` and :mod:`.interp` at C*K
+    channels; the Chebyshev weights and the contraction are torch ops.
+    """
+
+    def __init__(self, zplan: Type3LowrankZPlan, device="cuda"):
+        super().__init__(zplan.plan2d, device=device)
+        self.zplan = zplan
+
+    @property
+    def channel_multiplier(self) -> int:
+        return self.zplan.K
+
+    def spread(self, x: torch.Tensor, c: torch.Tensor, grid=None) -> torch.Tensor:
+        """x: (3, n) source coords; c: (C, n). Accumulates into ``grid``
+        (C*K, nfy, nfx) in place when given, else into a new grid."""
+        p, zp = self.plan, self.zplan
+        # Pre-phase: 2D target centering plus the z-center factor; the
+        # pre-correction applies to the spread axes only.
+        phase = p.s_center[0] * x[0] + p.s_center[1] * x[1] + zp.s_center_z * x[2]
+        wts = c * self._prephase(x, phase)[None, :]
+        # Chebyshev z-modes. Clamp: masked (below-horizon) sources carry
+        # zero weight but may sit outside [zlo, zhi], where T_k explodes.
+        t = torch.clamp((x[2] - zp.x_center_z) / zp.x_half_z, -1.0, 1.0)
+        cheb = [torch.ones_like(t)]
+        if zp.K > 1:
+            cheb.append(t)
+        for _ in range(2, zp.K):
+            cheb.append(2.0 * t * cheb[-1] - cheb[-2])
+        f = torch.stack(cheb[: zp.K])  # (K, n)
+        C, n = wts.shape
+        wts_k = (wts[:, None, :] * f[None, :, :]).reshape(C * zp.K, n)
+        return self._spread_weights(x, wts_k, grid)
+
+    def _g(self, cdtype: torch.dtype, sel: np.ndarray | None):
+        """The (m, K) target coefficients of every target, or of ``sel``,
+        on the device, once per (dtype, subset)."""
+        key = ("g", cdtype, None if sel is None else np.asarray(sel).tobytes())
+        g = self._tables.get(key)
+        if g is None:
+            g_host = self.zplan.g if sel is None else self.zplan.g[sel]
+            g = self._tables[key] = torch.tensor(g_host, dtype=cdtype, device=self.device)
+        return g
+
+    def interpolate(self, G: torch.Tensor, sel: np.ndarray | None = None) -> torch.Tensor:
+        """(C*K, nfy, nfx) -> (C, m[sel]): the 2D taps of all C*K channels,
+        then the z-mode contraction."""
+        o = super().interpolate(G, sel)  # (C*K, m)
+        K = self.zplan.K
+        o = o.reshape(o.shape[0] // K, K, o.shape[1])
+        return torch.einsum("ckm,mk->cm", o, self._g(G.dtype, sel))
+
+
+def make_type3_lowrank_z_fn(zplan: Type3LowrankZPlan, device="cuda"):
+    """(x (3, n), c (C, n)) -> (C, m). One-shot convenience wrapper."""
+    ex = Type3LowrankZExecutor(zplan, device=device)
+
+    def run(x, c):
+        return ex.interpolate(ex.transform(ex.spread(x, c)))
+
+    return run

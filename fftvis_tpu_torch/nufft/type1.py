@@ -26,7 +26,9 @@ had a factored form (c times one factor, contracted against the other) and
 chose between them by the TPU's matrix-unit tile fill; on the card the
 outer form is faster in both dtypes, and the engine's source block bounds
 its factor (``cuda/engine.py`` ``source_block``). Float32 products run in
-full float32 (the engine turns TF32 off).
+full float32 (the engine turns TF32 off). ``products`` counts the products
+``spread`` adds (one a source block), on any device: a count of the path's
+source blocks, not of a hand-written kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import numpy as np
 import torch
 
 from .transform import _check_int32_grid, _fmod_positive
+
+products = 0
 
 
 @dataclass(frozen=True)
@@ -143,6 +147,8 @@ class Type1ExactExecutor:
         ex = self._factor(u[1], 1)  # (n, nmx)
         outer = (ey[:, :, None] * ex[:, None, :]).reshape(n, nmy * nmx)
         grid.view(C, nmy * nmx).addmm_(c, outer)
+        global products
+        products += 1
         return grid
 
     def transform(self, g: torch.Tensor) -> torch.Tensor:

@@ -120,10 +120,13 @@ def simulate_vis(
     at an eps of 1e-9 or more is replaced by K eigenbeams and per-antenna
     coefficients when an SVD of its tables reaches a residual of ``eps / 8``
     with at most half the channels (logged at INFO;
-    ``FFTVIS_AUTO_RANK=0`` turns it off). Raises ``NotImplementedError``
-    for ``mesh`` (ROADMAP item 10), non-coplanar arrays, and gridded arrays
-    the exact type-1 transform does not take (or under
-    ``FFTVIS_TYPE1=es``) unless type-3 is forced.
+    ``FFTVIS_AUTO_RANK=0`` turns it off). A non-coplanar array runs the
+    low-rank-z type-3 or the direct path, as the cost model picks; 8 times
+    or more of 4096 sources or more run horizon-banded (``FFTVIS_BAND=0``
+    turns it off). Raises ``NotImplementedError`` for ``mesh`` (ROADMAP
+    item 10) and gridded arrays the exact type-1 transform does not take
+    (or under ``FFTVIS_TYPE1=es``) unless type-3 is forced or
+    ``FFTVIS_TYPE1=exact``.
 
     Plans, device tables, device inputs and prepared beams are kept across
     calls under content keys (``cuda/engine.py``), so a sweep over one

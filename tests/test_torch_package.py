@@ -4,9 +4,10 @@
 - the NumPy host modules the port copies give exactly the arrays of the
   originals, and its tensor evaluators match the JAX ones;
 - the kernel wrappers refuse what the kernels do not take, and the slice
-  refuses what it leaves out (ES type-1, meshes, 3D arrays, beam-table
-  upsampling; on the eigenbeam basis path too) with
-  ``NotImplementedError``, an asynchronous call at dispatch;
+  refuses what it leaves out (ES type-1, meshes, the d = 3 Type3Executor
+  of the public NUFFT surface, beam-table upsampling; on the eigenbeam
+  basis path too) with ``NotImplementedError``, an asynchronous call at
+  dispatch;
 - on a CUDA card (marked ``cuda``; skipped without one), each CUDA kernel
   matches its plain torch version and counts its launches.
 """
@@ -52,6 +53,7 @@ from fftvis_tpu_torch.core import utils as core_utils
 from fftvis_tpu_torch.geometry import hex_array
 from fftvis_tpu_torch.nufft import interp as interp_mod
 from fftvis_tpu_torch.nufft import spread as spread_mod
+from fftvis_tpu_torch.nufft.transform import Type3Executor, plan_type3
 from fftvis_tpu_torch.utils import healpix
 
 REPO = Path(__file__).resolve().parent.parent
@@ -63,7 +65,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, fftvis_tpu_torch, fftvis_tpu_torch.cuda.engine, "
         "fftvis_tpu_torch._build, fftvis_tpu_torch.core.auto_rank, "
-        "fftvis_tpu_torch.core.beam_basis; "
+        "fftvis_tpu_torch.core.beam_basis, fftvis_tpu_torch.coords.banding; "
+        "from fftvis_tpu_torch.nufft.transform import Type3LowrankZExecutor, "
+        "Type3LowrankZPlan, plan_type3_lowrank_z, make_type3_lowrank_z_fn; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fftvis_tpu')); print(bad); sys.exit(bool(bad))"
     )
@@ -211,13 +215,19 @@ def test_slice_refuses_what_it_leaves_out(case, monkeypatch):
               freqs=np.array([1e8]), times=np.array([2459863.2]),
               beam=GaussianBeam(diameter=14.0),
               telescope_loc=TelescopeLocation(*SITE), device="cpu")
-    if case in ("3d", "async_fetch"):
-        # async_fetch: an asynchronous call refuses at dispatch, not at
-        # result(), what the slice leaves out.
-        kw["ants"] = {i: np.array([*rng.uniform(-50, 50, 2), rng.uniform(-5, 5)])
-                      for i in range(5)}
-        kw["force_use_type3"] = True
-        kw["async_fetch"] = case == "async_fetch"
+    if case == "3d":
+        # Non-coplanar arrays run (the low-rank-z executor); the full 3D
+        # fine grid of a d = 3 Type3Executor belongs to the public NUFFT
+        # surface, which the port leaves out.
+        plan = plan_type3(rng.uniform(-50, 50, (3, 20)), x_extent=2.3, eps=1e-6)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            Type3Executor(plan, device="cpu")
+        return
+    elif case == "async_fetch":
+        # An asynchronous call refuses at dispatch, not at result(), what the
+        # slice leaves out: ES type-1 asked for on a lattice.
+        monkeypatch.setenv("FFTVIS_TYPE1", "es")
+        kw.update(ants=hex_array(2), async_fetch=True)
     elif case == "polarized":
         # Per-antenna polarized beams on a lattice with ES type-1 asked
         # for: ES type-1 is not ported.
@@ -244,10 +254,12 @@ def test_slice_refuses_what_it_leaves_out(case, monkeypatch):
         kw.update(ants=hex_array(2), polarized=True, beam_coefs=np.ones((7, 2, 1)),
                   beam=[GaussianBeam(diameter=14.0), GaussianBeam(diameter=12.0)])
     elif case == "beam_coefs":
-        # An eigenbeam basis on a non-coplanar array.
-        kw.update(ants={i: np.array([*rng.uniform(-50, 50, 2), rng.uniform(-5, 5)])
-                        for i in range(4)},
-                  force_use_type3=True, polarized=True, beam_coefs=np.ones((4, 1, 1)))
+        # An eigenbeam basis on a lattice whose exact mode grid passes 512^2
+        # cells: only ES type-1 would take it.
+        sep = 14.6
+        pts = [(0, 0), (1, 0), (0, 1), (400, 0), (0, 400)]
+        kw.update(ants={i: np.array([a * sep, b * sep, 0.0]) for i, (a, b) in enumerate(pts)},
+                  polarized=True, beam_coefs=np.ones((5, 1, 1)))
     else:
         kw["mesh"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

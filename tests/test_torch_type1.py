@@ -8,8 +8,11 @@
   weights;
 - ``select_gridded_path`` and the gridded branch of ``plan_transform``
   decide as the JAX planner does, except where the JAX one runs ES type-1,
-  which the port does not have, and under ``FFTVIS_TYPE1=exact``, which the
-  port does not take: it raises there;
+  which the port does not have: it raises there; ``FFTVIS_TYPE1=exact``
+  forces the exact executor on both sides, past the 512^2-cell limit too,
+  and any value but auto/exact/es is refused;
+- under ``FFTVIS_TYPE1=exact`` the port's ``simulate_vis`` gives the JAX
+  package's result (1e-9 at precision 2);
 - ``simulate_vis`` in ``auto`` mode on hex_array(3) -- a lattice, so the
   exact type-1 path -- with one shared beam and with distinct complex
   per-antenna variants of the committed beamfits asset (flipped baselines
@@ -129,9 +132,10 @@ def _wide_lattice():
     return {i: np.array([a * sep, b * sep, 0.0]) for i, (a, b) in enumerate(pts)}
 
 
-@pytest.mark.parametrize("case", ["auto", "direct", "exact refused", "es", "wide"])
+@pytest.mark.parametrize("case", ["auto", "direct", "exact refused", "es", "wide",
+                                  "exact", "exact wide"])
 def test_select_gridded_path_decisions(case, monkeypatch):
-    ants = _wide_lattice() if case == "wide" else hex_array(3)
+    ants = _wide_lattice() if case in ("wide", "exact wide") else hex_array(3)
     keys = list(ants)
     bls = [(keys[i], keys[j]) for i in range(len(keys)) for j in range(i, len(keys))]
     idx = np.arange(len(keys)) % 2
@@ -146,12 +150,16 @@ def test_select_gridded_path_decisions(case, monkeypatch):
     args = (ants, bls, np.array([1e8]), 1e-13, 2.0, 1e-6, False, flipped, len(bls), 100, 2,
             pp.npairs)
     if case == "exact refused":
-        # The JAX package's override past the exact path's checks: the port
-        # leaves the choice to them.
-        monkeypatch.setenv("FFTVIS_TYPE1", "exact")
-        with pytest.raises(ValueError, match="expected 'auto' or 'es'"):
+        # FFTVIS_TYPE1 takes the JAX package's values, exact among them; any
+        # other value is refused.
+        monkeypatch.setenv("FFTVIS_TYPE1", "exacts")
+        with pytest.raises(ValueError, match="expected 'auto', 'exact' or 'es'"):
             planning.plan_transform(mode, *args, device="cpu")
         return
+    if case.startswith("exact"):
+        # The JAX package's override past the exact path's checks (a mode
+        # grid past 512^2 cells with "exact wide").
+        monkeypatch.setenv("FFTVIS_TYPE1", "exact")
     want = jax_planning.plan_transform(mode, *args)
     if case in ("es", "wide"):
         # The JAX planner runs ES type-1 there; the port refuses.
@@ -168,7 +176,10 @@ def test_select_gridded_path_decisions(case, monkeypatch):
         np.testing.assert_array_equal(got.targets, want.targets)
         return
     assert isinstance(got.executor, type1.Type1ExactExecutor)
+    assert type(want.executor).__name__ == "Type1ExactExecutor"
     gp, wp = got.executor.plan, want.executor.plan
+    if case == "exact wide":
+        assert int(np.prod(gp.nf)) > planning.DENSE_GRID_LIMIT
     assert (gp.nf, gp.kmax, gp.split) == (wp.nf, wp.kmax, wp.split)
     np.testing.assert_array_equal(gp.gather_idx, wp.gather_idx)
 
@@ -216,6 +227,19 @@ def test_shared_beam_auto_mode_takes_exact_type1(precision):
     want = jax_simulate_vis(beam=JaxGaussian(diameter=14.0), telescope_loc=JaxLocation(*SITE),
                             **kw)
     _check(got, want, _oracle([JaxGaussian(diameter=14.0)], kw), precision,
+           (1, 2, len(kw["baselines"])))
+
+
+def test_forced_exact_matches_reference(monkeypatch):
+    """``FFTVIS_TYPE1=exact`` on a small lattice: the exact type-1 path on
+    both sides, where the port used to refuse the value."""
+    monkeypatch.setenv("FFTVIS_TYPE1", "exact")
+    kw = _inputs(precision=2)
+    got = simulate_vis(beam=GaussianBeam(diameter=14.0), telescope_loc=TelescopeLocation(*SITE),
+                       device="cpu", **kw)
+    want = jax_simulate_vis(beam=JaxGaussian(diameter=14.0), telescope_loc=JaxLocation(*SITE),
+                            **kw)
+    _check(got, want, _oracle([JaxGaussian(diameter=14.0)], kw), 2,
            (1, 2, len(kw["baselines"])))
 
 
