@@ -76,6 +76,21 @@ Phases, one printed line each (any failure raises and exits non-zero):
      and float64 at precision 2 with type-3 forced, 4096 sources and its
      14,365 targets; gates 1e-5 / 1e-12 of max|plain|, the kernel alone,
      the bound and the sparse yardsticks beside each;
+   - the adjoint kernels at their forward kernels' shapes, float32 and
+     float64: spread_adjoint (the slice grids, C = 1 and 4, uniform and
+     dense; the per-antenna run's C = 40), interp_adjoint (the slice
+     executor's tables, C = 1 and 4; every pair's target subset of the
+     per-antenna executor) and beam_eval_adjoint ((91, 360, 296) order 1,
+     (91, 360, 8) order 3, the table's and the coordinates' gradients);
+     each against its plain adjoint and the dot-product identity <A c, g>
+     = <c, A^H g> with its forward kernel, gates 1e-5 / 1e-12 of
+     max|plain| (the atomics add in an order that changes from run to
+     run), the kernel alone, the bound (the output written once, what is
+     gathered read once) and the yardstick: ``sparse.mm`` with the
+     transposed ES or tap CSR, ``grid_sample``'s input backward at order 1;
+   - the backward of ``pair_rows`` at the north star's shapes: the
+     evaluations' gradient (torch ops, no kernel) and the sky's (one rerun
+     of the kernel), timed;
 4. run ``simulate_vis`` on the slice configuration -- hex_array(11,
    outriggers=2) with all 63,190 i<=j baselines, the nside=64 HEALPix sky,
    2 frequencies x 3 times, forced type-3 -- with
@@ -161,7 +176,24 @@ Phases, one printed line each (any failure raises and exits non-zero):
      (``torch.cuda.set_sync_debug_mode("warn")``), between dispatch and
      ``result()`` and in ``result()``;
    - banding: warm walls of the 24h row, banded and unbanded in turns;
-8. print the kernels' JSON line, then the result line.
+8. gradients: ``build_differentiable_sim`` and
+   ``build_differentiable_direct_sim`` on the card, loss sum |sim -
+   data|^2 with data the forward at seeded perturbed parameters:
+   (a) the north star's beam calibration (fluxes, the stacked 37-beam
+   table, gains; precision 2, exact type-1); (b) the polarized tabulated
+   slice with type-3 forced, fluxes and gains, at precision 1 (2 f x 3 t)
+   and 2 (1 f x 1 t); (c) per-antenna type-3 at phase 4's reduced depth
+   with the table differentiated; (d) the direct front-end on hex_array(4)
+   (703 baselines), the nside=32 sky after the cull, GaussianBeam(14),
+   precision 2, in ra, dec, antpos, fluxes and gains. Each: the forward
+   against ``simulate_vis`` (1e-12 / 1e-6 of max|V|), the derivative along
+   a seeded direction in each parameter against extrapolated central
+   differences (1e-6 / 1e-3), for (a) on every 8th baseline and (d) the
+   card's gradients against the port's on the CPU (1e-9), the adjoint
+   kernels' launches, forward and backward walls and one backward's
+   device busy;
+9. print the kernels' JSON line (the adjoints' launches those of one
+   gradient step of (b), (c) and (a)), then the result line.
 """
 
 from __future__ import annotations
@@ -1964,6 +1996,603 @@ def check_new_rows(z3d, z_vis, obs, obs_vis) -> None:
         raise AssertionError("the banded 24h row misses its accuracy gate")
 
 
+# --------------------------------------------------------- adjoint kernels
+
+def vdot(a, b) -> complex:
+    """<a, b> = sum conj(a) b over every entry."""
+    import torch
+
+    return complex(torch.vdot(a.reshape(-1), b.reshape(-1)).item())
+
+
+def identity_err(lhs: complex, rhs: complex) -> float:
+    return abs(lhs - rhs) / abs(lhs)
+
+
+def adjoint_row(name, kernel, err, scale, ident, ms, plain, bnd, lib_ms) -> tuple:
+    """Gate one phase-3 adjoint case: its max abs error against the plain
+    adjoint, relative to max|plain| ``scale``, and the dot-product identity
+    with the forward kernel, both within TOL (the atomics add in an order
+    that changes from run to run). Returns the row with the abs error."""
+    if not (err <= TOL[name] * scale and ident <= TOL[name]):
+        raise AssertionError(f"{kernel} {name}: err {err / scale:.3e} of max|plain|, "
+                             f"identity {ident:.3e}")
+    return err, ms, plain, bnd, lib_ms
+
+
+def csr(rows, cols, vals, shape):
+    """A torch CSR matrix from COO triplets (summing duplicates)."""
+    import torch
+
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape).coalesce() \
+        .to_sparse_csr()
+
+
+def check_spread_adjoint(name, rdt, cdt, grid, w: int, beta: float, C: int, case: str, rng,
+                         label: str = "") -> tuple:
+    """One phase-3 spread_adjoint case: the wrapper against its plain
+    version for a random (C, nfy, nfx) grid gradient, the identity <spread
+    c, g> = <c, spread_adjoint g> with the forward kernel, the kernel alone,
+    the bound (the touched cells of the C planes read once, coordinates,
+    the (C, n) output written once) and ``sparse.mm`` of the transposed ES
+    CSR."""
+    import torch
+
+    from fftvis_tpu_torch.nufft import spread as spread_mod
+
+    nfy, nfx = grid
+    uy_np, ux_np, c_np = spread_sources(case, nfy, nfx, C, rng)
+    uy, ux = (torch.tensor(a, dtype=rdt, device="cuda") for a in (uy_np, ux_np))
+    c = torch.tensor(c_np, dtype=cdt, device="cuda")
+    g = torch.complex(torch.randn((C, nfy, nfx), dtype=rdt, device="cuda"),
+                      torch.randn((C, nfy, nfx), dtype=rdt, device="cuda"))
+    got = spread_mod.spread_adjoint(uy, ux, g, w, beta)
+    want = spread_mod.spread_adjoint_plain(uy, ux, g, w, beta)
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    Ac = spread_mod.spread(uy, ux, c, torch.zeros_like(g), w, beta)
+    ident = identity_err(vdot(Ac, g), vdot(c, got))
+    del Ac, want
+    ms = cuda_ms(lambda: spread_mod.spread_adjoint(uy, ux, g, w, beta), 20)
+    plain = cuda_ms(lambda: spread_mod.spread_adjoint_plain(uy, ux, g, w, beta), 5)
+    alone = kernel_us(lambda: spread_mod.spread_adjoint(uy, ux, g, w, beta), "spread_adjoint_gm")
+    flat_idx, vals = spread_mod.spread_taps(uy, ux, nfy, nfx, w, beta)
+    n = uy.shape[0]
+    rb = 4 if name == "float32" else 8
+    cells = torch_unique_count(flat_idx)
+    bnd = bound(cells * C * 2 * rb + 2 * n * rb + C * n * 2 * rb,
+                n * (16 * w + w * w + 4 * C * w * w), name)
+    lib_ms, lib_txt = None, ""
+    if case == "uniform":
+        def make():
+            src = torch.arange(n, device="cuda").repeat_interleave(w * w)
+            St = csr(src, flat_idx, vals.reshape(-1).to(cdt), (n, nfy * nfx))
+            G2 = g.reshape(C, -1).T.contiguous()
+            return lambda: torch.sparse.mm(St, G2)
+        lib = library(f"spread_adjoint {name} C={C}", make)
+        if lib is not None:
+            lib_ms = cuda_ms(lib, 5)
+            lib_txt = f"; sparse.mm {lib_ms:.4f} ms"
+    print(f"[3] spread_adjoint {name} {case}{label}: grid ({nfy}, {nfx}) w={w} n={n} C={C}: "
+          f"max err {err:.3e} = {err / scale:.3e} of max|plain|, identity {ident:.3e}; "
+          f"kernel {ms:.4f} ms "
+          f"(alone {alone:.2f} us), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, "
+          f"{cells} cells){lib_txt}", flush=True)
+    del g, got
+    torch.cuda.empty_cache()
+    return adjoint_row(name, "spread_adjoint", err, scale, ident, ms, plain, bnd, lib_ms)
+
+
+def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, plain_tabs, C: int, rng,
+                         label: str = "") -> tuple:
+    """One phase-3 interp_adjoint case on one set of the executor's tables
+    (rows in target order, the order and the runs; ``plain_tabs`` the same
+    taps in target order): the wrapper against its plain version for a
+    random (C, m) gradient, the identity <interp G, g> = <G, interp_adjoint
+    g> with the forward kernel, the kernel alone, the bound (the (C, nfy,
+    nfx) output written once, the tap tables and the gradient read once)
+    and ``sparse.mm`` of the transposed tap CSR."""
+    import torch
+
+    from fftvis_tpu_torch.nufft import interp as interp_mod
+
+    nfy, nfx = nf
+    m, w = plain_tabs[0].shape
+    g = torch.complex(torch.randn((C, m), dtype=rdt, device="cuda"),
+                      torch.randn((C, m), dtype=rdt, device="cuda"))
+
+    def call():
+        return interp_mod.interp_adjoint(g, *tabs, nf, order=order, runs=runs)
+
+    got = call()
+    want = interp_mod.interp_adjoint_plain(g, *plain_tabs, nfy, nfx)
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    del want
+    G = torch.complex(torch.randn((C, nfy, nfx), dtype=rdt, device="cuda"),
+                      torch.randn((C, nfy, nfx), dtype=rdt, device="cuda"))
+    ident = identity_err(vdot(interp_mod.interp(G, *tabs, order=order, runs=runs), g),
+                         vdot(G, got))
+    del G, got
+    ms = cuda_ms(call, 20)
+    plain = cuda_ms(lambda: interp_mod.interp_adjoint_plain(g, *plain_tabs, nfy, nfx), 5)
+    alone = kernel_us(call, "interp_adjoint_runs")
+    rb = 4 if name == "float32" else 8
+    bnd = bound(C * nfy * nfx * 2 * rb + m * w * 2 * (4 + rb) + C * m * 2 * rb,
+                m * w * w * (1 + 4 * C), name)
+    lib_ms, lib_txt = None, ""
+
+    def make():
+        iy, ix, vy, vx = plain_tabs
+        cols = (iy.long()[:, :, None] * nfx + ix.long()[:, None, :]).reshape(-1)
+        rows = torch.arange(m, device="cuda").repeat_interleave(w * w)
+        vals = (vy[:, :, None] * vx[:, None, :]).reshape(-1).to(cdt)
+        Tt = csr(cols, rows, vals, (nfy * nfx, m))
+        gt = g.T.contiguous()
+        return lambda: torch.sparse.mm(Tt, gt)
+    lib = library(f"interp_adjoint {name}{label} C={C}", make)
+    if lib is not None:
+        lib_ms = cuda_ms(lib, 5)
+        lib_txt = f"; sparse.mm {lib_ms:.4f} ms"
+    print(f"[3] interp_adjoint {name}{label}: grid ({nfy}, {nfx}) w={w} m={m} C={C}: "
+          f"max err {err:.3e} = {err / scale:.3e} of max|plain|, identity {ident:.3e}; "
+          f"kernel {ms:.4f} ms "
+          f"(alone {alone:.2f} us), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}){lib_txt}", flush=True)
+    del g, lib
+    torch.cuda.empty_cache()
+    return adjoint_row(name, "interp_adjoint", err, scale, ident, ms, plain, bnd, lib_ms)
+
+
+def check_beam_eval_adjoint(ch: int, order: int, dt, rng) -> tuple:
+    """One phase-3 beam_eval_adjoint case on a (91, 360, ch) table, 4096
+    points with seam and edge rows, wrapped azimuth: the table and
+    coordinate gradients against the plain adjoint in the same dtype (and,
+    for float32, the table gradient against the float64 plain adjoint),
+    the identity <beam_eval(data), g> = <data, gdata> with the forward
+    kernel; times of the table gradient alone (the stacked table's path),
+    the kernel alone, the bound (the (ny, nx, ch) table gradient written
+    once, the points and the gradient read once) and, at order 1, the
+    backward of ``grid_sample`` with respect to its input."""
+    import torch
+
+    from fftvis_tpu_torch.beams import eval as eval_mod
+
+    name = str(dt).split(".")[-1]
+    ny, nx = 91, 360
+    data = torch.tensor(rng.normal(size=(ny, nx, ch)), dtype=dt, device="cuda")
+    y, x = (torch.tensor(a, dtype=dt, device="cuda") for a in beam_points(ny, nx, 4096, rng))
+    g = torch.tensor(rng.normal(size=(4096, ch)), dtype=dt, device="cuda")
+    got = eval_mod.beam_eval_adjoint(data, y, x, g, order, True, table=True, coords=True)
+    want = eval_mod.beam_eval_adjoint_plain(data, y, x, g, order, True, table=True, coords=True)
+    # The table's gradient sets the row; the coordinates' share its gate.
+    err, scale = (got[0] - want[0]).abs().max().item(), want[0].abs().max().item()
+    err_xy = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got[1:], want[1:]))
+    if not err_xy <= TOL[name]:
+        raise AssertionError(f"beam_eval_adjoint {name}: coordinate gradients {err_xy:.3e}")
+    want64 = eval_mod.beam_eval_adjoint_plain(data.double(), y.double(), x.double(), g.double(),
+                                              order, True)[0]
+    err64 = ((got[0].double() - want64).abs().max() / want64.abs().max()).item()
+    lhs = float((eval_mod.beam_eval(data, y, x, order=order, wrap_x=True).double()
+                 * g.double()).sum())
+    ident = identity_err(lhs, float((data.double() * got[0].double()).sum()))
+    del want, want64
+
+    def call():
+        return eval_mod.beam_eval_adjoint(data, y, x, g, order, True)
+
+    ms = cuda_ms(call, 50)
+    alone = kernel_us(call, "beam_eval_adjoint_points")
+    ms_xy = cuda_ms(lambda: eval_mod.beam_eval_adjoint(data, y, x, g, order, True, coords=True),
+                    50)
+    plain = cuda_ms(lambda: eval_mod.beam_eval_adjoint_plain(data, y, x, g, order, True), 20)
+    rb = data.element_size()
+    k = 2 if order == 1 else 4
+    bnd = bound(ny * nx * ch * rb + 2 * 4096 * rb + 4096 * ch * rb, 2 * 4096 * ch * k * k, name)
+    lib_ms, lib_txt = None, "library call: none (bicubic is Keys' convolution, not the B-spline)"
+    if order == 1:
+        table = torch.cat([data, data[:, :1]], dim=1).permute(2, 0, 1)[None].contiguous()
+        table.requires_grad_()
+        grid = torch.stack([2 * x / nx - 1, 2 * y / (ny - 1) - 1], dim=-1).view(1, 1, -1, 2)
+        out = torch.nn.functional.grid_sample(table, grid, mode="bilinear",
+                                              padding_mode="border", align_corners=True)
+        gout = g.T.reshape(out.shape).contiguous()
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, table, gout, retain_graph=True), 20)
+        lib_txt = f"grid_sample backward (input) {lib_ms:.4f} ms"
+    print(f"[3] beam_eval_adjoint {name}: table ({ny}, {nx}, {ch}) order {order} n=4096: max err "
+          f"{err:.3e} = {err / scale:.3e} of max|plain| (vs float64 plain {err64:.3e}; the "
+          f"coordinates {err_xy:.3e}), identity {ident:.3e}; "
+          f"kernel {ms:.4f} ms (alone {alone:.2f} us; with the coordinates {ms_xy:.4f} ms), "
+          f"plain {plain:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}); {lib_txt}", flush=True)
+    return adjoint_row(name, "beam_eval_adjoint", err, scale, ident, ms, plain, bnd, lib_ms)
+
+
+def check_pair_rows_backward(ns) -> None:
+    """Phase 3: the backward of ``PairRowsFunction`` at the north star's K =
+    37 Jones beams, P = 180 pairs and a 4096-point block, all unmasked,
+    Stokes-I sky, float32 and float64: the evaluations' gradient (the torch
+    ops of pair_rows_plain's derivative; no kernel) and the sky's (one
+    rerun of the kernel at the unit sky), each by CUDA events and its
+    device time (torch.profiler), beside the forward kernel; the sky's
+    gradient against the plain rows' autograd."""
+    import torch
+
+    from fftvis_tpu_torch.beams import eval as eval_mod
+
+    pair_i, pair_j, pp = pair_arrays(ns)
+    rng = np.random.default_rng(12)
+    n, K, ch_shape = 4096, NS_BEAMS, (2, 2, 2)
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        evals = torch.tensor(rng.normal(size=(n, K * 8)), dtype=dt, device="cuda")
+        sky = torch.tensor(rng.uniform(0.1, 1, n), dtype=dt, device="cuda")
+        mask = torch.ones(n, dtype=dt, device="cuda")
+        # One graph a gradient: a Function's backward computes what its
+        # graph's inputs require, whichever one is asked for.
+        ev, sk = evals.clone().requires_grad_(), sky.clone().requires_grad_()
+        rows_ev = eval_mod.pair_rows(ev, pair_i, pair_j, sky, mask, ch_shape, False)
+        rows_sk = eval_mod.pair_rows(evals, pair_i, pair_j, sk, mask, ch_shape, False)
+        g = torch.complex(torch.randn(rows_ev.shape, dtype=dt, device="cuda"),
+                          torch.randn(rows_ev.shape, dtype=dt, device="cuda"))
+
+        def grad_of(rows, x):
+            return lambda: torch.autograd.grad(rows, x, g, retain_graph=True)
+
+        ms_ev, ms_sky = cuda_ms(grad_of(rows_ev, ev), 5), cuda_ms(grad_of(rows_sk, sk), 10)
+        dev_ev, dev_sky = device_ms(grad_of(rows_ev, ev), 3), device_ms(grad_of(rows_sk, sk), 5)
+        fwd = cuda_ms(lambda: eval_mod.pair_rows(evals, pair_i, pair_j, sky, mask, ch_shape,
+                                                 False), 20)
+        sk2 = sky.clone().requires_grad_()
+        want = torch.autograd.grad(eval_mod.pair_rows_plain(evals, pair_i, pair_j, sk2, mask,
+                                                            ch_shape, False), sk2, g)[0]
+        got = grad_of(rows_sk, sk)()[0]
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"[3] pair_rows backward {name}: K={K} P={pp.npairs} n={n} Jones x I: "
+              f"evaluations (torch ops) {ms_ev:.4f} ms, device {dev_ev:.4f} ms; sky (unit-sky "
+              f"rerun) {ms_sky:.4f} ms, device {dev_sky:.4f} ms, err {err:.3e} of the plain "
+              f"rows' autograd; forward kernel {fwd:.4f} ms", flush=True)
+        if not err <= TOL[name]:
+            raise AssertionError(f"pair_rows sky gradient {name} disagrees: {err:.3e}")
+        del rows_ev, rows_sk, g, ev, sk
+        torch.cuda.empty_cache()
+
+
+def check_adjoints(cfg, pa) -> dict:
+    """Phase 3: the three adjoint kernels at the shapes their forward
+    kernels are checked at, float32 and float64: spread_adjoint on the
+    slice grids (C = 1 and 4, uniform and dense) and at the per-antenna
+    run's C = 40; interp_adjoint on the slice executor's tables (C = 1 and
+    4) and on every pair's target subset of the per-antenna executor (C =
+    4); beam_eval_adjoint on (91, 360, 296) at order 1 and (91, 360, 8) at
+    order 3. Returns {kernel: {dtype: row}} of the main shapes (C = 4
+    uniform; C = 4 all targets; (91, 360, 296) order 1)."""
+    import torch
+
+    from fftvis_tpu_torch.core.utils import speed_of_light
+    from fftvis_tpu_torch.cuda.planning import plan_transform
+    from fftvis_tpu_torch.nufft import interp as interp_mod
+    from fftvis_tpu_torch.nufft.transform import Type3Executor, plan_type3
+
+    ants, bls = cfg["ants"], cfg["baselines"]
+    targets = np.array([ants[j][:2] - ants[i][:2] for i, j in bls]).T
+    x_ext = 2 * np.pi * max(FREQS) / speed_of_light
+    rng = np.random.default_rng(11)
+    torch.manual_seed(11)
+    out = {"spread_adjoint": {}, "interp_adjoint": {}, "beam_eval_adjoint": {}}
+    _, _, pp = pair_arrays(pa)
+    flipped = np.zeros(len(pa["baselines"]), dtype=bool)
+    for sel, fl in zip(pp.bls_idxs, pp.flipped):
+        flipped[sel] = fl
+    pa_ex = plan_transform("type3", pa["ants"], pa["baselines"], pa["freqs"], 5e-7, 2, 1e-6,
+                           False, flipped, len(pa["baselines"]), SPREAD_SOURCES, 2, pp.npairs,
+                           device="cuda").executor
+    for rdt, cdt, eps in ((torch.float32, torch.complex64, 5e-7),
+                          (torch.float64, torch.complex128, 1e-13)):
+        name = str(rdt).split(".")[-1]
+        plan = plan_type3(targets, x_extent=x_ext, eps=eps)
+        w, beta, nf = plan.kernel.w, plan.kernel.beta, plan.nf
+        for C in (1, 4):
+            for case in ("uniform", "dense"):
+                row = check_spread_adjoint(name, rdt, cdt, nf, w, beta, C, case, rng)
+                if (C, case) == (4, "uniform"):
+                    out["spread_adjoint"][name] = row
+        p = pa_ex.plan
+        check_spread_adjoint(name, rdt, cdt, p.nf, p.kernel.w, p.kernel.beta, 4 * pp.npairs,
+                             "uniform", rng, label=f" per-antenna ({pp.npairs} pairs)")
+        ex = Type3Executor(plan, device="cuda")
+        ti, tv, order, runs = ex._taps(rdt)
+        plain = [torch.tensor(a, dtype=dt, device="cuda") for a, dt in
+                 ((plan.tap_idx[0], torch.int32), (plan.tap_idx[1], torch.int32),
+                  (plan.tap_val[0], rdt), (plan.tap_val[1], rdt))]
+        for C in (1, 4):
+            row = check_interp_adjoint(name, rdt, cdt, nf, (*ti, *tv), order, runs, plain, C,
+                                       rng)
+            if C == 4:
+                out["interp_adjoint"][name] = row
+        del ex, plain
+        def subset(sel):
+            ti, tv, order, runs = pa_ex._taps(rdt, sel)
+            plain = [torch.tensor(a[sel], dtype=dt, device="cuda") for a, dt in
+                     ((p.tap_idx[0], torch.int32), (p.tap_idx[1], torch.int32),
+                      (p.tap_val[0], rdt), (p.tap_val[1], rdt))]
+            return (*ti, *tv), order, runs, plain
+
+        errs = []
+        for sel in pp.bls_idxs:
+            tabs, order, runs, plain = subset(sel)
+            g = torch.complex(torch.randn((4, len(sel)), dtype=rdt, device="cuda"),
+                              torch.randn((4, len(sel)), dtype=rdt, device="cuda"))
+            got = interp_mod.interp_adjoint(g, *tabs, p.nf, order=order, runs=runs)
+            want = interp_mod.interp_adjoint_plain(g, *plain, *p.nf)
+            errs.append(((got - want).abs().max() / want.abs().max()).item())
+            del got, want
+        if not max(errs) <= TOL[name]:
+            raise AssertionError(f"interp_adjoint {name} on a pair's subset: {max(errs):.3e}")
+        big = max(pp.bls_idxs, key=len)
+        check_interp_adjoint(name, rdt, cdt, p.nf, *subset(big), 4, rng,
+                             label=f" subset (the largest, m={len(big)}; all {len(errs)} "
+                             f"pairs' subsets max err {max(errs):.3e})")
+        for ch, order in ((8 * NS_BEAMS, 1), (8, 3)):
+            row = check_beam_eval_adjoint(ch, order, rdt, rng)
+            if order == 1:
+                out["beam_eval_adjoint"][name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- gradients
+
+# Forward against simulate_vis on the card, relative to max|V|.
+GRAD_FWD_TOL = {1: 1e-6, 2: 1e-12}
+# Directional derivative against central differences of the float64 loss,
+# Richardson-extrapolated from steps h and 2h: (8 D(h) - D(2h)) / 6 is
+# exact for a loss of degree 4 or less along the line, which the engine's
+# losses are in each parameter (linear in fluxes, bilinear in gains and in
+# a polarized beam table), so only rounding is left: far below 1e-6 at
+# precision 2; at precision 1 the forward rounds in float32, ~1e-5 of the
+# derivative at a step of 1e-2.
+GRAD_FD_TOL = {1: 1e-3, 2: 1e-6}
+# The step: a fraction of the largest entry (fluxes, beam tables) or of 1
+# (gains); positions take an absolute angle or length (the fringes make the
+# direct front-end's loss no polynomial in them).
+GRAD_FD_STEP = {1: 1e-2, 2: 1e-4}
+GRAD_FD_ABS = {"ra": 1e-6, "dec": 1e-6, "antpos": 1e-5}
+# Card against CPU gradients, relative to the largest entry: float64 sums
+# in other orders (and atomics) at precision 2; float32 at precision 1.
+GRAD_CPU_TOL = {1: 1e-4, 2: 1e-9}
+
+
+def perturbed(params, rng, scale: float = 0.05) -> dict:
+    """A seeded multiplicative perturbation of every parameter (gains: of
+    their real and imaginary parts around 1 + 0j)."""
+    import torch
+
+    out = {}
+    for k, p in params.items():
+        a = p.detach().cpu().numpy()
+        noise = rng.standard_normal(a.shape)
+        a = a + scale * noise if k == "gains" else a * (1 + scale * noise)
+        out[k] = torch.tensor(a, dtype=p.dtype, device=p.device)
+    return out
+
+
+def backward_busy_ms(loss, params) -> float:
+    """Device time of one backward (every device-side event;
+    torch.profiler), its forward outside the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    value = loss(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(value, list(params.values()))
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            total += ev.self_cuda_time_total if us is None else us
+    return total / 1e3
+
+
+def grad_setup(sim, params, seed: int):
+    """The loss sum |sim - data|^2 in float64, data the forward at the
+    seeded perturbation of the parameters."""
+    import torch
+
+    with torch.no_grad():
+        data = sim(perturbed(params, np.random.default_rng(seed))).to(torch.complex128)
+
+    def loss(p):
+        return (sim(p).to(torch.complex128) - data).abs().pow(2).sum()
+    return loss
+
+
+def directional_checks(label, loss, params, grads, precision, seed: int) -> list:
+    """The loss's derivative along a seeded random direction d in each
+    parameter, <grad, d>, against the Richardson-extrapolated central
+    difference (GRAD_FD_TOL); raises past it."""
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    step = GRAD_FD_STEP[precision]
+    errs = []
+    for (k, p), g in zip(params.items(), grads):
+        base = p.detach()
+        d = torch.tensor(rng.standard_normal(tuple(base.shape)), dtype=base.dtype,
+                         device=base.device)
+        if k in GRAD_FD_ABS:
+            d = d * GRAD_FD_ABS[k]
+        else:
+            d = d * step * (1.0 if k == "gains" else base.abs().max())
+        dl = float((g.double() * d.double()).sum())
+        with torch.no_grad():
+            def central(m):
+                return (float(loss({**params, k: base + m * d}))
+                        - float(loss({**params, k: base - m * d}))) / 2
+            fd = (8 * central(1) - central(2)) / 6
+        err = abs(dl - fd) / max(abs(dl), abs(fd))
+        errs.append(f"{k} {err:.2e}")
+        if not err <= GRAD_FD_TOL[precision]:
+            raise AssertionError(f"{label}: {k} directional derivative {dl!r} against the "
+                                 f"central difference {fd!r} ({err:.3e})")
+    return errs
+
+
+def grad_step(label, sim, params, loss, counters, want_adjoints) -> tuple:
+    """One forward and backward on the card, timed, with the launch counts
+    of both: every adjoint kernel of ``want_adjoints`` launched, none
+    other. Returns (grads, launches, forward s, backward s)."""
+    import torch
+
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = loss(params)
+    torch.cuda.synchronize()
+    fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(value, list(params.values()))
+    torch.cuda.synchronize()
+    bwd = time.perf_counter() - t0
+    got = read(counters)
+    adjoints = [k for k in got if k.endswith("_adjoint")]
+    if any((got[k] > 0) != (k in want_adjoints) for k in adjoints):
+        raise AssertionError(f"{label}: launches {got}, want adjoints {want_adjoints}")
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError(f"{label}: a gradient is not finite")
+    return grads, got, fwd, bwd
+
+
+def gradient_run(label, build, kw, want_vis, precision, counters, want_adjoints, seed,
+                 cpu_kw=None) -> dict:
+    """Phase 8, one configuration: the forward against simulate_vis, one
+    timed gradient step with its launches, the directional derivatives,
+    the device busy of one backward and, with ``cpu_kw``, the card's
+    gradients on that configuration against the port's on the CPU.
+    Returns the step's launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    sim, params = build(device="cuda", **kw)
+    built = time.perf_counter() - t0
+    if want_vis is not None:
+        with torch.no_grad():
+            v = sim(params).cpu().numpy()
+        fwd_err = max_rel(v, want_vis)
+        if not fwd_err <= GRAD_FWD_TOL[precision]:
+            raise AssertionError(f"{label}: sim_fn against simulate_vis {fwd_err:.3e}")
+        fwd_txt = f"sim_fn vs simulate_vis {fwd_err:.3e} of max|V| (gate {GRAD_FWD_TOL[precision]:.0e})"
+    else:
+        fwd_txt = "sim_fn vs simulate_vis: none (the direct front-end)"
+    loss = grad_setup(sim, params, seed)
+    grads, got, fwd, bwd = grad_step(label, sim, params, loss, counters, want_adjoints)
+    fd = directional_checks(label, loss, params, grads, precision, seed)
+    busy = backward_busy_ms(loss, params)
+    cpu_txt = ""
+    if cpu_kw is not None:
+        sim_c, params_c = build(device="cuda", **cpu_kw)
+        loss_c = grad_setup(sim_c, params_c, seed)
+        g_card = torch.autograd.grad(loss_c(params_c), list(params_c.values()))
+        t0 = time.perf_counter()
+        sim_h, params_h = build(device="cpu", **cpu_kw)
+        loss_h = grad_setup(sim_h, params_h, seed)
+        g_cpu = torch.autograd.grad(loss_h(params_h), list(params_h.values()))
+        errs = {k: max_rel(a.cpu().numpy(), b.numpy())
+                for k, a, b in zip(params_h, g_card, g_cpu)}
+        cpu_txt = (f"; card vs CPU gradients ({len(cpu_kw['baselines'])} baselines, "
+                   f"{time.perf_counter() - t0:.1f} s on the CPU): "
+                   + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                   + f" (gate {GRAD_CPU_TOL[precision]:.0e})")
+        if not max(errs.values()) <= GRAD_CPU_TOL[precision]:
+            raise AssertionError(f"{label}: card against CPU gradients {errs}")
+        del sim_c, params_c, g_card
+    shapes = ", ".join(f"{k} {tuple(p.shape)}" for k, p in params.items())
+    print(f"[8] gradients {label}: params {shapes}; {fwd_txt}; directional derivative vs "
+          f"central difference (gate {GRAD_FD_TOL[precision]:.0e}): {', '.join(fd)}{cpu_txt}; "
+          f"launches of one step {got}; build {built:.3f} s, forward {fwd:.3f} s, backward "
+          f"{bwd:.3f} s, backward device busy {busy:.3f} ms", flush=True)
+    del sim, params, grads
+    torch.cuda.empty_cache()
+    return got
+
+
+def direct_config():
+    """Run (d): hex_array(4) (37 antennas, all 703 i <= j baselines), the
+    nside=32 sky after the cull, GaussianBeam(14), 1 frequency x 2 times,
+    precision 2."""
+    from fftvis_tpu_torch import TelescopeLocation
+    from fftvis_tpu_torch.beams import GaussianBeam
+    from fftvis_tpu_torch.coords.rotation import SourceRotation
+    from fftvis_tpu_torch.geometry import hex_array
+    from fftvis_tpu_torch.utils import healpix_radec
+
+    ants = hex_array(4, sep=14.6)
+    keys = list(ants)
+    ra, dec = healpix_radec(32)
+    kw = dict(ants=ants, freqs=np.array(NS_FREQS), times=NS_TIMES,
+              telescope_loc=TelescopeLocation(np.deg2rad(LAT), np.deg2rad(LON), ALT))
+    keep = SourceRotation(ra, dec, kw["times"], kw["telescope_loc"]).cull_never_visible()
+    if keep is not None:
+        ra, dec = ra[keep], dec[keep]
+    rng = np.random.default_rng(4)
+    return dict(kw, ra=ra, dec=dec, fluxes=rng.uniform(0.1, 1.0, (ra.size, 1)),
+                beam=GaussianBeam(diameter=14.0), polarized=False, precision=2,
+                baselines=[(keys[i], keys[j]) for i in range(len(keys))
+                           for j in range(i, len(keys))])
+
+
+def gradient_runs(cfg, ns, pa, counters) -> dict:
+    """Phase 8: the differentiable front-ends on the card, (a)-(d), at the
+    sizes the module docstring gives. Returns {run: launches of its
+    gradient step}."""
+    import functools
+
+    from fftvis_tpu_torch import (build_differentiable_direct_sim, build_differentiable_sim,
+                                  simulate_vis)
+
+    launches = {}
+    # (a) The north star's beam calibration: fluxes, the stacked table of
+    # its 37 beams and gains, exact type-1, precision 2; card against CPU
+    # on every 8th representative baseline.
+    kw = dict(ns, precision=2)
+    want = simulate_vis(device="cuda", **kw)
+    launches["a"] = gradient_run(
+        f"(a) north-star hera-{len(ns['ants'])} {NS_BEAMS} beams precision=2 exact type-1",
+        functools.partial(build_differentiable_sim, differentiate_beam=True,
+                          differentiate_gains=True),
+        kw, want, 2, counters, ("beam_eval_adjoint",), seed=31,
+        cpu_kw=dict(kw, baselines=ns["baselines"][::8]))
+    # (b) Forced type-3 on the slice, the committed beam polarized at order
+    # 3: fluxes and gains (spread, interp and beam_rows backward).
+    for precision, nfreq, ntimes in ((1, 2, 3), (2, 1, 1)):
+        kw = dict(run_kwargs(cfg, RUNS[2]), precision=precision,
+                  fluxes=cfg["fluxes"][:, :nfreq], freqs=cfg["freqs"][:nfreq],
+                  times=cfg["times"][:ntimes])
+        want = simulate_vis(device="cuda", **kw)
+        launches[f"b{precision}"] = gradient_run(
+            f"(b) slice hex-{len(cfg['ants'])} polarized tabulated type-3 precision={precision} "
+            f"{nfreq} f x {ntimes} t",
+            functools.partial(build_differentiable_sim, differentiate_gains=True),
+            kw, want, precision, counters, ("spread_adjoint", "interp_adjoint"), seed=32)
+    # (c) Per-antenna type-3 with the stacked table differentiated (beam_eval
+    # and pair_rows backward with spread and interp).
+    want = run_mode(pa, "type3")
+    launches["c"] = gradient_run(
+        f"(c) per-antenna type-3 {PA_BEAMS} beams precision=1",
+        functools.partial(build_differentiable_sim, differentiate_beam=True,
+                          differentiate_gains=True, nufft_mode="type3"),
+        pa, want, 1, counters, ("spread_adjoint", "interp_adjoint", "beam_eval_adjoint"),
+        seed=33)
+    # (d) The direct front-end in the geometry; card against CPU.
+    dkw = direct_config()
+    launches["d"] = gradient_run(
+        f"(d) direct front-end hex-{len(dkw['ants'])} nside 32 ({dkw['ra'].size} sources) "
+        "precision=2",
+        functools.partial(build_differentiable_direct_sim, differentiate_positions=True,
+                          differentiate_antpos=True, differentiate_gains=True),
+        dkw, None, 2, counters, (), seed=34, cpu_kw=dkw)
+    return launches
+
+
 def reset(counters) -> None:
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
@@ -2006,6 +2635,8 @@ def main() -> int:
     check_type1_exact(ns)
     z3d = z3d_config()
     check_noncoplanar_nufft(z3d)
+    adj_checks = check_adjoints(cfg, pa)
+    check_pair_rows_backward(ns)
 
     # Each kernel's launch counter: (module, attribute).
     counters = {"spread": (spread_mod, "launches"), "interp": (interp_mod, "launches"),
@@ -2196,6 +2827,12 @@ def main() -> int:
     sync_count(ns)
     banding_walls(obs)
 
+    # The gradients: every adjoint kernel's launches counted with the rest.
+    grad_counters = dict(counters, spread_adjoint=(spread_mod, "adjoint_launches"),
+                         interp_adjoint=(interp_mod, "adjoint_launches"),
+                         beam_eval_adjoint=(eval_mod, "adjoint_launches"))
+    grad_launches = gradient_runs(cfg, ns, pa, grad_counters)
+
     main_run = {1: 2, 2: 3}  # RUNS index of the polarized tabulated slice
     kernels = []
     for kname, source, replaces in (
@@ -2222,6 +2859,32 @@ def main() -> int:
                 "source": source,
                 "replaces": replaces,
                 "launches": count,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": lib_ms,
+            })
+    # The adjoints' launches: one gradient step of the runs that take their
+    # path, (b) at precision 1 and 2 for spread and interp, (c) (float32)
+    # and (a) (float64) for the table's interpolation.
+    for kname, source, replaces, run_of in (
+        ("spread_adjoint", "fftvis_tpu_torch/csrc/spread.cu",
+         "fftvis_tpu/nufft/pallas_spread.py:219", {1: "b1", 2: "b2"}),
+        ("interp_adjoint", "fftvis_tpu_torch/csrc/interp.cu",
+         "fftvis_tpu/nufft/pallas_interp.py:162", {1: "b1", 2: "b2"}),
+        ("beam_eval_adjoint", "fftvis_tpu_torch/csrc/beam_eval.cu",
+         "fftvis_tpu/beams/pallas_eval.py:287", {1: "c", 2: "a"}),
+    ):
+        for precision, dname in ((1, "float32"), (2, "float64")):
+            err, ms, plain_ms, (b_ms, b_by), lib_ms = adj_checks[kname][dname]
+            kernels.append({
+                "name": f"{kname}_{dname}",
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "launches": grad_launches[run_of[precision]][kname],
                 "max_abs_err": err,
                 "ms": ms,
                 "plain_ms": plain_ms,

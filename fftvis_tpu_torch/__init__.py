@@ -7,6 +7,7 @@ use). It imports torch and NumPy, never JAX and never ``fftvis_tpu``.
 """
 
 from . import beams, coords, geometry, nufft
+from .autodiff import build_differentiable_direct_sim, build_differentiable_sim
 from .coords import TelescopeLocation
 from .core.beam_basis import compute_beam_basis
 from .core.simulate import SimulationEngine, default_accuracy_dict
@@ -19,6 +20,8 @@ __all__ = [
     "TelescopeLocation",
     "VisibilityFuture",
     "beams",
+    "build_differentiable_direct_sim",
+    "build_differentiable_sim",
     "cache_stats",
     "clear_caches",
     "compute_beam_basis",

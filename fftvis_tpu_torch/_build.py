@@ -108,16 +108,27 @@ def load_kernels():
         # uy, ux, wts, grid, n, C, nfy, nfx, w, beta, stream
         fn.argtypes = [P] * 4 + [I] * 5 + [D, P]
         fn.restype = I
-    for name in ("fftvis_interp_f32", "fftvis_interp_f64"):
+    for name in ("fftvis_spread_adjoint_f32", "fftvis_spread_adjoint_f64"):
+        fn = getattr(lib, name)
+        # uy, ux, grid gradient, out, n, C, nfy, nfx, w, beta, stream
+        fn.argtypes = [P] * 4 + [I] * 5 + [D, P]
+        fn.restype = I
+    for name in ("fftvis_interp_f32", "fftvis_interp_f64",
+                 "fftvis_interp_adjoint_f32", "fftvis_interp_adjoint_f64"):
         fn = getattr(lib, name)
         # G, iy, ix, vy, vx, runs, order, out, C, nfy, nfx, m, nruns, w,
-        # stream
+        # stream (the adjoint: g, ..., grid gradient, ...)
         fn.argtypes = [P] * 8 + [I] * 6 + [P]
         fn.restype = I
     for name in ("fftvis_beam_eval_f32", "fftvis_beam_eval_f64"):
         fn = getattr(lib, name)
         # data, y, x, out, npts, ny, nx, ch, order, wrap, stream
         fn.argtypes = [P] * 4 + [I] * 6 + [P]
+        fn.restype = I
+    for name in ("fftvis_beam_eval_adjoint_f32", "fftvis_beam_eval_adjoint_f64"):
+        fn = getattr(lib, name)
+        # data, y, x, g, gdata, gy, gx, npts, ny, nx, ch, order, wrap, stream
+        fn.argtypes = [P] * 7 + [I] * 6 + [P]
         fn.restype = I
     for name in ("fftvis_beam_rows_f32", "fftvis_beam_rows_f64"):
         fn = getattr(lib, name)

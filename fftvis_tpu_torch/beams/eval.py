@@ -50,6 +50,21 @@ kernel's gain is the ~17 launches of the unfused source block it replaces.
 Each wrapper takes the plain version only for CPU tensors, launches its
 kernel for CUDA tensors and raises on any other device; ``launches``,
 ``rows_launches`` and ``pair_launches`` count the kernels' launches.
+
+Gradients. The interpolation is linear in the table; its adjoint
+(:func:`beam_eval_adjoint`, the kernel ``beam_eval_adjoint_points``, or
+:func:`beam_eval_adjoint_plain`) scatters a (npts, ch) gradient into the
+table with the forward's taps and, on request, gives the gradient of the
+coordinates from the derivative of the tap weights; ``adjoint_launches``
+counts its launches. :class:`BeamEvalFunction`, :class:`BeamRowsFunction`
+and :class:`PairRowsFunction` bind the kernels for autograd, and each
+wrapper takes its Function when an input it differentiates requires a
+gradient. The rows are linear in the sky, so their sky gradient reruns the
+forward kernel at unit skies (one for Stokes I, four for IQUV) and
+contracts with the incoming gradient, ``Re(conj(R) g)`` for a real sky;
+``pair_rows``' gradient in its evaluations is the torch ops of
+:func:`pair_rows_plain`'s derivative (the JAX package differentiates its
+XLA ops the same way).
 """
 
 from __future__ import annotations
@@ -64,6 +79,7 @@ from ..core.coherency import apparent_coherency_rows, apparent_coherency_rows_ba
 launches = 0  # beam_eval_points launches: the interpolation alone
 rows_launches = 0  # beam_rows_points launches: fused source blocks
 pair_launches = 0  # pair_rows_points launches: per-antenna pair rows
+adjoint_launches = 0  # beam_eval_adjoint_points launches
 
 TWO_PI = 2.0 * math.pi
 COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -213,11 +229,122 @@ def beam_eval(data, y, x, order: int = 1, wrap_x: bool = False) -> torch.Tensor:
     CUDA kernel; any other device raises.
     """
     _check(data, y, x, order)
+    if torch.is_grad_enabled() and (data.requires_grad or y.requires_grad or x.requires_grad):
+        return BeamEvalFunction.apply(data, y, x, order, wrap_x)
+    return _beam_eval(data, y, x, order, wrap_x)
+
+
+def _beam_eval(data, y, x, order: int, wrap_x: bool) -> torch.Tensor:
     if data.is_cuda:
         return _beam_eval_cuda(data, y.contiguous(), x.contiguous(), order, wrap_x)
     if data.device.type != "cpu":
         raise ValueError(f"beam_eval: unsupported device {data.device}")
     return beam_eval_plain(data, y, x, order, wrap_x)
+
+
+def _tap_slopes(u: torch.Tensor, n: int, wrap: bool, order: int) -> torch.Tensor:
+    """d(weights)/du of the taps along one axis, (npts, K), as torch's
+    autograd takes them through :func:`_linear_taps` / :func:`_cubic_taps`:
+    order 1 (-1, 1), or 0 where the clamped fraction leaves [0, 1]; order
+    3 the cubic B-spline weights' derivatives."""
+    if order == 1:
+        d = torch.ones_like(u)
+        if not wrap:
+            t = u - torch.clamp(torch.floor(u), 0, n - 1)
+            d = ((t >= 0) & (t <= 1)).to(u.dtype)
+        return torch.stack([-d, d], dim=-1)
+    t = u - torch.floor(u)
+    t2 = t * t
+    return torch.stack([
+        (-3.0 + 6.0 * t - 3.0 * t2) / 6.0,
+        (-12.0 * t + 9.0 * t2) / 6.0,
+        (3.0 + 6.0 * t - 9.0 * t2) / 6.0,
+        3.0 * t2 / 6.0,
+    ], dim=-1)
+
+
+def beam_eval_adjoint_plain(data, y, x, g, order: int = 1, wrap_x: bool = False,
+                            table: bool = True, coords: bool = False):
+    """Plain torch adjoint of :func:`beam_eval_plain`: ``(gdata, gy, gx)``,
+    the (ny, nx, ch) table gradient of the (npts, ch) output gradient ``g``
+    (``index_add_`` of its tap-weighted rows; None without ``table``) and,
+    with ``coords``, the (npts,) coordinate gradients from the tap weights'
+    derivatives (else None). ``data`` is read only for the coordinates."""
+    ny, nx, ch = data.shape
+    taps = _linear_taps if order == 1 else _cubic_taps
+    iy, wy = taps(y, ny, False)
+    ix, wx = taps(x, nx, wrap_x)
+    idx = (iy[:, :, None] * nx + ix[:, None, :]).reshape(-1)  # (npts K K,)
+    gdata = gy = gx = None
+    if table:
+        w = (wy[:, :, None] * wx[:, None, :]).reshape(-1)
+        gdata = torch.zeros((ny * nx, ch), dtype=g.dtype, device=g.device)
+        gdata.index_add_(0, idx, (w[:, None] * g.repeat_interleave(wy.shape[1] ** 2, dim=0)))
+        gdata = gdata.reshape(ny, nx, ch)
+    if coords:
+        sub = data.reshape(ny * nx, ch)[idx].reshape(iy.shape + (ix.shape[1], ch))
+        dg = torch.einsum("pabc,pc->pab", sub, g)
+        gy = torch.einsum("pab,pa,pb->p", dg, _tap_slopes(y, ny, False, order), wx)
+        gx = torch.einsum("pab,pa,pb->p", dg, wy, _tap_slopes(x, nx, wrap_x, order))
+    return gdata, gy, gx
+
+
+def beam_eval_adjoint(data, y, x, g, order: int = 1, wrap_x: bool = False,
+                      table: bool = True, coords: bool = False):
+    """The adjoint of :func:`beam_eval`: ``(gdata, gy, gx)`` as
+    :func:`beam_eval_adjoint_plain` gives them. A CPU tensor takes the
+    plain version; a CUDA tensor launches ``beam_eval_adjoint_points``;
+    any other device raises."""
+    _check(data, y, x, order)
+    if g.dtype != data.dtype or g.shape != (y.shape[0], data.shape[2]):
+        raise ValueError(f"beam_eval_adjoint: gradient must be ({y.shape[0]}, "
+                         f"{data.shape[2]}) {data.dtype}, got {tuple(g.shape)} {g.dtype}")
+    if data.is_cuda:
+        return _beam_eval_adjoint_cuda(data, y.contiguous(), x.contiguous(), g.contiguous(),
+                                       order, wrap_x, table, coords)
+    if data.device.type != "cpu":
+        raise ValueError(f"beam_eval_adjoint: unsupported device {data.device}")
+    return beam_eval_adjoint_plain(data, y, x, g, order, wrap_x, table, coords)
+
+
+class BeamEvalFunction(torch.autograd.Function):
+    """:func:`beam_eval` for autograd: ``apply(data, y, x, order, wrap_x)``
+    -> (npts, ch). Gradients of the table and of the coordinates by
+    :func:`beam_eval_adjoint`, in one launch on the card."""
+
+    @staticmethod
+    def forward(ctx, data, y, x, order, wrap_x):
+        ctx.save_for_backward(data, y, x)
+        ctx.order, ctx.wrap = order, wrap_x
+        return _beam_eval(data, y, x, order, wrap_x)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, y, x = ctx.saved_tensors
+        need_table = ctx.needs_input_grad[0]
+        need_coords = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        gdata, gy, gx = beam_eval_adjoint(data, y, x, g, ctx.order, ctx.wrap,
+                                          table=need_table, coords=need_coords)
+        return gdata, gy, gx, None, None
+
+
+def unit_sky_grad(rows_at, sky, g, polarized_sky: bool) -> torch.Tensor:
+    """The gradient of a sky that rows are linear in: ``rows_at(s)`` reruns
+    the forward at the sky ``s`` (same shape and dtype as ``sky``), and the
+    result contracts with the rows' gradient ``g``: ``Re(sum_c conj(R) g)``
+    at the unit Stokes-I sky, or ``sum_c conj(R_ab) g`` for each of the
+    four unit (a, b) coherencies of an IQUV sky (PyTorch's convention for a
+    real and a complex input)."""
+    if not polarized_sky:
+        r = rows_at(torch.ones_like(sky))
+        return (torch.conj(r) * g).real.sum(dim=0).to(sky.dtype)
+    out = torch.empty_like(sky)
+    for a in range(2):
+        for b in range(2):
+            unit = torch.zeros_like(sky)
+            unit[:, a, b] = 1
+            out[:, a, b] = (torch.conj(rows_at(unit)) * g).sum(dim=0)
+    return out
 
 
 def _epilogue(grid: TableGrid, polarized_sky: bool) -> int:
@@ -281,12 +408,43 @@ def beam_rows(data, az, za, sky, mask, grid: TableGrid,
     """
     epi = _epilogue(grid, polarized_sky)
     _check_rows(data, az, za, sky, mask, grid, epi)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (data, az, za, sky, mask)):
+        return BeamRowsFunction.apply(data, az, za, sky, mask, grid, polarized_sky)
+    return _beam_rows(data, az, za, sky, mask, grid, polarized_sky)
+
+
+def _beam_rows(data, az, za, sky, mask, grid: TableGrid, polarized_sky: bool):
     if data.is_cuda:
         return _beam_rows_cuda(data, az.contiguous(), za.contiguous(), sky,
-                               mask.contiguous(), grid, epi)
+                               mask.contiguous(), grid, _epilogue(grid, polarized_sky))
     if data.device.type != "cpu":
         raise ValueError(f"beam_rows: unsupported device {data.device}")
     return beam_rows_plain(data, az, za, sky, mask, grid, polarized_sky)
+
+
+class BeamRowsFunction(torch.autograd.Function):
+    """:func:`beam_rows` for autograd, differentiable in the sky: its
+    gradient reruns the fused kernel at unit skies (:func:`unit_sky_grad`).
+    The table, the points and the mask are constants of the engine's
+    transform path; a gradient asked of them raises."""
+
+    @staticmethod
+    def forward(ctx, data, az, za, sky, mask, grid, polarized_sky):
+        if any(t.requires_grad for t in (data, az, za, mask)):
+            raise NotImplementedError(
+                "beam_rows differentiates the sky only; evaluate the beam "
+                "(PreparedBeam.evaluate) for gradients of the table or the points")
+        ctx.save_for_backward(data, az, za, sky, mask)
+        ctx.grid, ctx.polarized_sky = grid, polarized_sky
+        return _beam_rows(data, az, za, sky, mask, grid, polarized_sky)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, az, za, sky, mask = ctx.saved_tensors
+        gs = unit_sky_grad(
+            lambda s: _beam_rows(data, az, za, s, mask, ctx.grid, ctx.polarized_sky),
+            sky, g, ctx.polarized_sky)
+        return None, None, None, gs, None, None, None
 
 
 def response_channels(resp, polarized: bool) -> torch.Tensor:
@@ -359,13 +517,55 @@ def pair_rows(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, is_power: bool,
     """
     epi = POWER if is_power else (JONES_IQUV if polarized_sky else JONES_I)
     _check_pairs(evals, pair_i, pair_j, sky, mask, ch_shape, is_power, epi)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (evals, sky, mask)):
+        return PairRowsFunction.apply(evals, pair_i, pair_j, sky, mask, ch_shape, is_power,
+                                      polarized_sky, feed)
+    return _pair_rows(evals, pair_i, pair_j, sky, mask, ch_shape, is_power, polarized_sky,
+                      feed)
+
+
+def _pair_rows(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, is_power: bool,
+               polarized_sky: bool, feed: int) -> torch.Tensor:
     if evals.is_cuda:
+        epi = POWER if is_power else (JONES_IQUV if polarized_sky else JONES_I)
         return _pair_rows_cuda(evals, pair_i.contiguous(), pair_j.contiguous(), sky,
                                mask.contiguous(), ch_shape, epi, feed)
     if evals.device.type != "cpu":
         raise ValueError(f"pair_rows: unsupported device {evals.device}")
     return pair_rows_plain(evals, pair_i, pair_j, sky, mask, ch_shape, is_power,
                            polarized_sky, feed)
+
+
+class PairRowsFunction(torch.autograd.Function):
+    """:func:`pair_rows` for autograd: the sky's gradient reruns the kernel
+    at unit skies (:func:`unit_sky_grad`), the evaluations' is the torch
+    ops of :func:`pair_rows_plain`'s derivative (rows are bilinear in
+    them). The pair indices and the mask are constants; a gradient asked of
+    the mask raises."""
+
+    @staticmethod
+    def forward(ctx, evals, pair_i, pair_j, sky, mask, ch_shape, is_power, polarized_sky,
+                feed):
+        if mask.requires_grad:
+            raise NotImplementedError("pair_rows does not differentiate the mask")
+        ctx.save_for_backward(evals, pair_i, pair_j, sky, mask)
+        ctx.args = (ch_shape, is_power, polarized_sky, feed)
+        return _pair_rows(evals, pair_i, pair_j, sky, mask, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        evals, pair_i, pair_j, sky, mask = ctx.saved_tensors
+        gev = gs = None
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                ev = evals.detach().requires_grad_()
+                rows = pair_rows_plain(ev, pair_i, pair_j, sky.detach(), mask, *ctx.args)
+                (gev,) = torch.autograd.grad(rows, ev, g)
+        if ctx.needs_input_grad[3]:
+            gs = unit_sky_grad(
+                lambda s: _pair_rows(evals, pair_i, pair_j, s, mask, *ctx.args),
+                sky, g, ctx.args[2])
+        return gev, None, None, gs, None, None, None, None, None
 
 
 # ------------------------------------------------------------ launches
@@ -383,6 +583,8 @@ def _kernels():
         _KERNELS = {
             ("eval", torch.float32): lib.fftvis_beam_eval_f32,
             ("eval", torch.float64): lib.fftvis_beam_eval_f64,
+            ("eval_adjoint", torch.float32): lib.fftvis_beam_eval_adjoint_f32,
+            ("eval_adjoint", torch.float64): lib.fftvis_beam_eval_adjoint_f64,
             ("rows", torch.float32): lib.fftvis_beam_rows_f32,
             ("rows", torch.float64): lib.fftvis_beam_rows_f64,
             ("pairs", torch.float32): lib.fftvis_pair_rows_f32,
@@ -411,6 +613,31 @@ def _beam_eval_cuda(data, y, x, order: int, wrap_x: bool) -> torch.Tensor:
         raise RuntimeError(f"beam_eval kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def _beam_eval_adjoint_cuda(data, y, x, g, order: int, wrap_x: bool, table: bool,
+                            coords: bool):
+    global adjoint_launches
+    k = _kernels()
+    ny, nx, ch = data.shape
+    npts = y.shape[0]
+    gdata = torch.zeros_like(data) if table else None
+    gy = torch.zeros_like(y) if coords else None
+    gx = torch.zeros_like(x) if coords else None
+    if npts == 0 or ch == 0 or not (table or coords):
+        return gdata, gy, gx
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = k[("eval_adjoint", data.dtype)](
+        data.data_ptr(), y.data_ptr(), x.data_ptr(), g.data_ptr(), ptr(gdata), ptr(gy),
+        ptr(gx), npts, ny, nx, ch, order, int(bool(wrap_x)), _stream(data),
+    )
+    if err != 0:
+        raise RuntimeError(f"beam_eval_adjoint kernel launch failed: CUDA error {err}")
+    adjoint_launches += 1
+    return gdata, gy, gx
 
 
 def _beam_rows_cuda(data, az, za, sky, mask, grid: TableGrid, epi: int) -> torch.Tensor:

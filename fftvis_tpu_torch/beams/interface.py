@@ -194,7 +194,9 @@ class StackedBeams:
     uploaded once. ``channels`` interpolates it at one source block with one
     :func:`~fftvis_tpu_torch.beams.eval.beam_eval` launch; ``evaluate_all``
     gives the responses as the JAX ``BatchedPreparedBeams.evaluate_all``
-    does: (K, 2 vec, 2 feed, n) Jones or (K, n) power."""
+    does: (K, 2 vec, 2 feed, n) Jones or (K, n) power. Both take a
+    ``table`` of the same layout in place of the cached one (the
+    differentiable front-ends' parameter); it is never stored."""
 
     def __init__(self, table: torch.Tensor, grid: TableGrid, nbeams: int):
         self.table = table
@@ -202,15 +204,16 @@ class StackedBeams:
         self.nbeams = nbeams
         self.polarized = not grid.is_power
 
-    def channels(self, az, za, freq_index: int) -> torch.Tensor:
+    def channels(self, az, za, freq_index: int, table=None) -> torch.Tensor:
         g = self.grid
         yy, xx = grid_cells(az, za, g)
-        return beam_eval(self.table[freq_index], yy, xx, order=g.order, wrap_x=g.wrap)
+        tab = self.table if table is None else table
+        return beam_eval(tab[freq_index], yy, xx, order=g.order, wrap_x=g.wrap)
 
-    def evaluate_all(self, az, za, freq_value: float, freq_index: int):
+    def evaluate_all(self, az, za, freq_value: float, freq_index: int, table=None):
         g = self.grid
-        return evals_response(self.channels(az, za, freq_index), g.ch_shape, g.is_power,
-                              g.feed)
+        return evals_response(self.channels(az, za, freq_index, table), g.ch_shape,
+                              g.is_power, g.feed)
 
 
 # Prepared beams by content. The limit must exceed the distinct beams of one

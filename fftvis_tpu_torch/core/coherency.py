@@ -1,7 +1,8 @@
 """Sky coherency formation.
 
 The port of ``fftvis_tpu/core/coherency.py``: the host Stokes -> coherency
-conversion (NumPy, unpolarized and IQUV), and the apparent-coherency rows
+conversion (NumPy, unpolarized and IQUV; and its differentiable tensor
+form for the autodiff front-ends), and the apparent-coherency rows
 on tensors, of one beam pair or of every pair of a beam stack at once --
 power beams, Jones beams with a Stokes-I sky, and Jones beams with an IQUV
 sky.
@@ -49,6 +50,29 @@ def build_coherency(sky_model: np.ndarray, polarized_sky: bool) -> np.ndarray:
     )  # (nsrc, nfreq, 2, 2)
 
 
+def coherency_tensor(fluxes: torch.Tensor, polarized_sky: bool, real_dtype: torch.dtype,
+                     keep_idx=None, band_perm=None) -> torch.Tensor:
+    """:func:`build_coherency` on a tensor, differentiable in ``fluxes``: the
+    sources ``keep_idx`` (the horizon cull) in the order ``band_perm``
+    (horizon banding) when given, then the (n, nfreq) Stokes-I coherency in
+    ``real_dtype`` or the (n, nfreq, 2, 2) IQUV one in its complex dtype,
+    computed in the fluxes' dtype and then cast, as the engine's cached
+    input is. The mirror of the JAX package's ``_coherency_ship``
+    (``fftvis_tpu/autodiff.py``)."""
+    fl = fluxes
+    if keep_idx is not None:
+        fl = fl[keep_idx]
+    if band_perm is not None:
+        fl = fl[band_perm]
+    if not polarized_sky:
+        return (0.5 * fl).to(real_dtype)
+    I, Q, U, V = fl.unbind(-1)
+    zero = torch.zeros_like(I)
+    re = 0.5 * torch.stack([torch.stack([I + Q, U], -1), torch.stack([U, I - Q], -1)], -2)
+    im = 0.5 * torch.stack([torch.stack([zero, V], -1), torch.stack([-V, zero], -1)], -2)
+    return torch.complex(re.to(real_dtype), im.to(real_dtype))
+
+
 def apparent_coherency_rows(e_i, e_j, flux, polarized: bool = False,
                             polarized_sky: bool = False) -> torch.Tensor:
     """Beam-weighted source coherency for one beam pair, as NUFFT rows.
@@ -80,8 +104,17 @@ def apparent_coherency_rows(e_i, e_j, flux, polarized: bool = False,
         return out.reshape(4, -1)
     # Cubic interpolation of a tabulated power beam can overshoot to small
     # negatives near nulls; clamp at zero (the physical floor).
-    amp = torch.sqrt(torch.clamp(e_i * e_j, min=0.0)) * flux
+    amp = _sqrt_floor(e_i * e_j) * flux
     return torch.complex(amp, torch.zeros_like(amp))[None, :]
+
+
+def _sqrt_floor(p: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(p, 0)), with a zero gradient where p <= 0: a power beam
+    that underflows to 0 (a float32 Gaussian far from the pointing) would
+    otherwise give 0 * inf = NaN in a gradient through the beam."""
+    pos = p > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, p, torch.ones_like(p))),
+                       torch.zeros_like(p))
 
 
 def apparent_coherency_rows_batched(evals, idx_i, idx_j, flux, polarized: bool = False,
@@ -116,6 +149,6 @@ def apparent_coherency_rows_batched(evals, idx_i, idx_j, flux, polarized: bool =
         ) * flux.to(e_i.dtype)[None, None, None, :]
     else:
         # See apparent_coherency_rows: clamp cubic-interpolation overshoot.
-        amp = torch.sqrt(torch.clamp(e_i * e_j, min=0.0)) * flux[None, :]
+        amp = _sqrt_floor(e_i * e_j) * flux[None, :]
         return torch.complex(amp, torch.zeros_like(amp))
     return out.reshape(out.shape[0] * 4, out.shape[-1])

@@ -57,6 +57,24 @@
 // plus the points and the output; well under a microsecond for a
 // 4096-point block, so one launch's latency sets the floor and the fusion
 // (one launch instead of the ~17 of the unfused source block) is the gain.
+//
+// beam_eval_adjoint_points is the adjoint of the interpolation alone, what
+// a gradient through it needs (the JAX package lets XLA differentiate its
+// gather; no Pallas kernel has a backward): with respect to the table,
+//
+//     gdata[iy[p, a], ix[p, b], c] += wy[p, a] wx[p, b] g[p, c]
+//
+// scattered with atomics, and on request with respect to the coordinates,
+// gy[p] = sum_c g[p, c] sum_ab wy'[p, a] wx[p, b] data[iy, ix, c] (gx
+// likewise), from the derivative of the tap weights. Its taps, fold,
+// mirror and clamps are those of the forward kernel; a coordinate the
+// order-1 clamp holds contributes no derivative, as torch's clamp does not.
+// Units as in beam_eval_points: (point, chunk of 8 channels), 4 lanes a
+// unit over its taps; a unit's coordinate partial sums meet in a group
+// shuffle and lane 0 adds them (one atomic a chunk). Neighbouring points
+// touch the same cells, so the summation order of the atomics varies from
+// run to run. Bound: the (ny, nx, ch) table gradient written once, the
+// points, their gradient and (for gy, gx) the touched cells read once.
 
 #include <cuda_runtime.h>
 
@@ -274,6 +292,108 @@ __global__ void beam_eval_points(
     for (int k = 0; k < CHUNK; ++k) {
       if (k < nch) o[k] = acc[k];
     }
+  }
+}
+
+// ------------------------------------------------ adjoint
+
+// The tap weights' derivatives with respect to the coordinate, as torch's
+// autograd takes them through the plain version's ops: order 1 wrapped
+// (-1, 1); clamped (-1, 1) where the clamped fraction lies in [0, 1], else
+// 0; order 3 the cubic B-spline weights' derivatives in t.
+template <typename T>
+__device__ __forceinline__ void dtaps_linear(T u, int n, bool wrap, T* dw) {
+  T d = T(1);
+  if (!wrap) {
+    const T f = fmin(fmax(floor(u), T(0)), T(n - 1));
+    const T t = u - f;
+    d = t >= T(0) && t <= T(1) ? T(1) : T(0);
+  }
+  dw[0] = -d;
+  dw[1] = d;
+}
+
+template <typename T>
+__device__ __forceinline__ void dtaps_cubic(T u, T* dw) {
+  const T t = u - floor(u);
+  const T t2 = t * t;
+  dw[0] = (T(-3) + T(6) * t - T(3) * t2) / T(6);
+  dw[1] = (T(-12) * t + T(9) * t2) / T(6);
+  dw[2] = (T(3) + T(6) * t - T(9) * t2) / T(6);
+  dw[3] = T(3) * t2 / T(6);
+}
+
+template <typename T, int ORDER>
+__global__ void beam_eval_adjoint_points(
+    const T* __restrict__ data,  // (ny, nx, ch), read only for gy, gx
+    const T* __restrict__ y,     // (npts,)
+    const T* __restrict__ x,     // (npts,)
+    const T* __restrict__ g,     // (npts, ch) gradient of the output
+    T* __restrict__ gdata,       // (ny, nx, ch) zeroed, or null
+    T* __restrict__ gy,          // (npts,) zeroed, or null (then gx too)
+    T* __restrict__ gx,          // (npts,)
+    int npts, int ny, int nx, int ch, int wrap) {
+  // The launcher keeps npts * nchunk * LANES below 2^31.
+  const unsigned nchunk = (ch + CHUNK - 1) / CHUNK;
+  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned unit = tid / LANES;
+  if (unit >= static_cast<unsigned>(npts) * nchunk) return;  // whole groups
+  const int lane = tid % LANES;
+  const int p = static_cast<int>(unit / nchunk);
+  const int c0 = static_cast<int>(unit % nchunk) * CHUNK;
+  const int nch = min(CHUNK, ch - c0);
+  constexpr int K = ORDER == 1 ? 2 : 4;
+  int iy[K], ix[K];
+  T wy[K], wx[K], dwy[K], dwx[K];
+  const T yv = y[p], xv = x[p];
+  taps<T, ORDER>(yv, xv, ny, nx, wrap != 0, iy, ix, wy, wx);
+  if constexpr (ORDER == 1) {
+    dtaps_linear(yv, ny, false, dwy);
+    dtaps_linear(xv, nx, wrap != 0, dwx);
+  } else {
+    dtaps_cubic(yv, dwy);
+    dtaps_cubic(xv, dwx);
+  }
+  T gv[CHUNK];
+  const T* gp = g + static_cast<long long>(p) * ch + c0;
+#pragma unroll
+  for (int k = 0; k < CHUNK; ++k) gv[k] = k < nch ? gp[k] : T(0);
+  T sy = T(0), sx = T(0);
+#pragma unroll
+  for (int s = 0; s < K * K / LANES; ++s) {
+    const int t = s * LANES + lane;
+    const int a = t / K, b = t % K;
+    const long long cell = static_cast<long long>(pick<int, K>(iy, a)) * nx + pick<int, K>(ix, b);
+    const T wya = pick<T, K>(wy, a), wxb = pick<T, K>(wx, b);
+    if (gdata != nullptr) {
+      const T w = wya * wxb;
+      T* o = gdata + cell * ch + c0;
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k) {
+        if (k < nch && gv[k] != T(0)) atomicAdd(o + k, w * gv[k]);
+      }
+    }
+    if (gy != nullptr) {
+      const T* d = data + cell * ch + c0;
+      T dg = T(0);
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k) {
+        if (k < nch) dg += __ldg(d + k) * gv[k];
+      }
+      sy += pick<T, K>(dwy, a) * wxb * dg;
+      sx += wya * pick<T, K>(dwx, b) * dg;
+    }
+  }
+  if (gy == nullptr) return;
+  const unsigned gmask = group_mask();
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off /= 2) {
+    sy += __shfl_xor_sync(gmask, sy, off, LANES);
+    sx += __shfl_xor_sync(gmask, sx, off, LANES);
+  }
+  if (lane == 0) {
+    atomicAdd(gy + p, sy);
+    atomicAdd(gx + p, sx);
   }
 }
 
@@ -576,6 +696,33 @@ int launch_beam_eval(const void* data, const void* y, const void* x, void* out,
 }
 
 template <typename T>
+int launch_beam_eval_adjoint(const void* data, const void* y, const void* x,
+                             const void* g, void* gdata, void* gy, void* gx,
+                             int npts, int ny, int nx, int ch, int order, int wrap,
+                             void* stream) {
+  const long long work = static_cast<long long>(npts) * ((ch + CHUNK - 1) / CHUNK) * LANES;
+  if (too_many(work) || (order != 1 && order != 3) || (gy != nullptr) != (gx != nullptr) ||
+      (gy != nullptr && data == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (work == 0) return 0;
+  const unsigned int blocks = blocks_for(work, THREADS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FFTVIS_EVAL_ADJ(ORD)                                                          \
+  beam_eval_adjoint_points<T, ORD><<<blocks, THREADS, 0, s>>>(                        \
+      static_cast<const T*>(data), static_cast<const T*>(y), static_cast<const T*>(x), \
+      static_cast<const T*>(g), static_cast<T*>(gdata), static_cast<T*>(gy),          \
+      static_cast<T*>(gx), npts, ny, nx, ch, wrap)
+  if (order == 1) {
+    FFTVIS_EVAL_ADJ(1);
+  } else {
+    FFTVIS_EVAL_ADJ(3);
+  }
+#undef FFTVIS_EVAL_ADJ
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_beam_rows(const void* data, const void* az, const void* za,
                      const void* sky, const void* mask, void* out, int n, int ny,
                      int nx, int ch, int c0, int order, int wrap, int epi, int nch,
@@ -736,6 +883,26 @@ extern "C" int fftvis_beam_eval_f64(const void* data, const void* y,
                                     void* stream) {
   return launch_beam_eval<double>(data, y, x, out, npts, ny, nx, ch, order, wrap,
                                   stream);
+}
+
+// The adjoint: g (npts, ch) -> gdata (ny, nx, ch) and, unless gy and gx
+// are null, gy, gx (npts,); data is read only for gy, gx.
+extern "C" int fftvis_beam_eval_adjoint_f32(const void* data, const void* y,
+                                            const void* x, const void* g,
+                                            void* gdata, void* gy, void* gx,
+                                            int npts, int ny, int nx, int ch,
+                                            int order, int wrap, void* stream) {
+  return launch_beam_eval_adjoint<float>(data, y, x, g, gdata, gy, gx, npts, ny, nx,
+                                         ch, order, wrap, stream);
+}
+
+extern "C" int fftvis_beam_eval_adjoint_f64(const void* data, const void* y,
+                                            const void* x, const void* g,
+                                            void* gdata, void* gy, void* gx,
+                                            int npts, int ny, int nx, int ch,
+                                            int order, int wrap, void* stream) {
+  return launch_beam_eval_adjoint<double>(data, y, x, g, gdata, gy, gx, npts, ny, nx,
+                                          ch, order, wrap, stream);
 }
 
 extern "C" int fftvis_beam_rows_f32(

@@ -41,6 +41,23 @@
 // kernel clamps each run to rows [0, m) and writes no column outside
 // [0, m), so a malformed runs or order tensor gives wrong values, never an
 // access out of bounds.
+//
+// interp_adjoint_runs is the adjoint with respect to G, what a gradient
+// through the interpolation needs (the JAX package lets XLA differentiate
+// its gather; no Pallas kernel has a backward):
+//
+//     gG[c, iy[t, a], ix[t, b]] += vy[t, a] vx[t, b] g[c, t]
+//
+// a scatter of each target's w x w taps onto the (zeroed) grid gradient,
+// on the same tables, runs and order. One warp a run, the lanes over the
+// taps as in the short-run form above (tap column b = lane % P, rows a =
+// lane / P + R * step): the rows of a run share their tap cells, so a lane
+// sums its taps' weights times the gradient over the run's rows in
+// registers and adds once a tap and channel, with the sm_90 float2 atomic
+// at complex64 and two fp64 atomics at complex128. Runs of different
+// footprints overlap on the grid, so the summation order of the atomics
+// varies from run to run. Bound: the (C, nfy, nfx) output written once, the
+// tap tables and the (C, m) gradient read once.
 
 #include <cuda_runtime.h>
 
@@ -223,6 +240,81 @@ __global__ void __launch_bounds__(WARPS * 32, 4) interp_runs(
   }
 }
 
+__device__ __forceinline__ void add_cell(float2* cell, float re, float im) {
+  atomicAdd(cell, make_float2(re, im));
+}
+
+__device__ __forceinline__ void add_cell(double2* cell, double re, double im) {
+  atomicAdd(&cell->x, re);
+  atomicAdd(&cell->y, im);
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(WARPS * 32) interp_adjoint_runs(
+    const T* __restrict__ g,          // (C, m, 2) gradient, target order
+    const int* __restrict__ iy,       // (m, W), row k in visiting order
+    const int* __restrict__ ix,       // (m, W)
+    const T* __restrict__ vy,         // (m, W)
+    const T* __restrict__ vx,         // (m, W)
+    const int* __restrict__ runs,     // (nruns + 1,) first row of each run
+    const int* __restrict__ order,    // (m,) target of row k, or null
+    T* __restrict__ grid,             // (C, nfy, nfx, 2) zeroed, accumulated
+    int C, int nfy, int nfx, int m, int nruns) {
+  using V = typename Vec2<T>::type;
+  constexpr int P = pow2ceil(W);
+  constexpr int R = 32 / P;
+  constexpr int STEPS = (W + R - 1) / R;
+  const int run = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (run >= nruns) return;  // whole warps only
+  const int lane = threadIdx.x & 31;
+  const int k0 = min(max(runs[run], 0), m);
+  const int k1 = min(max(runs[run + 1], k0), m);
+  if (k0 == k1) return;
+  const long long plane = static_cast<long long>(nfy) * nfx;
+  const V* gv = reinterpret_cast<const V*>(g);
+  V* gridv = reinterpret_cast<V*>(grid);
+
+  // The run's footprint: row k0's tap cells, which every row shares.
+  const int b = lane % P;
+  const int r = lane / P;
+  const long long row0 = static_cast<long long>(k0) * W;
+  const int xcell = b < W ? ix[row0 + b] : 0;
+  int off[STEPS];
+  bool ok[STEPS];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    const int a = s * R + r;
+    ok[s] = b < W && a < W;
+    off[s] = ok[s] ? iy[row0 + a] * nfx + xcell : 0;
+  }
+  for (int c = 0; c < C; ++c) {
+    T re[STEPS], im[STEPS];
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) re[s] = im[s] = T(0);
+    for (int k = k0; k < k1; ++k) {
+      const long long t = order ? order[k] : k;
+      if (t < 0 || t >= m) continue;
+      const V gk = gv[c * static_cast<long long>(m) + t];
+      const long long row = static_cast<long long>(k) * W;
+      const T wx = b < W ? vx[row + b] : T(0);
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s) {
+        if (ok[s]) {
+          const T wt = vy[row + s * R + r] * wx;
+          re[s] += wt * gk.x;
+          im[s] += wt * gk.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+      if (ok[s] && (re[s] != T(0) || im[s] != T(0))) {
+        add_cell(gridv + c * plane + off[s], re[s], im[s]);
+      }
+    }
+  }
+}
+
 template <typename T>
 int launch_interp(const void* G, const void* iy, const void* ix,
                   const void* vy, const void* vx, const void* runs,
@@ -252,7 +344,56 @@ int launch_interp(const void* G, const void* iy, const void* ix,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_interp_adjoint(const void* g, const void* iy, const void* ix,
+                          const void* vy, const void* vx, const void* runs,
+                          const void* order, void* grid, int C, int nfy,
+                          int nfx, int m, int nruns, int w, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const unsigned int blocks = static_cast<unsigned int>((nruns + WARPS - 1) / WARPS);
+  switch (w) {
+#define FFTVIS_INTERP_ADJ_CASE(W)                                             \
+  case W:                                                                     \
+    interp_adjoint_runs<T, W><<<blocks, WARPS * 32, 0, stream>>>(             \
+        static_cast<const T*>(g), static_cast<const int*>(iy),                \
+        static_cast<const int*>(ix), static_cast<const T*>(vy),               \
+        static_cast<const T*>(vx), static_cast<const int*>(runs),             \
+        static_cast<const int*>(order), static_cast<T*>(grid), C, nfy, nfx,   \
+        m, nruns);                                                            \
+    break;
+    FFTVIS_INTERP_ADJ_CASE(2) FFTVIS_INTERP_ADJ_CASE(3) FFTVIS_INTERP_ADJ_CASE(4)
+    FFTVIS_INTERP_ADJ_CASE(5) FFTVIS_INTERP_ADJ_CASE(6) FFTVIS_INTERP_ADJ_CASE(7)
+    FFTVIS_INTERP_ADJ_CASE(8) FFTVIS_INTERP_ADJ_CASE(9) FFTVIS_INTERP_ADJ_CASE(10)
+    FFTVIS_INTERP_ADJ_CASE(11) FFTVIS_INTERP_ADJ_CASE(12) FFTVIS_INTERP_ADJ_CASE(13)
+    FFTVIS_INTERP_ADJ_CASE(14) FFTVIS_INTERP_ADJ_CASE(15) FFTVIS_INTERP_ADJ_CASE(16)
+#undef FFTVIS_INTERP_ADJ_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int fftvis_interp_adjoint_f32(const void* g, const void* iy,
+                                         const void* ix, const void* vy,
+                                         const void* vx, const void* runs,
+                                         const void* order, void* grid, int C,
+                                         int nfy, int nfx, int m, int nruns,
+                                         int w, void* stream) {
+  return launch_interp_adjoint<float>(g, iy, ix, vy, vx, runs, order, grid, C,
+                                      nfy, nfx, m, nruns, w, stream);
+}
+
+extern "C" int fftvis_interp_adjoint_f64(const void* g, const void* iy,
+                                         const void* ix, const void* vy,
+                                         const void* vx, const void* runs,
+                                         const void* order, void* grid, int C,
+                                         int nfy, int nfx, int m, int nruns,
+                                         int w, void* stream) {
+  return launch_interp_adjoint<double>(g, iy, ix, vy, vx, runs, order, grid, C,
+                                       nfy, nfx, m, nruns, w, stream);
+}
 
 extern "C" int fftvis_interp_f32(const void* G, const void* iy, const void* ix,
                                  const void* vy, const void* vx,

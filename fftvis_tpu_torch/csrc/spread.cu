@@ -39,6 +39,20 @@
 //
 // Built without --use_fast_math: the ES exp and sqrt need full precision.
 // The summation order of the atomics varies from run to run.
+//
+// spread_adjoint_gm is the adjoint of the spread with respect to the
+// weights, what a gradient through the spread needs (the JAX package lets
+// XLA differentiate its spreaders; no Pallas kernel has a backward):
+//
+//     out[c, j] = sum_a sum_b psi(y_a - uy_j) psi(x_b - ux_j) g[c, y_a, x_b]
+//
+// a gather of each source's w x w taps of the grid gradient g. One warp a
+// source evaluates its 2w ES values once, as spread_gm does; the lanes then
+// take the w^2 taps (lane t, t + 32, ...), read each tap's cell of every
+// channel, and a __shfl_xor_sync reduction sums a channel. Outputs are
+// disjoint: no atomics, and the result does not depend on the run. Bound:
+// the touched cells of the C planes read once, the coordinates, and the
+// (C, n) output written once.
 
 #include <cuda_runtime.h>
 
@@ -142,13 +156,93 @@ __global__ void spread_gm(
   }
 }
 
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<double> { using type = double2; };
+
 template <typename T, int W>
-void launch_w(const void* uy, const void* ux, const void* wts, void* grid,
-              int n, int C, int nfy, int nfx, double beta,
+__global__ void spread_adjoint_gm(
+    const T* __restrict__ uy, const T* __restrict__ ux,
+    const T* __restrict__ grid,     // (C, nfy, nfx, 2) gradient, re/im
+    T* __restrict__ out,            // (C, n, 2) interleaved re/im
+    int n, int C, int nfy, int nfx, T beta) {
+  using V = typename Vec2<T>::type;
+  constexpr int STEPS = (W * W + 31) / 32;  // taps a lane
+  const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (j >= n) return;  // whole warps only: blockDim.x is a multiple of 32
+  const int lane = threadIdx.x & 31;
+
+  // Kernel values as in spread_gm: lane k < W holds psi_y(k), lane 16 + k
+  // psi_x(k).
+  const bool xhalf = lane >= 16;
+  const int kk = lane & 15;
+  const T u = xhalf ? ux[j] : uy[j];
+  const T cell = floor(u);
+  const T frac = u - cell;
+  const long long i0 = static_cast<long long>(ceil(u - T(W) / T(2)));
+  const T psi = kk < W ? es_kernel((cell - T(i0 + kk)) + frac, W, beta) : T(0);
+  const long long iy0 = __shfl_sync(kFull, i0, 0);
+  const long long ix0 = __shfl_sync(kFull, i0, 16);
+
+  long long off[STEPS];
+  T val[STEPS];
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st) {
+    const int t = st * 32 + lane;
+    const int a = t / W;
+    const int b = t % W;
+    const T psiy = __shfl_sync(kFull, psi, a & 15);
+    const T psix = __shfl_sync(kFull, psi, 16 + (b & 15));
+    const bool ok = t < W * W;
+    val[st] = ok ? psiy * psix : T(0);
+    off[st] = ok ? static_cast<long long>(wrap(iy0 + a, nfy)) * nfx + wrap(ix0 + b, nfx) : 0;
+  }
+
+  const long long plane = static_cast<long long>(nfy) * nfx;
+  const V* gv = reinterpret_cast<const V*>(grid);
+  V* ov = reinterpret_cast<V*>(out);
+  for (int c = 0; c < C; ++c) {
+    const V* gc = gv + c * plane;
+    T re = T(0);
+    T im = T(0);
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      if (val[st] != T(0)) {
+        const V g = gc[off[st]];
+        re += val[st] * g.x;
+        im += val[st] * g.y;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      re += __shfl_xor_sync(kFull, re, d);
+      im += __shfl_xor_sync(kFull, im, d);
+    }
+    if (lane == 0) {
+      V o;
+      o.x = re;
+      o.y = im;
+      ov[static_cast<long long>(c) * n + j] = o;
+    }
+  }
+}
+
+// adjoint = false: wts -> grid (spread_gm); true: grid -> wts
+// (spread_adjoint_gm), wts then the (C, n) output.
+template <typename T, int W>
+void launch_w(const void* uy, const void* ux, void* wts, void* grid,
+              int n, int C, int nfy, int nfx, double beta, bool adjoint,
               cudaStream_t stream) {
   const int threads = 256;  // 8 sources a block
   const unsigned int blocks =
       static_cast<unsigned int>((static_cast<long long>(n) * 32 + threads - 1) / threads);
+  if (adjoint) {
+    spread_adjoint_gm<T, W><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(uy), static_cast<const T*>(ux),
+        static_cast<const T*>(grid), static_cast<T*>(wts), n, C, nfy, nfx,
+        static_cast<T>(beta));
+    return;
+  }
   spread_gm<T, W><<<blocks, threads, 0, stream>>>(
       static_cast<const T*>(uy), static_cast<const T*>(ux),
       static_cast<const T*>(wts), static_cast<T*>(grid), n, C, nfy, nfx,
@@ -156,14 +250,14 @@ void launch_w(const void* uy, const void* ux, const void* wts, void* grid,
 }
 
 template <typename T>
-int launch_spread(const void* uy, const void* ux, const void* wts, void* grid,
+int launch_spread(const void* uy, const void* ux, void* wts, void* grid,
                   int n, int C, int nfy, int nfx, int w, double beta,
-                  void* stream_ptr) {
+                  bool adjoint, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (w) {
 #define FFTVIS_SPREAD_CASE(W)                                                 \
   case W:                                                                     \
-    launch_w<T, W>(uy, ux, wts, grid, n, C, nfy, nfx, beta, stream);          \
+    launch_w<T, W>(uy, ux, wts, grid, n, C, nfy, nfx, beta, adjoint, stream); \
     break;
     FFTVIS_SPREAD_CASE(2) FFTVIS_SPREAD_CASE(3) FFTVIS_SPREAD_CASE(4)
     FFTVIS_SPREAD_CASE(5) FFTVIS_SPREAD_CASE(6) FFTVIS_SPREAD_CASE(7)
@@ -183,14 +277,31 @@ extern "C" int fftvis_spread_f32(const void* uy, const void* ux,
                                  const void* wts, void* grid, int n, int C,
                                  int nfy, int nfx, int w, double beta,
                                  void* stream) {
-  return launch_spread<float>(uy, ux, wts, grid, n, C, nfy, nfx, w, beta,
-                              stream);
+  return launch_spread<float>(uy, ux, const_cast<void*>(wts), grid, n, C, nfy,
+                              nfx, w, beta, false, stream);
 }
 
 extern "C" int fftvis_spread_f64(const void* uy, const void* ux,
                                  const void* wts, void* grid, int n, int C,
                                  int nfy, int nfx, int w, double beta,
                                  void* stream) {
-  return launch_spread<double>(uy, ux, wts, grid, n, C, nfy, nfx, w, beta,
-                               stream);
+  return launch_spread<double>(uy, ux, const_cast<void*>(wts), grid, n, C, nfy,
+                               nfx, w, beta, false, stream);
+}
+
+// The adjoint: the (C, nfy, nfx) gradient ``grid`` -> the (C, n) ``out``.
+extern "C" int fftvis_spread_adjoint_f32(const void* uy, const void* ux,
+                                         const void* grid, void* out, int n,
+                                         int C, int nfy, int nfx, int w,
+                                         double beta, void* stream) {
+  return launch_spread<float>(uy, ux, out, const_cast<void*>(grid), n, C, nfy,
+                              nfx, w, beta, true, stream);
+}
+
+extern "C" int fftvis_spread_adjoint_f64(const void* uy, const void* ux,
+                                         const void* grid, void* out, int n,
+                                         int C, int nfy, int nfx, int w,
+                                         double beta, void* stream) {
+  return launch_spread<double>(uy, ux, out, const_cast<void*>(grid), n, C, nfy,
+                               nfx, w, beta, true, stream);
 }

@@ -185,15 +185,26 @@ class CUDASimulationEngine(SimulationEngine):
         self.nufft_mode = nufft_mode
         self.device = torch.device(device)
 
-    def simulate(self, *args, async_fetch: bool = False, **kwargs):
+    def simulate(self, *args, async_fetch: bool = False, return_program: bool = False,
+                 **kwargs):
         """Simulate visibilities (the arguments of :meth:`_dispatch`).
         Returns the array, or with ``async_fetch`` a
-        :class:`VisibilityFuture`."""
+        :class:`VisibilityFuture`.
+
+        With ``return_program`` it runs nothing and returns ``(run, inputs,
+        info)``, the counterpart of the JAX engine's
+        ``return_program="full"``: ``run(*inputs)`` is the device loop,
+        giving the (nt, nfreq, nfeeds, nfeeds, nbl) visibilities on the
+        device; ``inputs`` = (mats, abvel, eq, coherency, beam table or
+        None), the engine's cached device tensors; ``info`` says how they
+        relate to the user's arguments (:meth:`_program_info`). The
+        differentiable front-end (``fftvis_tpu_torch.autodiff``) replaces
+        the coherency and the table with tensors of its own."""
         # One call is single-threaded and never mutates its input arrays
         # midway: each hashed array is checked at most once.
         with consistent_inputs():
-            fut = self._dispatch(*args, **kwargs)
-        return fut if async_fetch else fut.result()
+            fut = self._dispatch(*args, return_program=return_program, **kwargs)
+        return fut if async_fetch or return_program else fut.result()
 
     def _dispatch(
         self,
@@ -219,7 +230,8 @@ class CUDASimulationEngine(SimulationEngine):
         force_use_type3: bool = False,
         beam_coefs: np.ndarray | None = None,
         nchunks: int = 1,
-    ) -> VisibilityFuture:
+        return_program: bool = False,
+    ) -> VisibilityFuture | tuple:
         beam_idx = core_utils.validate_beam_idx(beam_idx, beam_coefs, len(beam_list),
                                                 len(ants))
         coord_method_params = coord_method_params or {}
@@ -395,14 +407,54 @@ class CUDASimulationEngine(SimulationEngine):
 
         coh = upload(("coh", fluxes_arr, src_keep, band_perm, polarized_sky), sky,
                      complex_dtype if polarized_sky else real_dtype)
-        vis = run_program(
-            cfg,
+        inputs = (
             upload(("mats", rot.matrices), lambda: rot.matrices, real_dtype),
             abvel,
             upload(("eq", rot.eq_vectors, band_perm), lambda: rot.eq_vectors, real_dtype),
             coh,
         )
-        return fetch(vis, polarized)
+        if return_program:
+            stacked = cfg.rows.stacked
+            # The gains' flipped-baseline convention follows the pair
+            # routing, which auto-rank's basis stands in for transparently.
+            gain_flips = (flipped_global if basis is None
+                          else basis[3] if basis[3] is not None else np.zeros(nbl, dtype=bool))
+            info = _program_info(
+                polarized_sky=polarized_sky, src_keep=src_keep, band_perm=band_perm,
+                real_dtype=real_dtype, complex_dtype=complex_dtype, bl_index=bl_index,
+                flipped=gain_flips, has_beam_table=stacked is not None, device=dev)
+            return (functools.partial(run_program, cfg),
+                    inputs + (None if stacked is None else stacked.table,), info)
+        return fetch(run_program(cfg, *inputs), polarized)
+
+
+def _program_info(*, polarized_sky, src_keep, band_perm, real_dtype, complex_dtype,
+                  bl_index, flipped, has_beam_table, device) -> dict:
+    """What ``simulate(return_program=True)`` says of its program, the JAX
+    engine's ``_program_info``: the inputs' layout (``coh_index``,
+    ``beam_table_index``), the source selection that maps the user's
+    fluxes onto the coherency input (``keep_idx`` of the horizon cull and
+    banding's ``band_perm``, as device index tensors, or None), the sky
+    kind and the dtypes, and for per-antenna gains every output baseline's
+    antenna indices (``bl_index``, (nbl, 2) in ants order) and whether the
+    pair routing flipped it (``flipped``)."""
+    dev = torch.device(device)
+
+    def index(a):
+        return None if a is None else torch.as_tensor(np.array(a, dtype=np.int64), device=dev)
+
+    return {
+        "polarized_sky": polarized_sky,
+        "keep_idx": index(None if src_keep is None else np.flatnonzero(src_keep)),
+        "band_perm": index(band_perm),
+        "real_dtype": real_dtype,
+        "complex_dtype": complex_dtype,
+        "coh_index": 3,
+        "beam_table_index": 4,
+        "has_beam_table": has_beam_table,
+        "bl_index": np.asarray(bl_index),
+        "flipped": np.asarray(flipped, dtype=bool),
+    }
 
 
 def _baseline_index(antnums: list, baselines) -> np.ndarray:

@@ -183,13 +183,14 @@ class BlockRows:
         self.stacked = stack_prepared(prepared)
         self.pair_i, self.pair_j = routing.pair_i, routing.pair_j
 
-    def __call__(self, az, za, freq_value: float, freq_index: int, flux, mask):
+    def __call__(self, az, za, freq_value: float, freq_index: int, flux, mask, table=None):
+        """``table``, when given, replaces the stacked table (same layout)."""
         if self.single is not None:
             return self.single.rows(az, za, freq_value, freq_index, flux, mask,
                                     self.polarized_sky, self.complex_dtype)
         if self.stacked is not None:
             g = self.stacked.grid
-            evals = self.stacked.channels(az, za, freq_index)
+            evals = self.stacked.channels(az, za, freq_index, table)
             ch_shape, is_power, feed = g.ch_shape, g.is_power, g.feed
         else:
             evals = torch.cat([
@@ -313,16 +314,23 @@ def _assemble(cfg: ProgramConfig, acc, fi: int) -> torch.Tensor:
     return vis if r.inv_perm is None else vis[r.inv_perm]
 
 
-def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
+def run_program(cfg: ProgramConfig, mats, abvel, eq, coh, table=None) -> torch.Tensor:
     """Run the simulation on the device.
 
     mats (nt, 3, 3) ICRS->ENU rotations, abvel (nt, 3) aberration
     velocities, eq (3, nsrc) ICRS unit vectors, all in ``cfg.real_dtype``;
     coh the source coherency, (nsrc, nfreq) real for a Stokes-I sky or
-    (nsrc, nfreq, 2, 2) complex for an IQUV sky; all on one device, and
-    only read (the engine keeps them across calls). Returns (nt, nfreq,
-    nfeeds, nfeeds, nbl) complex visibilities on that device, feed axes
-    already in the reference's transposed order.
+    (nsrc, nfreq, 2, 2) complex for an IQUV sky; ``table``, when given, in
+    place of the stacked beam table of a per-antenna list (same layout);
+    all on one device, and only read (the engine keeps them across calls).
+    Returns (nt, nfreq, nfeeds, nfeeds, nbl) complex visibilities on that
+    device, feed axes already in the reference's transposed order.
+
+    Differentiable in ``coh`` and ``table`` (``fftvis_tpu_torch.autodiff``):
+    the kernels go through their autograd Functions where an input
+    requires a gradient, the accumulators record their in-place adds, and
+    the exact type-1 product runs out of place; without a gradient nothing
+    more is allocated or launched.
     """
     plan, r = cfg.plan, cfg.routing
     dev = eq.device
@@ -364,11 +372,11 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh) -> torch.Tensor:
                        for s in r.pair_plan.bls_idxs]
             for b0 in starts:
                 sl = slice(b0, b0 + cfg.block)
-                rows = cfg.rows(az[sl], za[sl], fv, fi, flux_f[sl], mask[sl])
+                rows = cfg.rows(az[sl], za[sl], fv, fi, flux_f[sl], mask[sl], table)
                 x = xr[:, sl] * scale
                 if plan.mode == "direct":
                     acc = _direct_block(cfg, acc, x, rows, targets)
                 else:
-                    plan.executor.spread(x, rows, grid=acc)
+                    acc = plan.executor.spread(x, rows, grid=acc)
             vis[t, fi] = _assemble(cfg, acc, fi).permute(1, 2, 0)
     return vis

@@ -36,6 +36,16 @@ cells (11.4 MB a channel at complex128, p=2); with C = 4 that is 17.6 MB
 (5.2 us at 3.35 TB/s) and 71 MB (21 us). A gather of every tap would read
 17x the touched cells: at p=2 the 63,190 targets have 3,716 distinct
 footprints.
+
+The interpolation is linear in G, and its adjoint with respect to G is a
+scatter onto the grid: :func:`interp_adjoint` adds each target's taps,
+weighted, of a (C, m) gradient into a zeroed (C, nfy, nfx) grid -- the
+CUDA kernel ``interp_adjoint_runs`` on the same tables, order and runs
+(one warp a run, the run's rows summed in registers, one atomic a tap and
+channel) or :func:`interp_adjoint_plain` on the CPU.
+:class:`InterpFunction` binds the two for autograd; :func:`interp` takes it
+when G requires a gradient. ``launches`` and ``adjoint_launches`` count
+the two kernels' launches.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ TILE = 32
 RUN_CAP = 32  # rows a run at most: one a lane
 
 launches = 0
+adjoint_launches = 0
 
 
 def target_order(iy0: np.ndarray, ix0: np.ndarray, tile: int = TILE) -> np.ndarray:
@@ -88,6 +99,20 @@ def interp_plain(G, iy, ix, vy, vx) -> torch.Tensor:
     package's ``Type3Executor.interpolate``. Returns (C, m) complex."""
     sub = G[:, iy.long()[:, :, None], ix.long()[:, None, :]]  # (C, m, w, w)
     return torch.einsum("cmab,ma,mb->cm", sub, vy.to(G.dtype), vx.to(G.dtype))
+
+
+def interp_adjoint_plain(g, iy, ix, vy, vx, nfy: int, nfx: int) -> torch.Tensor:
+    """Plain torch adjoint of :func:`interp_plain` with respect to G: the
+    (C, m) ``g``, target t's taps weighted by vy[t, a] vx[t, b], added into a
+    zeroed (C, nfy, nfx) grid with ``index_add_``."""
+    C, m = g.shape
+    w = iy.shape[1]
+    cells = (iy.long()[:, :, None] * nfx + ix.long()[:, None, :]).reshape(-1)
+    wts = (vy[:, :, None] * vx[:, None, :]).reshape(m, w * w).to(g.dtype)
+    contrib = (g[:, :, None] * wts[None]).reshape(C, -1)
+    out = torch.zeros((C, nfy * nfx), dtype=g.dtype, device=g.device)
+    torch.view_as_real(out).index_add_(1, cells, torch.view_as_real(contrib))
+    return out.reshape(C, nfy, nfx)
 
 
 def _check(G, iy, ix, vy, vx, order, runs) -> None:
@@ -141,6 +166,12 @@ def interp(G, iy, ix, vy, vx, order=None, runs=None) -> torch.Tensor:
     CUDA kernel; any other device raises.
     """
     _check(G, iy, ix, vy, vx, order, runs)
+    if torch.is_grad_enabled() and G.requires_grad:
+        return InterpFunction.apply(G, iy, ix, vy, vx, order, runs)
+    return _interp(G, iy, ix, vy, vx, order, runs)
+
+
+def _interp(G, iy, ix, vy, vx, order, runs) -> torch.Tensor:
     if G.device.type == "cpu":
         out = interp_plain(G, iy, ix, vy, vx)
         if order is None:
@@ -180,3 +211,78 @@ def _interp_cuda(G, iy, ix, vy, vx, order, runs) -> torch.Tensor:
         raise RuntimeError(f"interp kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def interp_adjoint(g, iy, ix, vy, vx, nf, order=None, runs=None) -> torch.Tensor:
+    """The adjoint of :func:`interp` with respect to G: the (C, m) complex
+    gradient ``g`` (target order) scattered through the same tap tables,
+    ``order`` and ``runs`` onto a new (C, nfy, nfx) grid, ``nf`` = (nfy,
+    nfx).
+
+    A CPU tensor takes :func:`interp_adjoint_plain`; a CUDA tensor launches
+    ``interp_adjoint_runs``, which needs ``runs``; any other device raises.
+    """
+    nfy, nfx = (int(v) for v in nf)
+    g = g.contiguous()
+    C, m = g.shape
+    _check(g.new_empty((C, 1, 1)), iy, ix, vy, vx, order, runs)
+    if g.shape[1] != iy.shape[0]:
+        raise ValueError(f"interp_adjoint: gradient has {m} targets, the tables "
+                         f"{iy.shape[0]}")
+    if g.device.type == "cpu":
+        if order is not None:
+            g = g[:, order.long()]  # row k of the tables is target order[k]
+        return interp_adjoint_plain(g, iy, ix, vy, vx, nfy, nfx)
+    if g.device.type != "cuda":
+        raise ValueError(f"interp_adjoint: unsupported device {g.device}")
+    if runs is None:
+        raise ValueError("interp_adjoint: a CUDA call needs runs (footprint_runs of the tables)")
+    return _interp_adjoint_cuda(g, iy, ix, vy, vx, nfy, nfx, order, runs)
+
+
+def _interp_adjoint_cuda(g, iy, ix, vy, vx, nfy: int, nfx: int, order, runs) -> torch.Tensor:
+    global adjoint_launches
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    C, m = g.shape
+    w = iy.shape[1]
+    out = torch.zeros((C, nfy, nfx), dtype=g.dtype, device=g.device)
+    if m == 0 or C == 0:
+        return out
+    fn = (lib.fftvis_interp_adjoint_f32 if g.dtype == torch.complex64
+          else lib.fftvis_interp_adjoint_f64)
+    err = fn(
+        ctypes.c_void_p(g.data_ptr()),
+        ctypes.c_void_p(iy.data_ptr()),
+        ctypes.c_void_p(ix.data_ptr()),
+        ctypes.c_void_p(vy.data_ptr()),
+        ctypes.c_void_p(vx.data_ptr()),
+        ctypes.c_void_p(runs.data_ptr()),
+        ctypes.c_void_p(None if order is None else order.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
+        C, nfy, nfx, m, runs.shape[0] - 1, w,
+        ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"interp_adjoint kernel launch failed: CUDA error {err}")
+    adjoint_launches += 1
+    return out
+
+
+class InterpFunction(torch.autograd.Function):
+    """:func:`interp` for autograd: ``apply(G, iy, ix, vy, vx, order,
+    runs)`` -> (C, m). The gradient of G is :func:`interp_adjoint` of the
+    output's gradient on the same tables; the tables get none."""
+
+    @staticmethod
+    def forward(ctx, G, iy, ix, vy, vx, order, runs):
+        ctx.save_for_backward(iy, ix, vy, vx, order, runs)
+        ctx.nf = tuple(G.shape[1:])
+        return _interp(G, iy, ix, vy, vx, order, runs)
+
+    @staticmethod
+    def backward(ctx, g):
+        iy, ix, vy, vx, order, runs = ctx.saved_tensors
+        gG = interp_adjoint(g, iy, ix, vy, vx, ctx.nf, order, runs)
+        return gG, None, None, None, None, None, None

@@ -28,6 +28,16 @@ The tap math is exactly that of the JAX scatter spreader
 ``t = (cell - (i0 + k)) + frac`` from the cell/frac split, every tap taken
 ``mod nf``. A coordinate that rounded to exactly ``nf`` wraps through the
 modulus.
+
+The spread is linear in the weights, and its adjoint with respect to them
+is a gather: :func:`spread_adjoint` reads each source's w x w taps of a
+(C, nfy, nfx) grid gradient, giving (C, n) -- the CUDA kernel
+``spread_adjoint_gm`` (one warp a source, the 2w ES values evaluated once,
+no atomics) or :func:`spread_adjoint_plain` on the CPU.
+:class:`SpreadFunction` binds the two for autograd; :func:`spread` takes it
+when the weights or the grid require a gradient, and accumulates in place
+either way. The coordinates are planning inputs and get no gradient.
+``launches`` and ``adjoint_launches`` count the two kernels' launches.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 from .kernels import es_kernel_grid
 
 launches = 0
+adjoint_launches = 0
 
 
 def spread_taps(uy, ux, nfy: int, nfx: int, w: int, beta: float):
@@ -75,6 +86,17 @@ def spread_plain(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
     return grid
 
 
+def spread_adjoint_plain(uy, ux, grid, w: int, beta: float) -> torch.Tensor:
+    """Plain torch adjoint of :func:`spread_plain` with respect to the
+    weights: each source's w x w taps of ``grid`` (C, nfy, nfx) times their
+    (real) ES values, summed. Returns (C, n) complex."""
+    C, nfy, nfx = grid.shape
+    n = uy.shape[0]
+    flat_idx, vals = spread_taps(uy, ux, nfy, nfx, w, beta)
+    taps = grid.reshape(C, nfy * nfx)[:, flat_idx].reshape(C, n, w * w)
+    return (taps * vals[None, :, :]).sum(dim=2)
+
+
 def _check(uy, ux, wts, grid, w: int) -> None:
     if not (uy.device == ux.device == wts.device == grid.device):
         raise ValueError("spread: all tensors must be on one device")
@@ -104,9 +126,16 @@ def spread(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
     [0, nf] onto ``grid`` (C, nfy, nfx), in place.
 
     A CPU tensor takes :func:`spread_plain`; a CUDA tensor launches the
-    CUDA kernel; any other device raises.
+    CUDA kernel; any other device raises. Where the weights or the grid
+    require a gradient, the call goes through :class:`SpreadFunction`.
     """
     _check(uy, ux, wts, grid, w)
+    if torch.is_grad_enabled() and (wts.requires_grad or grid.requires_grad):
+        return SpreadFunction.apply(uy, ux, wts, grid, w, beta)
+    return _spread(uy, ux, wts, grid, w, beta)
+
+
+def _spread(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
     if grid.device.type == "cpu":
         return spread_plain(uy, ux, wts, grid, w, beta)
     if grid.device.type != "cuda":
@@ -137,3 +166,67 @@ def _spread_cuda(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
         raise RuntimeError(f"spread kernel launch failed: CUDA error {err}")
     launches += 1
     return grid
+
+
+def spread_adjoint(uy, ux, grid, w: int, beta: float) -> torch.Tensor:
+    """The adjoint of :func:`spread` with respect to the weights: the (C, n)
+    complex gather of each source's taps of the (C, nfy, nfx) ``grid``.
+
+    A CPU tensor takes :func:`spread_adjoint_plain`; a CUDA tensor launches
+    ``spread_adjoint_gm``; any other device raises.
+    """
+    C, n = grid.shape[0], uy.shape[0]
+    grid = grid.contiguous()
+    _check(uy, ux, grid.new_empty((C, n)), grid, w)
+    if grid.device.type == "cpu":
+        return spread_adjoint_plain(uy, ux, grid, w, beta)
+    if grid.device.type != "cuda":
+        raise ValueError(f"spread_adjoint: unsupported device {grid.device}")
+    return _spread_adjoint_cuda(uy.contiguous(), ux.contiguous(), grid, w, beta)
+
+
+def _spread_adjoint_cuda(uy, ux, grid, w: int, beta: float) -> torch.Tensor:
+    global adjoint_launches
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    C, nfy, nfx = grid.shape
+    n = uy.shape[0]
+    out = torch.empty((C, n), dtype=grid.dtype, device=grid.device)
+    if n == 0 or C == 0:
+        return out.zero_()
+    fn = (lib.fftvis_spread_adjoint_f32 if uy.dtype == torch.float32
+          else lib.fftvis_spread_adjoint_f64)
+    err = fn(
+        ctypes.c_void_p(uy.data_ptr()),
+        ctypes.c_void_p(ux.data_ptr()),
+        ctypes.c_void_p(grid.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
+        n, C, nfy, nfx, w, float(beta),
+        ctypes.c_void_p(torch.cuda.current_stream(grid.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"spread_adjoint kernel launch failed: CUDA error {err}")
+    adjoint_launches += 1
+    return out
+
+
+class SpreadFunction(torch.autograd.Function):
+    """:func:`spread` for autograd: ``apply(uy, ux, wts, grid, w, beta)``
+    adds the spread of ``wts`` to ``grid`` in place and returns it. The
+    gradient of the weights is :func:`spread_adjoint` of the grid's
+    gradient, the grid's passes through; the coordinates get none."""
+
+    @staticmethod
+    def forward(ctx, uy, ux, wts, grid, w, beta):
+        _spread(uy, ux, wts, grid, w, beta)
+        ctx.mark_dirty(grid)
+        ctx.save_for_backward(uy, ux)
+        ctx.w, ctx.beta = w, beta
+        return grid
+
+    @staticmethod
+    def backward(ctx, g):
+        uy, ux = ctx.saved_tensors
+        gw = spread_adjoint(uy, ux, g, ctx.w, ctx.beta) if ctx.needs_input_grad[2] else None
+        return None, None, gw, g if ctx.needs_input_grad[3] else None, None, None

@@ -133,8 +133,10 @@ class Type1ExactExecutor:
 
         x: (2, n) lattice phases in radians (2 pi periodic); c: (C, n)
         complex. Accumulates into ``grid`` in place when given (the engine
-        carries one grid across source blocks), else into a new grid. The
-        (n, nmy * nmx) outer factor is built whole: the caller bounds n.
+        carries one grid across source blocks), else into a new grid, and
+        returns it; where c or the grid requires a gradient, the sum is a
+        new grid. The (n, nmy * nmx) outer factor is built whole: the
+        caller bounds n.
         """
         p = self.plan
         nmy, nmx = (int(v) for v in p.nf)
@@ -146,7 +148,13 @@ class Type1ExactExecutor:
         ey = self._factor(u[0], 0)  # (n, nmy)
         ex = self._factor(u[1], 1)  # (n, nmx)
         outer = (ey[:, :, None] * ex[:, None, :]).reshape(n, nmy * nmx)
-        grid.view(C, nmy * nmx).addmm_(c, outer)
+        flat = grid.view(C, nmy * nmx)
+        if torch.is_grad_enabled() and (c.requires_grad or grid.requires_grad):
+            # Out of place under autograd: the product records its factors,
+            # and no view of the carried grid is written.
+            grid = torch.addmm(flat, c, outer).view(C, nmy, nmx)
+        else:
+            flat.addmm_(c, outer)
         global products
         products += 1
         return grid
