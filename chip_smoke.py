@@ -91,6 +91,20 @@ Phases, one printed line each (any failure raises and exits non-zero):
    - the backward of ``pair_rows`` at the north star's shapes: the
      evaluations' gradient (torch ops, no kernel) and the sky's (one rerun
      of the kernel), timed;
+   - ES type-1's shapes: spread on the ES fine grids of (b) below ((1728,
+     864), w = 8 float32 and w = 14 float64) and of (a) ((192, 360), w =
+     8), 4096 uniform sources, C = 1, the kernel alone too; interp on a
+     type-2 plan of 100,000 non-redundant points on (a)'s grid (one-row
+     footprint runs); and the d = 1 / d = 3 entries (``spread_gm_1d``,
+     ``spread_gm_3d``, ``interp_taps_nd``) at 100,000 uniform points on a
+     10^6-cell line and a (64, 64, 32) grid, C = 1, float32 (w = 8) and
+     float64 (w = 14): gates 1e-5 / 1e-12 of max|plain|, the kernel alone,
+     the bound and ``sparse.addmm`` / ``sparse.mm`` of the CSRs;
+   - ``nufft public``: ``make_type{1,2,3}_fn`` at d = 1, 2, 3 on the card,
+     100,000 sources or points and 10,000 modes or targets, in float64
+     (eps 1e-9) and float32 (eps 1e-6), against the torch direct oracles in
+     float64 on the card within the JAX tests' tolerances; each dtype's
+     pass is the d = 1 / 3 kernels' path, its launches counted;
 4. run ``simulate_vis`` on the slice configuration -- hex_array(11,
    outriggers=2) with all 63,190 i<=j baselines, the nside=64 HEALPix sky,
    2 frequencies x 3 times, forced type-3 -- with
@@ -138,6 +152,17 @@ Phases, one printed line each (any failure raises and exits non-zero):
      exact type-1 path, banded and under ``FFTVIS_BAND=0``: the band plan,
      and the type-1 products of each run (banded 2 x the active blocks
      summed over the times, unbanded 2 x 24 x the blocks);
+   - ES type-1 (``Type1Executor``): (a) the JAX bench's gridded row
+     under ``FFTVIS_TYPE1=es`` (the slice array's 63,190 baselines, nside
+     64, GaussianBeam(14), 2 f x 2 t, ES fine grid (192, 360)) and (b) the
+     outrigger lattice in ``auto`` mode (hex_array(11, outriggers=10), 771
+     antennas, 297,606 baselines, exact mode grid (812, 420) past 512^2
+     cells, ES fine grid (1728, 864); nside 64, GaussianBeam(14), 1 f x 1
+     t), each at precision 1 and 2: spread once a source block, no interp
+     and no exact type-1 product; (c) the north star under
+     ``FFTVIS_TYPE1=es`` at precision 2 (C = 720, the padded pair
+     routing): spread, beam_eval and pair_rows once a source block, held
+     to its exact type-1 run (ES_VS_EXACT);
    phase 4 starts from empty caches and ends with the bytes they hold on
    the card;
 5. hold every output against the port's float64 direct path on the CPU,
@@ -145,10 +170,12 @@ Phases, one printed line each (any failure raises and exits non-zero):
    (the eigen row on all of them, through the same basis contraction;
    the 24h row on every 128th, unbanded; gates 1e-4 at precision 1, 1e-5
    at precision 2, relative to max|V|), and the banded 24h run against its
-   unbanded run on the card (1e-11 of max|V|);
+   unbanded run on the card (1e-11 of max|V|); the ES runs (a)-(c) on
+   every 32nd baseline too;
 6. with ``--profile`` only: torch.profiler over one warm call of the
    analytic p=1, polarized p=1 and p=2, unpolarized tabulated, north
-   star p=2 and p=1, 3D row p=1 and 24h row banded and unbanded runs
+   star p=2 and p=1, 3D row p=1, 24h row banded and unbanded, and ES
+   (a) and (b) at p=1 and p=2 runs
    (after five timed warm calls each): device busy time, idle share, the
    count of device kernel launches, and the hand-written kernels' device
    time, launches and share of busy; the top device ops of each run go to
@@ -185,7 +212,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
    and 2 (1 f x 1 t); (c) per-antenna type-3 at phase 4's reduced depth
    with the table differentiated; (d) the direct front-end on hex_array(4)
    (703 baselines), the nside=32 sky after the cull, GaussianBeam(14),
-   precision 2, in ra, dec, antpos, fluxes and gains. Each: the forward
+   precision 2, in ra, dec, antpos, fluxes and gains; (e) ES type-1 on the
+   gridded row (a) at precision 2, in fluxes and gains, card against CPU
+   on every 8th baseline. Each: the forward
    against ``simulate_vis`` (1e-12 / 1e-6 of max|V|), the derivative along
    a seeded direction in each parameter against extrapolated central
    differences (1e-6 / 1e-3), for (a) on every 8th baseline and (d) the
@@ -193,7 +222,8 @@ Phases, one printed line each (any failure raises and exits non-zero):
    kernels' launches, forward and backward walls and one backward's
    device busy;
 9. print the kernels' JSON line (the adjoints' launches those of one
-   gradient step of (b), (c) and (a)), then the result line.
+   gradient step of (b), (c) and (a); the d = 1 / 3 entries' those of
+   their dtype's public NUFFT pass), then the result line.
 """
 
 from __future__ import annotations
@@ -1386,11 +1416,13 @@ KERNEL_NAMES = {"spread": "spread_gm", "interp": "interp_runs", "beam_eval": "be
                 "beam_rows": "beam_rows_points", "pair_rows": "pair_rows_points"}
 
 
-def profile_runs(cfg, ns, z3d, obs) -> None:
+def profile_runs(cfg, ns, z3d, obs, es) -> None:
     """Phase 6: five timed warm calls, then one profiled call, of each of
     PROFILE_RUNS, the north-star runs, the 3D row at precision 1 (low-rank
-    z) and the 24h row banded and unbanded; device time from the profiler's
-    CUDA kernel events, and the hand-written kernels' share of it."""
+    z), the 24h row banded and unbanded, and the ES type-1 runs (a) and (b)
+    at both precisions (``es``: {label: (kw, vis, precision)}); device
+    time from the profiler's CUDA kernel events, and the hand-written
+    kernels' share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1409,9 +1441,13 @@ def profile_runs(cfg, ns, z3d, obs) -> None:
     calls.append((n, "3D row precision=1 (low-rank-z)", dict(z3d, precision=1)))
     calls.append((n + 1, "24h row banded", obs))
     calls.append((n + 2, "24h row FFTVIS_BAND=0", obs))
+    for k, (label, (kw, _, precision)) in enumerate(
+            (k, v) for k, v in es.items() if k.startswith(("(a)", "(b)"))):
+        calls.append((n + 3 + k, label, dict(kw, precision=precision)))
     for i, label, kw in calls:
         walls = []
-        with band_env("FFTVIS_BAND=0" in label):
+        with band_env("FFTVIS_BAND=0" in label), type1_env(
+                "es" if "FFTVIS_TYPE1=es" in label else None):
             for _ in range(5):
                 t0 = time.perf_counter()
                 simulate_vis(device="cuda", **kw)
@@ -1839,7 +1875,7 @@ def run_z3d(z3d, counters) -> dict:
                                  f"{bool(np.all(np.isfinite(vis)))}")
         want = ({"spread": blocks, "interp": tf} if plan.mode == "type3"
                 else {"spread": 0, "interp": 0})
-        want.update(beam_eval=0, beam_rows=0, pair_rows=0)
+        want = {k: want.get(k, 0) for k in got}  # every other kernel: no launch
         if got != want:
             raise AssertionError(f"3D row {mode} p={precision} ({plan.mode}): launches {got}, "
                                  f"want {want}")
@@ -1875,17 +1911,28 @@ def obs24_band(obs):
 
 
 @contextlib.contextmanager
-def band_env(off: bool):
-    """``FFTVIS_BAND=0`` inside the block when ``off``."""
-    before = os.environ.pop("FFTVIS_BAND", None)
-    if off:
-        os.environ["FFTVIS_BAND"] = "0"
+def env_var(name: str, value):
+    """The environment variable ``name`` set to ``value`` inside the block
+    (unset with None)."""
+    before = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("FFTVIS_BAND", None)
+        os.environ.pop(name, None)
         if before is not None:
-            os.environ["FFTVIS_BAND"] = before
+            os.environ[name] = before
+
+
+def band_env(off: bool):
+    """``FFTVIS_BAND=0`` inside the block when ``off``."""
+    return env_var("FFTVIS_BAND", "0" if off else None)
+
+
+def type1_env(value):
+    """``FFTVIS_TYPE1=value`` inside the block (unset with None)."""
+    return env_var("FFTVIS_TYPE1", value)
 
 
 def run_obs24(obs, counters) -> dict:
@@ -1994,6 +2041,392 @@ def check_new_rows(z3d, z_vis, obs, obs_vis) -> None:
           f"{ORACLE_GATE[2]:.0e})", flush=True)
     if not err <= ORACLE_GATE[2]:
         raise AssertionError("the banded 24h row misses its accuracy gate")
+
+
+# ------------------------------------------- ES type-1 and the public NUFFT
+
+# (b): the HERA-style core with 10 rings of lattice outriggers.
+OUTRIGGERS = 10
+# The d = 1 / d = 3 kernel checks: points, grids, and C = 1 channel.
+ND_POINTS = 100_000
+ND_GRIDS = {1: (1_000_000,), 3: (64, 64, 32)}
+# The ES run (c) against its exact type-1 run, relative to max|V|: the ES
+# kernel's eps = 1e-13 truncation and the FFT's rounding, in float64.
+ES_VS_EXACT = 1e-11
+# The public transforms on the card: (eps, tolerance factor of the JAX
+# tests a kind and d), and the float32 floor (JAX's complex64 type-2 test).
+PUBLIC_EPS = {"float64": 1e-9, "float32": 1e-6}
+PUBLIC_FACTOR = {"type1": {1: 20, 2: 20, 3: 20}, "type2": {1: 10, 2: 10, 3: 10},
+                 "type3": {1: 30, 2: 30, 3: 300}}
+PUBLIC_FLOOR = {"float64": 3e-11, "float32": 1e-4}
+# Sizes of the public runs: sources (type-1, type-3) and points (type-2),
+# modes (targets), and the largest |mode| an axis.
+PUBLIC_N, PUBLIC_M = 100_000, 10_000
+PUBLIC_KMAX = {1: (250,), 2: (60, 60), 3: (14, 14, 7)}
+
+
+def es_row_config(cfg):
+    """(a) The JAX bench's gridded row (bench.py:340-415) at its full size,
+    run under FFTVIS_TYPE1=es: the slice array with all 63,190 i <= j
+    baselines, the nside=64 sky, GaussianBeam(14), unpolarized, 2
+    frequencies x 2 times."""
+    kw = gridded_row_config(cfg)
+    return dict(kw, times=cfg["times"][:2])
+
+
+def outrigger_config(cfg):
+    """(b) hex_array(11, outriggers=10): 771 antennas, all 297,606 i <= j
+    baselines (autos included), the nside=64 sky, GaussianBeam(14),
+    unpolarized, 1 frequency x 1 time; its exact mode grid passes 512^2
+    cells, so auto mode takes ES type-1."""
+    from fftvis_tpu_torch.beams import GaussianBeam
+    from fftvis_tpu_torch.geometry import hex_array
+
+    ants = hex_array(11, sep=14.6, outriggers=OUTRIGGERS)
+    keys = list(ants)
+    rng = np.random.default_rng(5)
+    return dict(ants=ants, ra=cfg["ra"], dec=cfg["dec"],
+                fluxes=rng.uniform(0.1, 1.0, (cfg["ra"].size, 1)), freqs=np.array(FREQS[:1]),
+                times=cfg["times"][:1], telescope_loc=cfg["telescope_loc"],
+                baselines=[(keys[i], keys[j]) for i in range(len(keys))
+                           for j in range(i, len(keys))],
+                beam=GaussianBeam(diameter=14.0), polarized=False)
+
+
+def es_plan(kw, precision: int):
+    """The port's planner's ES type-1 plan of a lattice run (host), the
+    exact type-1 mode grid beside it."""
+    from fftvis_tpu_torch.cuda.planning import plan_transform
+    from fftvis_tpu_torch.nufft.transform import Type1Executor
+
+    nbl = len(kw["baselines"])
+    with type1_env("es"):
+        plan = plan_transform("auto", kw["ants"], kw["baselines"], kw["freqs"],
+                              EPS[precision], 2, 1e-6, False, np.zeros(nbl, dtype=bool),
+                              nbl, 1, 1, 1, device="cpu")
+    assert isinstance(plan.executor, Type1Executor)
+    return plan.executor.plan
+
+
+def nd_taps(u, nf, w: int, beta: float):
+    """Per-axis (m, w) tap tables of targets at grid coordinates u (the
+    plans' formula: first cell ceil(u - w/2), taken mod nf), as numpy."""
+    from fftvis_tpu_torch.nufft.kernels import es_kernel_grid
+
+    idx, val = [], []
+    for ua, n in zip(u, nf):
+        cells = np.ceil(ua - w / 2.0).astype(np.int64)[:, None] + np.arange(w)[None, :]
+        idx.append(np.mod(cells, n).astype(np.int32))
+        val.append(es_kernel_grid(ua[:, None] - cells, w, beta))
+    return idx, val
+
+
+def check_spread_nd(d: int, rdt, cdt, rng) -> tuple:
+    """A d = 1 / d = 3 spread entry against its plain version on ND_POINTS
+    uniform sources on ND_GRIDS[d], C = 1: the wrapper, the kernel alone,
+    the plain version, the bound and ``sparse.addmm`` with the (cells, n)
+    CSR of the ES weights. Returns the kernels-line row."""
+    import torch
+
+    from fftvis_tpu_torch.nufft import spread as spread_mod
+    from fftvis_tpu_torch.nufft.kernels import ESKernel
+
+    name = str(rdt).split(".")[-1]
+    k = ESKernel.from_eps(EPS[1 if name == "float32" else 2])
+    w, beta, nf, n = k.w, k.beta, ND_GRIDS[d], ND_POINTS
+    u = [torch.tensor(rng.uniform(0, m, n), dtype=rdt, device="cuda") for m in nf]
+    wts = torch.tensor(rng.normal(size=(1, n)) + 1j * rng.normal(size=(1, n)), dtype=cdt,
+                       device="cuda")
+    got = spread_mod.spread_nd(u, wts, torch.zeros((1,) + nf, dtype=cdt, device="cuda"), w,
+                               beta)
+    want = spread_mod.spread_nd_plain(u, wts, torch.zeros_like(got), w, beta)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    acc = torch.zeros_like(got)
+    ms = cuda_ms(lambda: spread_mod.spread_nd(u, wts, acc, w, beta), 20)
+    plain = cuda_ms(lambda: spread_mod.spread_nd_plain(u, wts, acc, w, beta), 3)
+    alone = kernel_us(lambda: spread_mod.spread_nd(u, wts, acc, w, beta), f"spread_gm_{d}d")
+    del got, acc, want
+    flat_idx, vals = spread_mod.spread_taps_nd(u, nf, w, beta)
+    rb = 4 if name == "float32" else 8
+    cells = torch.unique(flat_idx).numel()
+    nbytes = 2 * cells * 2 * rb + d * n * rb + n * 2 * rb
+    (b_ms, b_by) = bound(nbytes, n * (8 * d * w + 3 * w**d), name)
+    lib_ms, lib_txt = None, ""
+    src = torch.arange(n, device="cuda").repeat_interleave(w**d)
+
+    def make():
+        S = torch.sparse_coo_tensor(torch.stack([flat_idx, src]), vals.reshape(-1).to(cdt),
+                                    (int(np.prod(nf)), n)).coalesce().to_sparse_csr()
+        Wt, Gt = wts.T.contiguous(), torch.zeros((int(np.prod(nf)), 1), dtype=cdt,
+                                                 device="cuda")
+        return lambda: torch.sparse.addmm(Gt, S, Wt)
+
+    lib = library(f"spread_d{d} {name}", make)
+    if lib is not None:
+        lib_ms = cuda_ms(lib, 3)
+        lib_txt = f"; sparse.addmm {lib_ms:.4f} ms"
+    print(f"[3] spread_d{d} {name}: grid {nf} w={w} n={n} C=1: max err {err:.3e} = "
+          f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone {alone:.2f} us), plain "
+          f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells){lib_txt}", flush=True)
+    if not err <= TOL[name] * scale:
+        raise AssertionError(f"spread_d{d} {name} disagrees with its plain version")
+    del flat_idx, vals, src, lib
+    torch.cuda.empty_cache()
+    return err, ms, plain, (b_ms, b_by), lib_ms
+
+
+def check_interp_nd(d: int, rdt, cdt, rng) -> tuple:
+    """A d = 1 / d = 3 interpolation entry against its plain version at
+    ND_POINTS uniform targets on ND_GRIDS[d], C = 1, with ``sparse.mm`` of
+    the (m, cells) CSR tap matrix beside it. Returns the kernels-line
+    row."""
+    import torch
+
+    from fftvis_tpu_torch.nufft import interp as interp_mod
+    from fftvis_tpu_torch.nufft.kernels import ESKernel
+
+    name = str(rdt).split(".")[-1]
+    k = ESKernel.from_eps(EPS[1 if name == "float32" else 2])
+    w, nf, m = k.w, ND_GRIDS[d], ND_POINTS
+    idx_np, val_np = nd_taps([rng.uniform(0, n, m) for n in nf], nf, w, k.beta)
+    idx = [torch.tensor(a, device="cuda") for a in idx_np]
+    val = [torch.tensor(a, dtype=rdt, device="cuda") for a in val_np]
+    G = torch.tensor(rng.normal(size=(1,) + nf) + 1j * rng.normal(size=(1,) + nf), dtype=cdt,
+                     device="cuda")
+    got = interp_mod.interp_nd(G, idx, val)
+    want = interp_mod.interp_nd_plain(G, idx, val)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ms = cuda_ms(lambda: interp_mod.interp_nd(G, idx, val), 20)
+    plain = cuda_ms(lambda: interp_mod.interp_nd_plain(G, idx, val), 3)
+    alone = kernel_us(lambda: interp_mod.interp_nd(G, idx, val), "interp_taps_nd")
+    del got, want
+    # Every target's w^d flat cells, on the card.
+    flat = idx[0].long()
+    for a in range(1, d):
+        flat = (flat[:, :, None] * nf[a] + idx[a].long()[:, None, :]).reshape(m, -1)
+    wt = val[0]
+    for a in range(1, d):
+        wt = (wt[:, :, None] * val[a][:, None, :]).reshape(m, -1)
+    rb = 4 if name == "float32" else 8
+    cells = torch.unique(flat).numel()
+    nbytes = cells * 2 * rb + m * w * d * (4 + rb) + m * 2 * rb
+    (b_ms, b_by) = bound(nbytes, m * w**d * 5, name)
+    lib_ms, lib_txt = None, ""
+
+    def make():
+        cols, perm = torch.sort(flat, dim=1)
+        T = torch.sparse_csr_tensor(torch.arange(0, m * w**d + 1, w**d, device="cuda"),
+                                    cols.reshape(-1), torch.gather(wt, 1, perm).reshape(-1)
+                                    .to(cdt), (m, int(np.prod(nf))))
+        Gt = G.reshape(1, -1).T.contiguous()
+        return lambda: torch.sparse.mm(T, Gt)
+
+    lib = library(f"interp_d{d} {name}", make)
+    if lib is not None:
+        lib_ms = cuda_ms(lib, 5)
+        lib_txt = f"; sparse.mm {lib_ms:.4f} ms"
+    print(f"[3] interp_d{d} {name}: grid {nf} w={w} m={m} C=1: max err {err:.3e} = "
+          f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone {alone:.2f} us), plain "
+          f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells){lib_txt}", flush=True)
+    if not err <= TOL[name] * scale:
+        raise AssertionError(f"interp_d{d} {name} disagrees with its plain version")
+    del G, flat, wt, lib
+    torch.cuda.empty_cache()
+    return err, ms, plain, (b_ms, b_by), lib_ms
+
+
+def check_es_kernels(es_a, es_b) -> dict:
+    """Phase 3 for this slice: spread on the ES fine grids of (b) (4096
+    uniform sources, C = 1, both precisions) and of (a) at precision 1;
+    interp on a type-2 plan of 100,000 non-redundant points (one-row
+    footprint runs) on (a)'s grid; and the d = 1 / d = 3 entries. Returns
+    {kernel_dtype: row} of the d = 1 / 3 entries."""
+    import torch
+
+    from fftvis_tpu_torch.nufft.transform import plan_type2
+
+    rng = np.random.default_rng(8)
+    for label, kw, precision, (rdt, cdt) in (
+        ("outrigger", es_b, 1, (torch.float32, torch.complex64)),
+        ("outrigger", es_b, 2, (torch.float64, torch.complex128)),
+        ("gridded row", es_a, 1, (torch.float32, torch.complex64)),
+    ):
+        p = es_plan(kw, precision)
+        check_spread(str(rdt).split(".")[-1], rdt, cdt, p.nf, p.kernel.w, p.kernel.beta, 1,
+                     "uniform", rng, label=f" {label} ES grid", alone=True)
+    p = es_plan(es_a, 1)
+    kmax = [(n - p.kernel.w) // 4 for n in p.nf]
+    modes = np.stack([rng.integers(-k, k + 1, 2000) for k in kmax])
+    t2 = plan_type2(rng.uniform(-np.pi, np.pi, (2, ND_POINTS)), modes, EPS[1])
+    check_interp("float32", torch.float32, torch.complex64, t2, 1, rng,
+                 label=" type-2 non-redundant points", alone=True)
+    rows = {}
+    for d in (1, 3):
+        for rdt, cdt in ((torch.float32, torch.complex64), (torch.float64, torch.complex128)):
+            name = str(rdt).split(".")[-1]
+            rows[f"spread_d{d}_{name}"] = check_spread_nd(d, rdt, cdt, rng)
+            rows[f"interp_d{d}_{name}"] = check_interp_nd(d, rdt, cdt, rng)
+    return rows
+
+
+def public_problem(kind: str, d: int, rng):
+    """One public transform's inputs (numpy): sources or points x (d, n) in
+    [-pi, pi), weights (1, n) or mode coefficients (1, m), and integer modes
+    (d, m) (type-1, type-2) or real targets (d, m) (type-3)."""
+    kmax = PUBLIC_KMAX[d]
+    x = rng.uniform(-np.pi, np.pi, (d, PUBLIC_N))
+    modes = np.stack([rng.integers(-k, k + 1, PUBLIC_M) for k in kmax])
+    if kind == "type3":
+        modes = modes + rng.uniform(-0.5, 0.5, modes.shape)
+    n = PUBLIC_M if kind == "type2" else PUBLIC_N
+    c = rng.normal(size=(1, n)) + 1j * rng.normal(size=(1, n))
+    return x, c, modes
+
+
+def public_nufft(counters) -> dict:
+    """Phase 3 ``nufft public``: make_type{1,2,3}_fn at d = 1, 2, 3 on the
+    card, in float64 and in float32, against the torch direct oracles on the
+    card in float64 (on the float32-rounded inputs for a float32 run), each
+    within the JAX tests' tolerance (PUBLIC_FACTOR x eps, PUBLIC_FLOOR).
+    Each dtype's pass is the d = 1 / 3 kernels' path: the launch counts set
+    to 0 just before it and read just after. Returns {dtype: counts}."""
+    import torch
+
+    from fftvis_tpu_torch.nufft import (
+        direct_type1,
+        direct_type2,
+        direct_type3,
+        make_type1_fn,
+        make_type2_fn,
+        make_type3_fn,
+        plan_type1,
+        plan_type2,
+        plan_type3,
+    )
+
+    out = {}
+    for name, rdt, cdt in (("float64", torch.float64, torch.complex128),
+                           ("float32", torch.float32, torch.complex64)):
+        rng = np.random.default_rng(9)
+        eps = PUBLIC_EPS[name]
+        errs = []
+        reset(counters)
+        t0 = time.perf_counter()
+        for d in (1, 2, 3):
+            for kind in ("type1", "type2", "type3"):
+                x, c, modes = public_problem(kind, d, rng)
+                xt = torch.tensor(x, dtype=rdt, device="cuda")
+                ct = torch.tensor(c, dtype=cdt, device="cuda")
+                x64, c64 = xt.double(), ct.to(torch.complex128)
+                if kind == "type1":
+                    got = make_type1_fn(plan_type1(modes, eps))(xt, ct)
+                    want = direct_type1(x64, c64, modes)
+                elif kind == "type2":
+                    got = make_type2_fn(plan_type2(x64.cpu().numpy(), modes, eps))(ct)
+                    want = direct_type2(x64, c64, modes)
+                else:
+                    got = make_type3_fn(plan_type3(modes, np.pi, eps))(xt, ct)
+                    want = direct_type3(x64, c64, modes)
+                err = ((got.to(torch.complex128) - want).abs().max()
+                       / want.abs().max()).item()
+                tol = max(PUBLIC_FACTOR[kind][d] * eps, PUBLIC_FLOOR[name])
+                errs.append(f"{kind} d={d} {err:.2e}")
+                if not err <= tol:
+                    raise AssertionError(f"public {kind} d={d} {name}: {err:.3e} > {tol:.0e}")
+        torch.cuda.synchronize()
+        got = out[name] = read(counters)
+        for key in ("spread_d1", "spread_d3", "interp_d1", "interp_d3", "spread", "interp"):
+            if got[key] <= 0:
+                raise AssertionError(f"public NUFFT run {name}: {key} never launched ({got})")
+        print(f"[3] nufft public {name} (eps {eps:.0e}): make_type{{1,2,3}}_fn at d = 1, 2, 3, "
+              f"n = {PUBLIC_N} sources or points, m = {PUBLIC_M} modes or targets, |k| <= "
+              f"{PUBLIC_KMAX}, against the float64 direct oracles on the card: "
+              f"{', '.join(errs)}; launches {got}; {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
+def run_es(label: str, kw, precision: int, env, counters) -> tuple:
+    """Phase 4, one ES type-1 run: the launch counts set to 0 just before
+    and read after, the spread once a source block, no interp and no exact
+    type-1 product; a second call's wall. Returns (vis, launches)."""
+    import torch
+
+    from fftvis_tpu_torch import simulate_vis
+    from fftvis_tpu_torch.nufft import type1
+
+    blocks = source_blocks(kw)[0]
+    with type1_env(env):
+        reset(counters)
+        type1.products = 0
+        t0 = time.perf_counter()
+        out = simulate_vis(device="cuda", **dict(kw, precision=precision))
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        got, products = read(counters), type1.products
+        t0 = time.perf_counter()
+        simulate_vis(device="cuda", **dict(kw, precision=precision))
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+    if not np.all(np.isfinite(out)) or out.shape[-1] != len(kw["baselines"]):
+        raise AssertionError(f"{label}: shape {out.shape}, finite "
+                             f"{bool(np.all(np.isfinite(out)))}")
+    if got["spread"] != blocks or got["interp"] or products:
+        raise AssertionError(f"{label}: launches {got}, type-1 products {products} "
+                             f"({blocks} source blocks)")
+    print(f"[4] simulate_vis {label} precision={precision}: {out.shape} {out.dtype}, finite; "
+          f"{len(kw['baselines'])} baselines, {blocks} source blocks; launches {got}, exact "
+          f"type-1 products {products}; wall first {first:.3f} s, second {second:.3f} s",
+          flush=True)
+    return out, got
+
+
+def es_runs(cfg, ns, ns_exact, counters) -> dict:
+    """Phase 4 for ES type-1: (a) the gridded row under FFTVIS_TYPE1=es and
+    (b) the outrigger lattice in auto mode, each at precision 1 and 2; (c)
+    the north star under FFTVIS_TYPE1=es at precision 2, against its exact
+    type-1 run ``ns_exact``. Returns {label: (kw, vis, precision)}."""
+    es_a, es_b = es_row_config(cfg), outrigger_config(cfg)
+    out = {}
+    for label, kw, env in ((f"(a) gridded row hex-{len(cfg['ants'])} FFTVIS_TYPE1=es", es_a,
+                            "es"),
+                           (f"(b) outrigger lattice hex-11+{OUTRIGGERS} rings "
+                            f"({len(es_b['ants'])} antennas) auto", es_b, None)):
+        for precision in (1, 2):
+            p = es_plan(kw, precision)
+            vis, _ = run_es(f"{label} ES grid {p.nf} w={p.kernel.w}", kw, precision, env,
+                            counters)
+            out[f"{label} precision={precision}"] = (kw, vis, precision)
+    label = f"(c) north-star hera-{len(ns['ants'])} FFTVIS_TYPE1=es"
+    vis, got = run_es(label, dict(ns, precision=2), 2, "es", counters)
+    blocks = source_blocks(ns)[0]
+    if got["beam_eval"] != blocks or got["pair_rows"] != blocks:
+        raise AssertionError(f"{label}: launches {got} ({blocks} source blocks)")
+    err = max_rel(vis, ns_exact)
+    print(f"[5] {label} precision=2 vs its exact type-1 run: max diff {err:.3e} of max|V| "
+          f"(gate {ES_VS_EXACT:.0e})", flush=True)
+    if not err <= ES_VS_EXACT:
+        raise AssertionError(f"{label} differs from its exact type-1 run")
+    out[f"{label} precision=2"] = (ns, vis, 2)
+    return out
+
+
+def check_es_runs(es) -> None:
+    """Phase 5 for ES type-1: each run against the port's float64 direct
+    path on the CPU on every 32nd baseline."""
+    for label, (kw, vis, precision) in es.items():
+        sub = kw["baselines"][::32]
+        t0 = time.perf_counter()
+        oracle = direct_oracle(dict(kw, baselines=sub, precision=2))
+        err = max_rel(vis[..., ::32], oracle)
+        print(f"[5] {label} vs fp64 direct ({len(sub)} baselines, "
+              f"{time.perf_counter() - t0:.3f} s on the CPU): max err {err:.3e} of max|V| "
+              f"(gate {ORACLE_GATE[precision]:.0e})", flush=True)
+        if not err <= ORACLE_GATE[precision]:
+            raise AssertionError(f"{label} misses its accuracy gate")
 
 
 # --------------------------------------------------------- adjoint kernels
@@ -2541,7 +2974,7 @@ def direct_config():
 
 
 def gradient_runs(cfg, ns, pa, counters) -> dict:
-    """Phase 8: the differentiable front-ends on the card, (a)-(d), at the
+    """Phase 8: the differentiable front-ends on the card, (a)-(e), at the
     sizes the module docstring gives. Returns {run: launches of its
     gradient step}."""
     import functools
@@ -2590,6 +3023,17 @@ def gradient_runs(cfg, ns, pa, counters) -> dict:
         functools.partial(build_differentiable_direct_sim, differentiate_positions=True,
                           differentiate_antpos=True, differentiate_gains=True),
         dkw, None, 2, counters, (), seed=34, cpu_kw=dkw)
+    # (e) ES type-1 on the gridded row (this slice's (a)), precision 2,
+    # fluxes and gains through the spread's adjoint, the FFT and the
+    # deconvolved gather; card against CPU on every 8th baseline.
+    kw = dict(es_row_config(cfg), precision=2)
+    with type1_env("es"):
+        want = simulate_vis(device="cuda", **kw)
+        launches["e"] = gradient_run(
+            f"(e) gridded row hex-{len(cfg['ants'])} FFTVIS_TYPE1=es precision=2",
+            functools.partial(build_differentiable_sim, differentiate_gains=True),
+            kw, want, 2, counters, ("spread_adjoint",), seed=35,
+            cpu_kw=dict(kw, baselines=kw["baselines"][::8]))
     return launches
 
 
@@ -2637,11 +3081,15 @@ def main() -> int:
     check_noncoplanar_nufft(z3d)
     adj_checks = check_adjoints(cfg, pa)
     check_pair_rows_backward(ns)
+    nd_checks = check_es_kernels(es_row_config(cfg), outrigger_config(cfg))
 
     # Each kernel's launch counter: (module, attribute).
     counters = {"spread": (spread_mod, "launches"), "interp": (interp_mod, "launches"),
                 "beam_eval": (eval_mod, "launches"), "beam_rows": (eval_mod, "rows_launches"),
-                "pair_rows": (eval_mod, "pair_launches")}
+                "pair_rows": (eval_mod, "pair_launches"),
+                "spread_d1": (spread_mod, "launches_d1"), "spread_d3": (spread_mod, "launches_d3"),
+                "interp_d1": (interp_mod, "launches_d1"), "interp_d3": (interp_mod, "launches_d3")}
+    public_launches = public_nufft(counters)
     nbl = len(cfg["baselines"])
     vis, launches = {}, {}
     clear_caches()
@@ -2760,6 +3208,8 @@ def main() -> int:
     z_vis = run_z3d(z3d, counters)
     obs = obs24_config()
     obs_vis = run_obs24(obs, counters)
+    # ES type-1: (a), (b) and (c).
+    es = es_runs(cfg, ns, ns_vis[2], counters)
 
     held = cache_device_bytes()
     print(f"[4] after phase 4 the caches hold {sum(held.values()) / 1e6:.1f} MB on the card: "
@@ -2809,9 +3259,10 @@ def main() -> int:
     if not err <= ORACLE_GATE[2]:
         raise AssertionError("the eigen row misses its accuracy gate")
     check_new_rows(z3d, z_vis, obs, obs_vis)
+    check_es_runs(es)
 
     if "--profile" in sys.argv[1:]:
-        profile_runs(cfg, ns, z3d, obs)
+        profile_runs(cfg, ns, z3d, obs, es)
 
     # The host layer: warm calls, pipelined futures, chunking, syncs.
     for precision in NS_PRECISIONS:
@@ -2885,6 +3336,28 @@ def main() -> int:
                 "source": source,
                 "replaces": replaces,
                 "launches": grad_launches[run_of[precision]][kname],
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": lib_ms,
+            })
+    # The d = 1 / 3 entries: their launches are the public NUFFT run's.
+    for kname, source, replaces in (
+        ("spread_d1", "fftvis_tpu_torch/csrc/spread.cu", "fftvis_tpu/nufft/pallas_spread.py:219"),
+        ("spread_d3", "fftvis_tpu_torch/csrc/spread.cu", "fftvis_tpu/nufft/pallas_spread.py:219"),
+        ("interp_d1", "fftvis_tpu_torch/csrc/interp.cu", "fftvis_tpu/nufft/pallas_interp.py:162"),
+        ("interp_d3", "fftvis_tpu_torch/csrc/interp.cu", "fftvis_tpu/nufft/pallas_interp.py:162"),
+    ):
+        for dname in ("float32", "float64"):
+            err, ms, plain_ms, (b_ms, b_by), lib_ms = nd_checks[f"{kname}_{dname}"]
+            kernels.append({
+                "name": f"{kname}_{dname}",
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "launches": public_launches[dname][kname],
                 "max_abs_err": err,
                 "ms": ms,
                 "plain_ms": plain_ms,

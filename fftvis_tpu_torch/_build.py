@@ -113,6 +113,16 @@ def load_kernels():
         # uy, ux, grid gradient, out, n, C, nfy, nfx, w, beta, stream
         fn.argtypes = [P] * 4 + [I] * 5 + [D, P]
         fn.restype = I
+    for name in ("fftvis_spread_nd_f32", "fftvis_spread_nd_f64"):
+        fn = getattr(lib, name)
+        # d, u0, u1, u2, wts, grid, n, C, n0, n1, n2, w, beta, stream
+        fn.argtypes = [I] + [P] * 5 + [I] * 6 + [D, P]
+        fn.restype = I
+    for name in ("fftvis_interp_nd_f32", "fftvis_interp_nd_f64"):
+        fn = getattr(lib, name)
+        # d, G, i0, i1, i2, v0, v1, v2, out, C, n0, n1, n2, m, w, stream
+        fn.argtypes = [I] + [P] * 8 + [I] * 6 + [P]
+        fn.restype = I
     for name in ("fftvis_interp_f32", "fftvis_interp_f64",
                  "fftvis_interp_adjoint_f32", "fftvis_interp_adjoint_f64"):
         fn = getattr(lib, name)

@@ -58,6 +58,22 @@
 // footprints overlap on the grid, so the summation order of the atomics
 // varies from run to run. Bound: the (C, nfy, nfx) output written once, the
 // tap tables and the (C, m) gradient read once.
+//
+// interp_taps_nd is the interpolation of a 1D (C, n0) or 3D (C, n0, n1, n2)
+// grid, for the public type-2 and type-3 transforms at d = 1 and d = 3
+// (the JAX package's interpolation there is an XLA gather and einsum):
+//
+//     out[c, t] = sum over the w^D taps of G[c, taps] * prod_axis v[t, tap]
+//
+// from the per-axis (m, w) tap tables, rows in target order. The 2D form's
+// footprint runs do not carry over (a target's w^3 taps rarely repeat), so
+// there is one warp a target: at D = 1 the lanes take the w taps; at D = 3
+// they take the w x w (axis-1, axis-2) taps, a group of w lanes a
+// contiguous row of the last axis, and a loop runs over the w axis-0 taps.
+// Each lane reads its taps for every channel, and a __shfl_xor_sync
+// reduction sums a channel; outputs are disjoint, no atomics. Bound, in
+// bytes: the distinct cells the taps touch of every channel, the tables and
+// the output, each moved once.
 
 #include <cuda_runtime.h>
 
@@ -315,6 +331,121 @@ __global__ void __launch_bounds__(WARPS * 32) interp_adjoint_runs(
   }
 }
 
+template <typename T, int W, int D>
+__global__ void __launch_bounds__(WARPS * 32) interp_taps_nd(
+    const T* __restrict__ G,          // (C, n0[, n1, n2], 2) interleaved re/im
+    const int* __restrict__ i0,       // (m, W) axis-0 taps
+    const int* __restrict__ i1,       // (m, W) axis-1 taps (D = 3)
+    const int* __restrict__ i2,       // (m, W) axis-2 taps (D = 3)
+    const T* __restrict__ v0,         // (m, W)
+    const T* __restrict__ v1,         // (m, W) (D = 3)
+    const T* __restrict__ v2,         // (m, W) (D = 3)
+    T* __restrict__ out,              // (C, m, 2) interleaved re/im
+    int C, int n0, int n1, int n2, int m) {
+  using V = typename Vec2<T>::type;
+  constexpr int TAPS = D == 1 ? W : W * W;  // taps the lanes cover
+  constexpr int STEPS = (TAPS + 31) / 32;
+  const long long t = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (t >= m) return;  // whole warps only
+  const int lane = threadIdx.x & 31;
+  const long long row = t * W;
+
+  int off[STEPS];
+  T wt[STEPS];
+  bool ok[STEPS];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    const int tap = s * 32 + lane;
+    ok[s] = tap < TAPS;
+    if (D == 1) {
+      off[s] = ok[s] ? i0[row + tap] : 0;
+      wt[s] = ok[s] ? v0[row + tap] : T(0);
+    } else {
+      const int b = tap / W;
+      const int e = tap % W;
+      off[s] = ok[s] ? i1[row + b] * n2 + i2[row + e] : 0;
+      wt[s] = ok[s] ? v1[row + b] * v2[row + e] : T(0);
+    }
+  }
+  const long long slab = static_cast<long long>(n1) * n2;
+  const long long plane = static_cast<long long>(n0) * slab;
+  const V* Gv = reinterpret_cast<const V*>(G);
+  V* outv = reinterpret_cast<V*>(out);
+  for (int c = 0; c < C; ++c) {
+    const V* Gc = Gv + c * plane;
+    T re = T(0);
+    T im = T(0);
+    for (int a = 0; a < (D == 1 ? 1 : W); ++a) {
+      const V* Ga = Gc;
+      T wa = T(1);
+      if (D != 1) {
+        Ga = Gc + static_cast<long long>(i0[row + a]) * slab;
+        wa = v0[row + a];
+      }
+      T tr = T(0);
+      T ti = T(0);
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s) {
+        if (ok[s]) {
+          const V g = Ga[off[s]];
+          tr += g.x * wt[s];
+          ti += g.y * wt[s];
+        }
+      }
+      re += wa * tr;
+      im += wa * ti;
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      re += __shfl_xor_sync(kFull, re, d);
+      im += __shfl_xor_sync(kFull, im, d);
+    }
+    if (lane == 0) {
+      V o;
+      o.x = re;
+      o.y = im;
+      outv[c * static_cast<long long>(m) + t] = o;
+    }
+  }
+}
+
+template <typename T>
+int launch_interp_nd(int d, const void* G, const void* i0, const void* i1,
+                     const void* i2, const void* v0, const void* v1,
+                     const void* v2, void* out, int C, int n0, int n1, int n2,
+                     int m, int w, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const unsigned int blocks =
+      static_cast<unsigned int>((static_cast<long long>(m) + WARPS - 1) / WARPS);
+  if (d != 1 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
+  switch (w) {
+#define FFTVIS_INTERP_ND_LAUNCH(W, D)                                         \
+  interp_taps_nd<T, W, D><<<blocks, WARPS * 32, 0, stream>>>(                 \
+      static_cast<const T*>(G), static_cast<const int*>(i0),                  \
+      static_cast<const int*>(i1), static_cast<const int*>(i2),               \
+      static_cast<const T*>(v0), static_cast<const T*>(v1),                   \
+      static_cast<const T*>(v2), static_cast<T*>(out), C, n0, n1, n2, m)
+#define FFTVIS_INTERP_ND_CASE(W)                                              \
+  case W:                                                                     \
+    if (d == 1) {                                                             \
+      FFTVIS_INTERP_ND_LAUNCH(W, 1);                                          \
+    } else {                                                                  \
+      FFTVIS_INTERP_ND_LAUNCH(W, 3);                                          \
+    }                                                                         \
+    break;
+    FFTVIS_INTERP_ND_CASE(2) FFTVIS_INTERP_ND_CASE(3) FFTVIS_INTERP_ND_CASE(4)
+    FFTVIS_INTERP_ND_CASE(5) FFTVIS_INTERP_ND_CASE(6) FFTVIS_INTERP_ND_CASE(7)
+    FFTVIS_INTERP_ND_CASE(8) FFTVIS_INTERP_ND_CASE(9) FFTVIS_INTERP_ND_CASE(10)
+    FFTVIS_INTERP_ND_CASE(11) FFTVIS_INTERP_ND_CASE(12) FFTVIS_INTERP_ND_CASE(13)
+    FFTVIS_INTERP_ND_CASE(14) FFTVIS_INTERP_ND_CASE(15) FFTVIS_INTERP_ND_CASE(16)
+#undef FFTVIS_INTERP_ND_CASE
+#undef FFTVIS_INTERP_ND_LAUNCH
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_interp(const void* G, const void* iy, const void* ix,
                   const void* vy, const void* vx, const void* runs,
@@ -411,4 +542,24 @@ extern "C" int fftvis_interp_f64(const void* G, const void* iy, const void* ix,
                                  int nruns, int w, void* stream) {
   return launch_interp<double>(G, iy, ix, vy, vx, runs, order, out, C, nfy,
                                nfx, m, nruns, w, stream);
+}
+
+// D = 1 (i1, i2, v1, v2 unused, n1 = n2 = 1) or D = 3 interpolation of the
+// (C, n0[, n1, n2]) grid at m targets.
+extern "C" int fftvis_interp_nd_f32(int d, const void* G, const void* i0,
+                                    const void* i1, const void* i2,
+                                    const void* v0, const void* v1,
+                                    const void* v2, void* out, int C, int n0,
+                                    int n1, int n2, int m, int w, void* stream) {
+  return launch_interp_nd<float>(d, G, i0, i1, i2, v0, v1, v2, out, C, n0, n1,
+                                 n2, m, w, stream);
+}
+
+extern "C" int fftvis_interp_nd_f64(int d, const void* G, const void* i0,
+                                    const void* i1, const void* i2,
+                                    const void* v0, const void* v1,
+                                    const void* v2, void* out, int C, int n0,
+                                    int n1, int n2, int m, int w, void* stream) {
+  return launch_interp_nd<double>(d, G, i0, i1, i2, v0, v1, v2, out, C, n0, n1,
+                                  n2, m, w, stream);
 }

@@ -53,6 +53,23 @@
 // disjoint: no atomics, and the result does not depend on the run. Bound:
 // the touched cells of the C planes read once, the coordinates, and the
 // (C, n) output written once.
+//
+// spread_gm_1d and spread_gm_3d are the same GM method on a 1D (C, n0) and
+// a 3D (C, n0, n1, n2) periodic grid, for the public type-1 and type-3
+// transforms at d = 1 and d = 3 (the JAX package spreads those with XLA:
+// _spread_scatter, and on the TPU _spread_3d_ztaps, a scan of 2D spreads
+// over the planes of the last axis). One warp a source, its ES values
+// evaluated once, every tap added with an atomic, zero-weight sources
+// skipped, w a template parameter (2..16):
+// - D = 1: lane k < w holds psi(k) and adds tap k of every channel;
+// - D = 3: the lanes cover the (axis-1, axis-2) taps exactly as spread_gm
+//   covers (y, x) -- a group of lanes a contiguous tap row of the last
+//   axis, so a warp's atomics hit whole rows -- and a loop over the w
+//   axis-0 taps moves from one (n1, n2) slab to the next. The loop runs over
+//   the first axis, not the last, so that the lanes stay on contiguous
+//   cells.
+// Bound, in bytes: as spread_gm, the touched cells read and written once,
+// plus coordinates and weights.
 
 #include <cuda_runtime.h>
 
@@ -227,6 +244,168 @@ __global__ void spread_adjoint_gm(
   }
 }
 
+__device__ __forceinline__ void add_complex(float* cell, float re, float im) {
+  atomicAdd(reinterpret_cast<float2*>(cell), make_float2(re, im));
+}
+
+__device__ __forceinline__ void add_complex(double* cell, double re, double im) {
+  atomicAdd(cell, re);
+  atomicAdd(cell + 1, im);
+}
+
+// Whether any of source j's C weights is nonzero (every lane gets the
+// answer).
+template <typename T>
+__device__ __forceinline__ bool any_weight(const T* __restrict__ wts, long long j,
+                                           int n, int C, int lane) {
+  bool nonzero = false;
+  for (int c = lane; c < C; c += 32) {
+    const T* wc = wts + (static_cast<long long>(c) * n + j) * 2;
+    nonzero |= wc[0] != T(0) || wc[1] != T(0);
+  }
+  return __any_sync(kFull, nonzero);
+}
+
+template <typename T, int W>
+__global__ void spread_gm_1d(
+    const T* __restrict__ u0,
+    const T* __restrict__ wts,      // (C, n, 2) interleaved re/im
+    T* __restrict__ grid,           // (C, n0, 2) interleaved re/im
+    int n, int C, int n0, T beta) {
+  const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (j >= n) return;  // whole warps only: blockDim.x is a multiple of 32
+  const int lane = threadIdx.x & 31;
+  if (!any_weight(wts, j, n, C, lane) || lane >= W) return;
+
+  const T u = u0[j];
+  const T cell = floor(u);
+  const T frac = u - cell;
+  const long long i0 = static_cast<long long>(ceil(u - T(W) / T(2)));
+  const T psi = es_kernel((cell - T(i0 + lane)) + frac, W, beta);
+  if (psi == T(0)) return;
+  const long long off = static_cast<long long>(wrap(i0 + lane, n0)) * 2;
+  for (int c = 0; c < C; ++c) {
+    const T* wc = wts + (static_cast<long long>(c) * n + j) * 2;
+    if (wc[0] == T(0) && wc[1] == T(0)) continue;
+    add_complex(grid + static_cast<long long>(c) * n0 * 2 + off, psi * wc[0], psi * wc[1]);
+  }
+}
+
+template <typename T, int W>
+__global__ void spread_gm_3d(
+    const T* __restrict__ u0, const T* __restrict__ u1, const T* __restrict__ u2,
+    const T* __restrict__ wts,      // (C, n, 2) interleaved re/im
+    T* __restrict__ grid,           // (C, n0, n1, n2, 2) interleaved re/im
+    int n, int C, int n0, int n1, int n2, T beta) {
+  // The (axis-1, axis-2) taps as spread_gm's (y, x) taps.
+  constexpr int PER_TAP = sizeof(T) == 4 ? 1 : 2;
+  constexpr int Q = pow2ceil(PER_TAP * W);  // lanes a tap row
+  constexpr int R = 32 / Q;                 // tap rows a step
+  constexpr int STEPS = (W + R - 1) / R;
+
+  const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (j >= n) return;  // whole warps only: blockDim.x is a multiple of 32
+  const int lane = threadIdx.x & 31;
+  if (!any_weight(wts, j, n, C, lane)) return;
+
+  // Lane k < W holds psi_1(k) and psi_0(k), lane 16 + k psi_2(k).
+  const bool xhalf = lane >= 16;
+  const int kk = lane & 15;
+  const T u = xhalf ? u2[j] : u1[j];
+  const T cell = floor(u);
+  const T frac = u - cell;
+  const long long i0 = static_cast<long long>(ceil(u - T(W) / T(2)));
+  const T psi = kk < W ? es_kernel((cell - T(i0 + kk)) + frac, W, beta) : T(0);
+  const long long iy0 = __shfl_sync(kFull, i0, 0);
+  const long long ix0 = __shfl_sync(kFull, i0, 16);
+  const T uz = u0[j];
+  const T zcell = floor(uz);
+  const T zfrac = uz - zcell;
+  const long long iz0 = static_cast<long long>(ceil(uz - T(W) / T(2)));
+  const T psiz = lane < W ? es_kernel((zcell - T(iz0 + lane)) + zfrac, W, beta) : T(0);
+
+  const int s = lane % Q;
+  const int b = s / PER_TAP;           // tap column (axis 2)
+  const int part = s % PER_TAP;        // re (0) or im (1) for double
+  const bool col_ok = s < PER_TAP * W;
+  const T psix = __shfl_sync(kFull, psi, 16 + (b & 15));
+  const int gx = wrap(ix0 + b, n2);
+
+  long long off[STEPS];
+  T val[STEPS];
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st) {
+    const int a = st * R + lane / Q;     // tap row (axis 1)
+    const T psiy = __shfl_sync(kFull, psi, a & 15);
+    const bool ok = col_ok && a < W;
+    val[st] = ok ? psiy * psix : T(0);
+    off[st] = (static_cast<long long>(wrap(iy0 + a, n1)) * n2 + gx) * 2;
+  }
+  const long long slab = static_cast<long long>(n1) * n2 * 2;
+  const long long plane = static_cast<long long>(n0) * slab;
+  for (int c = 0; c < C; ++c) {
+    const T* wc = wts + (static_cast<long long>(c) * n + j) * 2;
+    const T wre = wc[0];
+    const T wim = wc[1];
+    if (wre == T(0) && wim == T(0)) continue;  // the same for every lane
+    T* gc = grid + c * plane;
+    // The axis-0 loop stays rolled: unrolled, its w x STEPS atomics'
+    // addresses spill at float64 and w >= 9.
+#pragma unroll 1
+    for (int a = 0; a < W; ++a) {
+      const T za = __shfl_sync(kFull, psiz, a);
+      if (za == T(0)) continue;  // the same for every lane
+      T* ga = gc + wrap(iz0 + a, n0) * slab;
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {
+        if (val[st] != T(0)) add_tap(ga + off[st], part, za * val[st], wre, wim);
+      }
+    }
+  }
+}
+
+template <typename T, int W>
+void launch_nd_w(int d, const void* u0, const void* u1, const void* u2,
+                 const void* wts, void* grid, int n, int C, int n0, int n1,
+                 int n2, double beta, cudaStream_t stream) {
+  const int threads = 256;  // 8 sources a block
+  const unsigned int blocks =
+      static_cast<unsigned int>((static_cast<long long>(n) * 32 + threads - 1) / threads);
+  if (d == 1) {
+    spread_gm_1d<T, W><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(u0), static_cast<const T*>(wts), static_cast<T*>(grid),
+        n, C, n0, static_cast<T>(beta));
+    return;
+  }
+  spread_gm_3d<T, W><<<blocks, threads, 0, stream>>>(
+      static_cast<const T*>(u0), static_cast<const T*>(u1), static_cast<const T*>(u2),
+      static_cast<const T*>(wts), static_cast<T*>(grid), n, C, n0, n1, n2,
+      static_cast<T>(beta));
+}
+
+template <typename T>
+int launch_spread_nd(int d, const void* u0, const void* u1, const void* u2,
+                     const void* wts, void* grid, int n, int C, int n0, int n1,
+                     int n2, int w, double beta, void* stream_ptr) {
+  if (d != 1 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  switch (w) {
+#define FFTVIS_SPREAD_ND_CASE(W)                                                     \
+  case W:                                                                            \
+    launch_nd_w<T, W>(d, u0, u1, u2, wts, grid, n, C, n0, n1, n2, beta, stream);     \
+    break;
+    FFTVIS_SPREAD_ND_CASE(2) FFTVIS_SPREAD_ND_CASE(3) FFTVIS_SPREAD_ND_CASE(4)
+    FFTVIS_SPREAD_ND_CASE(5) FFTVIS_SPREAD_ND_CASE(6) FFTVIS_SPREAD_ND_CASE(7)
+    FFTVIS_SPREAD_ND_CASE(8) FFTVIS_SPREAD_ND_CASE(9) FFTVIS_SPREAD_ND_CASE(10)
+    FFTVIS_SPREAD_ND_CASE(11) FFTVIS_SPREAD_ND_CASE(12) FFTVIS_SPREAD_ND_CASE(13)
+    FFTVIS_SPREAD_ND_CASE(14) FFTVIS_SPREAD_ND_CASE(15) FFTVIS_SPREAD_ND_CASE(16)
+#undef FFTVIS_SPREAD_ND_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // adjoint = false: wts -> grid (spread_gm); true: grid -> wts
 // (spread_adjoint_gm), wts then the (C, n) output.
 template <typename T, int W>
@@ -304,4 +483,22 @@ extern "C" int fftvis_spread_adjoint_f64(const void* uy, const void* ux,
                                          double beta, void* stream) {
   return launch_spread<double>(uy, ux, out, const_cast<void*>(grid), n, C, nfy,
                                nfx, w, beta, true, stream);
+}
+
+// D = 1 (u1, u2 unused, n1 = n2 = 1) or D = 3 spreading onto the (C, n0[,
+// n1, n2]) grid.
+extern "C" int fftvis_spread_nd_f32(int d, const void* u0, const void* u1,
+                                    const void* u2, const void* wts, void* grid,
+                                    int n, int C, int n0, int n1, int n2, int w,
+                                    double beta, void* stream) {
+  return launch_spread_nd<float>(d, u0, u1, u2, wts, grid, n, C, n0, n1, n2, w,
+                                 beta, stream);
+}
+
+extern "C" int fftvis_spread_nd_f64(int d, const void* u0, const void* u1,
+                                    const void* u2, const void* wts, void* grid,
+                                    int n, int C, int n0, int n1, int n2, int w,
+                                    double beta, void* stream) {
+  return launch_spread_nd<double>(d, u0, u1, u2, wts, grid, n, C, n0, n1, n2, w,
+                                  beta, stream);
 }

@@ -63,6 +63,8 @@ from ..core.auto_rank import plan_auto_rank
 from ..core.beams import plan_beam_pairs
 from ..core.hashing import LRUCache, consistent_inputs, hash_parts
 from ..core.simulate import SimulationEngine, default_accuracy_dict, resolve_precision
+from ..nufft.transform import Type1Executor
+from ..nufft.type1 import Type1ExactExecutor
 from .planning import plan_transform
 from .program import BlockRows, ProgramConfig, device_tables, run_program
 
@@ -342,13 +344,13 @@ class CUDASimulationEngine(SimulationEngine):
         nchunks = max(1, min(int(nchunks), nsrc))
         block = min(source_block(plan, C, nbl, npairs, pad_routing, m_max, complex_dtype),
                     -(-nsrc // nchunks))
-        if plan.mode == "type3":
+        if plan.mode == "type3" or isinstance(plan.executor, Type1Executor):
             # The fine grid of every channel (C*K on a non-coplanar array),
             # and the FFT's output beside it.
             CK = C * plan.executor.channel_multiplier
             grid_bytes = CK * int(np.prod(plan.executor.plan.nf)) * complex_dtype.itemsize
-            check_device_memory(2 * grid_bytes, f"the type-3 grids ({CK} channels of "
-                                f"{plan.executor.plan.nf})", dev)
+            check_device_memory(2 * grid_bytes, f"the {plan.mode} fine grids ({CK} channels "
+                                f"of {plan.executor.plan.nf})", dev)
         band_perm = active = None
         band = band_plan(rot, nsrc, block)
         if band is not None:
@@ -376,6 +378,23 @@ class CUDASimulationEngine(SimulationEngine):
             return INPUT_CACHE.get_or_build(
                 key, lambda: torch.tensor(build(), dtype=dtype, device=dev))
 
+        def aberration():
+            return rot.aberration if rot.aberration is not None else np.zeros((rot.ntimes, 3))
+
+        coord64 = None
+        if real_dtype == torch.float32 and isinstance(plan.executor, Type1Executor):
+            # The float32 ES type-1 takes its grid coordinates from a float64
+            # coordinate chain: at a lattice's long baselines (|k| ~ 400)
+            # the float32 chain's ~1e-7 relative rounding of the source
+            # phases is a phase error of ~1e-3 rad.
+            f64 = torch.float64
+            coord64 = (
+                upload(("coord64", plan.coord_matrix), lambda: plan.coord_matrix, f64),
+                upload(("mats", rot.matrices), lambda: rot.matrices, f64),
+                upload(("abvel", rot.aberration, rot.ntimes), aberration, f64),
+                upload(("eq", rot.eq_vectors, band_perm), lambda: rot.eq_vectors, f64),
+            )
+
         cfg = ProgramConfig(
             plan=plan,
             rows=BlockRows(prepared, routing, polarized, polarized_sky, complex_dtype),
@@ -394,11 +413,10 @@ class CUDASimulationEngine(SimulationEngine):
                 ("coefs", np.asarray(beam_coefs)), lambda: np.asarray(beam_coefs),
                 complex_dtype),
             active=active,
+            coord64=coord64,
         )
 
-        abvel = upload(("abvel", rot.aberration, rot.ntimes), lambda: (
-            rot.aberration if rot.aberration is not None else np.zeros((rot.ntimes, 3))),
-            real_dtype)
+        abvel = upload(("abvel", rot.aberration, rot.ntimes), aberration, real_dtype)
 
         def sky():
             fl = fluxes_arr if src_keep is None else fluxes_arr[src_keep]
@@ -564,14 +582,15 @@ def source_block(plan, C: int, nbl: int, npairs: int, pad_routing: bool, m_max: 
     (block, baselines) phase matrix (padded to npairs * m_max with the
     padded routing), or a transform's (C, block) rows (twice: the rows and
     their pre-phased copy) plus the low-rank-z type-3's (C*K, block) z-mode
-    weights or the exact type-1's (block, nmy * nmx) outer factor."""
+    weights or the exact type-1's (block, nmy * nmx) outer factor (the ES
+    type-1 has no per-source term beyond the rows)."""
     if plan.mode == "direct":
         eff_bl = npairs * m_max if pad_routing else nbl
         return max(1, min(SOURCE_BLOCK, DIRECT_BLOCK_BYTES // (16 * eff_bl)))
     per_source = 2 * C * complex_dtype.itemsize
     if plan.mode == "type3" and plan.executor.channel_multiplier > 1:
         per_source += C * plan.executor.channel_multiplier * complex_dtype.itemsize
-    if plan.mode == "type1":
+    if isinstance(plan.executor, Type1ExactExecutor):
         per_source += int(np.prod(plan.executor.plan.nf)) * complex_dtype.itemsize
     return max(1, min(SOURCE_BLOCK, BLOCK_BYTES // per_source))
 

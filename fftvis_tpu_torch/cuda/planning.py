@@ -4,8 +4,10 @@ The port of ``plan_transform`` and ``select_gridded_path``
 (``fftvis_tpu/tpu/planning.py``):
 
 - a gridded array (antennas on an integer lattice) takes the exact type-1
-  transform at the baselines' integer lattice modes, or the direct path
-  when it is asked for;
+  transform at the baselines' integer lattice modes, or, past its reach or
+  under ``FFTVIS_TYPE1=es``, the ES type-1 NUFFT
+  (:class:`~fftvis_tpu_torch.nufft.transform.Type1Executor`), or the
+  direct path when it is asked for;
 - any other array takes the exact direct path or the type-3 NUFFT, from a
   cost model whose spread term is the scatter cost ``16 * nsrc * w^2`` --
   the card's spreader, like a scatter, does O(w^2) work per source; the
@@ -16,10 +18,9 @@ The port of ``plan_transform`` and ``select_gridded_path``
   the cost model, and an array too tall for the expansion takes the direct
   path.
 
-The JAX package's ES type-1 (``Type1Executor``) is not ported: where the
-exact transform does not apply, or ``FFTVIS_TYPE1=es`` asks for ES, the
-planner raises ``NotImplementedError``; ``FFTVIS_TYPE1=exact`` forces the
-exact transform, as in the JAX package.
+``FFTVIS_TYPE1=exact`` forces the exact transform and ``es`` the ES one,
+as in the JAX package; the JAX planner's TPU-only crossover to ES at small
+channel counts does not apply on the card.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ from ..core import utils as core_utils
 from ..core.antenna_gridding import check_antpos_griddability
 from ..core.utils import speed_of_light
 from ..nufft.transform import (
+    Type1Executor,
     Type3Executor,
     Type3LowrankZExecutor,
     fit_plan_precorr,
+    plan_type1,
     plan_type3,
     plan_type3_lowrank_z,
 )
@@ -57,7 +60,8 @@ class SimPlan:
     device tables that every call on its configuration shares."""
 
     mode: str  # 'type1' | 'type3' | 'direct'
-    executor: Type3Executor | Type3LowrankZExecutor | Type1ExactExecutor | None
+    executor: (Type3Executor | Type3LowrankZExecutor | Type1ExactExecutor | Type1Executor
+               | None)
     # direct mode: (d, nbl) signed targets, meters (or lattice modes)
     targets: np.ndarray | None
     rotation_matrix: np.ndarray  # (3, 3) applied to topo for NUFFT coords
@@ -126,7 +130,8 @@ def plan_transform(
         bls_signed = np.where(flipped_global[None, :], -bls_int, bls_int)
         # Source lattice coordinates are (basis / c)^T topo.
         lattice = (basis / speed_of_light).T
-        mode, executor, targets = select_gridded_path(nufft_mode, bls_signed, device)
+        mode, executor, targets = select_gridded_path(nufft_mode, bls_signed, eps,
+                                                      upsample_factor, device)
         logger.info("Gridded array detected: using the %s path", mode)
         return SimPlan(mode, executor, targets, np.eye(3), lattice)
 
@@ -210,17 +215,20 @@ def upper_hemisphere_z_range(r: np.ndarray) -> tuple[float, float]:
     return zlo, zhi
 
 
-def select_gridded_path(nufft_mode: str, bls_signed: np.ndarray, device):
-    """Gridded arrays: the exact type-1 transform, or the direct path when
-    ``nufft_mode`` is 'direct'. Returns (mode, executor, direct targets).
+def select_gridded_path(nufft_mode: str, bls_signed: np.ndarray, eps: float,
+                        upsample_factor: float, device):
+    """Gridded arrays: the exact type-1 transform, ES type-1, or the direct
+    path when ``nufft_mode`` is 'direct'. Returns (mode, executor, direct
+    targets).
 
-    The exact transform applies while its mode grid holds at most
+    The exact transform is taken under ``FFTVIS_TYPE1=exact``, and in
+    ``auto`` mode while its mode grid holds at most
     :data:`DENSE_GRID_LIMIT` cells and its factor phases stay exact in
-    float32 (kmax * nm < 2^23 an axis); ``FFTVIS_TYPE1=exact`` forces it
-    past both checks, with a warning where the float32 phases are not
-    exact, as the JAX planner does. Beyond its reach, and under
-    ``FFTVIS_TYPE1=es``, the JAX package runs ES type-1, which the port does
-    not have yet: that raises.
+    float32 (kmax * nm < 2^23 an axis); forced past the float32 check it
+    warns, as the JAX planner does. Otherwise, and always under
+    ``FFTVIS_TYPE1=es``, the ES type-1 at the requested ``eps`` and
+    ``upsample_factor`` (sigma stays as asked: the JAX package measured
+    sigma = 1.25 breaking its float32 gridded accuracy).
     """
     if nufft_mode == "direct":
         return "direct", None, bls_signed.astype(float)
@@ -240,9 +248,7 @@ def select_gridded_path(nufft_mode: str, bls_signed: np.ndarray, device):
     ):
         logger.info("Gridded path: exact separable DFT (mode grid %s)", xplan.nf)
         return "type1", Type1ExactExecutor(xplan, device=device), None
-    raise NotImplementedError(
-        f"ES type-1 (Type1Executor) is ROADMAP item 4: the exact type-1 "
-        f"transform does not take this lattice (mode grid {xplan.nf}, "
-        f"FFTVIS_TYPE1={t1_env}); pass force_use_type3=True, "
-        f"nufft_mode='direct' or FFTVIS_TYPE1=exact"
-    )
+    plan = plan_type1(bls_signed, eps, upsample_factor)
+    logger.info("Gridded path: ES type-1 (fine grid %s, w=%d; exact mode grid %s)",
+                plan.nf, plan.kernel.w, xplan.nf)
+    return "type1", Type1Executor(plan, device=device), None

@@ -5,8 +5,8 @@ double-single and mesh paths: unpolarized (one feed) and polarized (two
 feeds), one shared beam, per-antenna beams routed by beam pair, or an
 eigenbeam basis (given ``beam_coefs``, or auto-rank's substitute for a
 per-antenna list) contracted with its coefficients on the device, on the
-direct, type-3 (2D, or low-rank z on a non-coplanar array) and exact type-1
-transforms, with or without horizon banding.
+direct, type-3 (2D, or low-rank z on a non-coplanar array) and type-1 (exact,
+or ES on the fine grid) transforms, with or without horizon banding.
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` nest over (times,
 freqs, source blocks) becomes Python loops over tensors:
 
@@ -18,9 +18,11 @@ freqs, source blocks) becomes Python loops over tensors:
         time):
                 beam responses -> coherency rows x mask (C = P * nfeeds^2
                 channels, pair-major) -> direct sum, spread into the fine
-                grid (type-3) or add to the mode grid (type-1)
-        after the blocks: FFT + deconvolution + interpolation (type-3) or
-                the mode gather (type-1), per pair or batched over the
+                grid (type-3, ES type-1) or add to the mode grid (exact
+                type-1)
+        after the blocks: FFT + deconvolution + interpolation (type-3),
+                FFT + the deconvolved mode gather (ES type-1) or the mode
+                gather (exact type-1), per pair or batched over the
                 padded routing; flip conjugation without a feed swap, the
                 reference's feed transpose, the inverse permutation of the
                 pair routing; or the basis contraction
@@ -224,6 +226,10 @@ class ProgramConfig:
     # Horizon banding: per time, the indices of the source blocks to run
     # (host ints); None runs every block at every time.
     active: tuple | None = None
+    # Float64 (coordinate matrix, mats, abvel, eq) on the device, from which
+    # the transform coordinates are formed in float64 (a float32 ES type-1
+    # run); None forms them from the inputs, in real_dtype.
+    coord64: tuple | None = None
 
     @property
     def nfeeds(self) -> int:
@@ -352,6 +358,10 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh, table=None) -> torch.T
         mask = (topo[2] > 0).to(cfg.real_dtype)
         az, za = enu_to_az_za(topo[0], topo[1], orientation="uvbeam")
         xr = coord @ topo  # (d, nsrc) array-frame or lattice coordinates
+        if cfg.coord64 is not None:
+            c64, m64, ab64, eq64 = cfg.coord64
+            e64 = eq64 + ab64[t][:, None]
+            xr = c64 @ (m64[t] @ (e64 / torch.linalg.norm(e64, dim=0, keepdim=True)))
         starts = (every_block if cfg.active is None
                   else [b * cfg.block for b in cfg.active[t]])
 

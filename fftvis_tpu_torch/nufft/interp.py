@@ -46,6 +46,14 @@ channel) or :func:`interp_adjoint_plain` on the CPU.
 :class:`InterpFunction` binds the two for autograd; :func:`interp` takes it
 when G requires a gradient. ``launches`` and ``adjoint_launches`` count
 the two kernels' launches.
+
+:func:`interp_nd` interpolates a grid of any dimension d = 1, 2, 3 (the
+public type-2 and type-3 transforms): d = 2 is :func:`interp`, and d = 1
+and d = 3 launch ``interp_taps_nd`` (one warp a target, the lanes over the
+w taps, or over the w x w taps of the last two axes with a loop over the
+first, a shuffle reduction a channel), counted by ``launches_d1`` and
+``launches_d3``, with :func:`interp_nd_plain` (the JAX gather and einsum)
+on the CPU. Gradients at d = 1 and 3 are not ported.
 """
 
 from __future__ import annotations
@@ -60,6 +68,8 @@ RUN_CAP = 32  # rows a run at most: one a lane
 
 launches = 0
 adjoint_launches = 0
+launches_d1 = 0
+launches_d3 = 0
 
 
 def target_order(iy0: np.ndarray, ix0: np.ndarray, tile: int = TILE) -> np.ndarray:
@@ -99,6 +109,20 @@ def interp_plain(G, iy, ix, vy, vx) -> torch.Tensor:
     package's ``Type3Executor.interpolate``. Returns (C, m) complex."""
     sub = G[:, iy.long()[:, :, None], ix.long()[:, None, :]]  # (C, m, w, w)
     return torch.einsum("cmab,ma,mb->cm", sub, vy.to(G.dtype), vx.to(G.dtype))
+
+
+def interp_nd_plain(G, idx, val) -> torch.Tensor:
+    """Plain torch interpolation of a (C, *nf) grid of any dimension d at
+    m targets: ``idx`` and ``val`` the d per-axis (m, w) tap tables, the
+    gather + einsum of the JAX ``Type3Executor.interpolate``. Returns (C,
+    m) complex."""
+    d = len(idx)
+    sub = G[(slice(None),) + tuple(
+        t.long()[(slice(None),) + tuple(slice(None) if a == b else None for b in range(d))]
+        for a, t in enumerate(idx))]  # (C, m, w, ..., w)
+    letters = "abe"[:d]
+    spec = "cm" + letters + "," + ",".join("m" + a for a in letters) + "->cm"
+    return torch.einsum(spec, sub, *(v.to(G.dtype) for v in val))
 
 
 def interp_adjoint_plain(g, iy, ix, vy, vx, nfy: int, nfx: int) -> torch.Tensor:
@@ -286,3 +310,70 @@ class InterpFunction(torch.autograd.Function):
         iy, ix, vy, vx, order, runs = ctx.saved_tensors
         gG = interp_adjoint(g, iy, ix, vy, vx, ctx.nf, order, runs)
         return gG, None, None, None, None, None, None
+
+
+def interp_nd(G, idx, val, order=None, runs=None) -> torch.Tensor:
+    """Interpolate G (C, *nf) complex, d = 1, 2, 3, at m targets from the
+    d per-axis (m, w) tap tables ``idx`` (int32) and ``val`` (G's real
+    dtype). Returns (C, m).
+
+    d = 2 is :func:`interp` (with its ``order`` and ``runs``). At d = 1 and
+    3 the tables are in target order; a CPU tensor takes
+    :func:`interp_nd_plain`, a CUDA tensor launches ``interp_taps_nd``, any
+    other device raises; a grid that requires a gradient raises
+    ``NotImplementedError``.
+    """
+    d = len(idx)
+    if d == 2:
+        return interp(G, idx[0], idx[1], val[0], val[1], order=order, runs=runs)
+    if d not in (1, 3) or len(val) != d or G.dim() != 1 + d:
+        raise ValueError(f"interp: {len(idx)} index and {len(val)} value tables for a "
+                         f"grid of shape {tuple(G.shape)}")
+    # The 2D checks on the first and last axes' tables and a (C, n0,
+    # n_last) view of the grid's shape.
+    _check(G.new_empty((G.shape[0], 1, 1)), idx[0], idx[-1], val[0], val[-1], None, None)
+    if any(t.shape != idx[0].shape or t.device != G.device or not t.is_contiguous()
+           for t in (*idx, *val)) or any(t.dtype != idx[0].dtype for t in idx) or any(
+               v.dtype != val[0].dtype for v in val):
+        raise ValueError("interp: tap tables must be matching contiguous (m, w) tensors")
+    if not G.is_contiguous():
+        raise ValueError("interp: G must be contiguous")
+    if torch.is_grad_enabled() and G.requires_grad:
+        raise NotImplementedError(f"gradients through the d={d} interpolation are "
+                                  "ROADMAP item 13")
+    if G.device.type == "cpu":
+        return interp_nd_plain(G, idx, val)
+    if G.device.type != "cuda":
+        raise ValueError(f"interp: unsupported device {G.device}")
+    return _interp_nd_cuda(G, idx, val)
+
+
+def _interp_nd_cuda(G, idx, val) -> torch.Tensor:
+    global launches_d1, launches_d3
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    d = len(idx)
+    C = G.shape[0]
+    m, w = idx[0].shape
+    nf = tuple(G.shape[1:]) + (1,) * (3 - d)
+    out = torch.empty((C, m), dtype=G.dtype, device=G.device)
+    if m == 0:
+        return out
+    none = [ctypes.c_void_p(None)] * (3 - d)
+    fn = lib.fftvis_interp_nd_f32 if G.dtype == torch.complex64 else lib.fftvis_interp_nd_f64
+    err = fn(
+        d, ctypes.c_void_p(G.data_ptr()),
+        *[ctypes.c_void_p(t.data_ptr()) for t in idx], *none,
+        *[ctypes.c_void_p(t.data_ptr()) for t in val], *none,
+        ctypes.c_void_p(out.data_ptr()),
+        C, *nf, m, w,
+        ctypes.c_void_p(torch.cuda.current_stream(G.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"interp (d={d}) kernel launch failed: CUDA error {err}")
+    if d == 1:
+        launches_d1 += 1
+    else:
+        launches_d3 += 1
+    return out

@@ -1,4 +1,4 @@
-"""2D ES spreading: the hand-written CUDA kernel and its plain torch version.
+"""ES spreading: the hand-written CUDA kernels and their plain torch versions.
 
 Replaces the Pallas band-accumulator spreader of the JAX package
 (``fftvis_tpu/nufft/pallas_spread.py``, ``_build_pallas_call``, driven by
@@ -38,6 +38,15 @@ no atomics) or :func:`spread_adjoint_plain` on the CPU.
 when the weights or the grid require a gradient, and accumulates in place
 either way. The coordinates are planning inputs and get no gradient.
 ``launches`` and ``adjoint_launches`` count the two kernels' launches.
+
+:func:`spread_nd` spreads onto a grid of any dimension d = 1, 2, 3 (the
+public type-1 and type-3 transforms): d = 2 is :func:`spread`, and d = 1
+and d = 3 launch ``spread_gm_1d`` and ``spread_gm_3d`` (the same GM
+method: one warp a source, its ES values once, atomics; at d = 3 the lanes
+cover the taps of the last two axes and a loop the first), counted by
+``launches_d1`` and ``launches_d3``, with :func:`spread_nd_plain` (the JAX
+``_spread_scatter`` of any d) on the CPU. Gradients at d = 1 and 3 are not
+ported.
 """
 
 from __future__ import annotations
@@ -50,40 +59,58 @@ from .kernels import es_kernel_grid
 
 launches = 0
 adjoint_launches = 0
+launches_d1 = 0
+launches_d3 = 0
+
+
+def spread_taps_nd(u, nf, w: int, beta: float):
+    """The w^d taps of every source on the periodic grid ``nf``: flat cell
+    indices (n * w^d,) into the row-major grid, taken mod nf, and ES kernel
+    values (n, w^d); ``u`` the d per-axis (n,) grid coordinates."""
+    n = u[0].shape[0]
+    offs = torch.arange(w, device=u[0].device)
+    flat = vals = None
+    for ua, nfa in zip(u, nf):
+        cell = torch.floor(ua)
+        frac = ua - cell
+        i0 = torch.ceil(ua - w / 2.0).to(torch.int64)
+        ii = i0[:, None] + offs[None, :]  # (n, w) signed
+        t = (cell[:, None] - ii.to(cell.dtype)) + frac[:, None]
+        v = es_kernel_grid(t, w, beta)
+        idx = torch.remainder(ii, int(nfa))
+        if flat is None:
+            flat, vals = idx, v
+        else:
+            flat = (flat[:, :, None] * int(nfa) + idx[:, None, :]).reshape(n, -1)
+            vals = (vals[:, :, None] * v[:, None, :]).reshape(n, -1)
+    return flat.reshape(-1), vals
 
 
 def spread_taps(uy, ux, nfy: int, nfx: int, w: int, beta: float):
     """The w x w taps of every source: flat cell indices (n * w^2,) into the
     (nfy * nfx) grid, taken mod nf, and ES kernel values (n, w^2)."""
-    n = uy.shape[0]
-    offs = torch.arange(w, device=uy.device)
-    idx_dim, val_dim = [], []
-    for u, nf in ((uy, nfy), (ux, nfx)):
-        cell = torch.floor(u)
-        frac = u - cell
-        i0 = torch.ceil(u - w / 2.0).to(torch.int64)
-        ii = i0[:, None] + offs[None, :]  # (n, w) signed
-        t = (cell[:, None] - ii.to(cell.dtype)) + frac[:, None]
-        val_dim.append(es_kernel_grid(t, w, beta))
-        idx_dim.append(torch.remainder(ii, nf))
-    flat_idx = (idx_dim[0][:, :, None] * nfx + idx_dim[1][:, None, :]).reshape(-1)
-    vals = (val_dim[0][:, :, None] * val_dim[1][:, None, :]).reshape(n, w * w)
-    return flat_idx, vals
+    return spread_taps_nd((uy, ux), (nfy, nfx), w, beta)
 
 
-def spread_plain(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
-    """Plain torch spreader: ``index_add_`` on the flattened (C, nfy*nfx)
-    grid, the 2D form of the JAX package's ``_spread_scatter``.
-    Accumulates into ``grid`` in place and returns it."""
-    C, nfy, nfx = grid.shape
-    flat_idx, vals = spread_taps(uy, ux, nfy, nfx, w, beta)
-    contrib = wts[:, :, None] * vals[None, :, :]  # (C, n, w^2)
+def spread_nd_plain(u, wts, grid, w: int, beta: float) -> torch.Tensor:
+    """Plain torch spreader of any dimension: ``index_add_`` on the
+    flattened (C, prod(nf)) grid, the JAX package's ``_spread_scatter``.
+    Accumulates into ``grid`` (C, *nf) in place and returns it."""
+    C = grid.shape[0]
+    flat_idx, vals = spread_taps_nd(u, grid.shape[1:], w, beta)
+    contrib = wts[:, :, None] * vals[None, :, :]  # (C, n, w^d)
     # Scatter the re/im planes as reals: index_add_ of reals is supported
     # on every device.
-    torch.view_as_real(grid).view(C, nfy * nfx, 2).index_add_(
+    torch.view_as_real(grid).view(C, -1, 2).index_add_(
         1, flat_idx, torch.view_as_real(contrib).reshape(C, -1, 2)
     )
     return grid
+
+
+def spread_plain(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
+    """Plain torch 2D spreader (:func:`spread_nd_plain` at d = 2).
+    Accumulates into ``grid`` in place and returns it."""
+    return spread_nd_plain((uy, ux), wts, grid, w, beta)
 
 
 def spread_adjoint_plain(uy, ux, grid, w: int, beta: float) -> torch.Tensor:
@@ -230,3 +257,73 @@ class SpreadFunction(torch.autograd.Function):
         uy, ux = ctx.saved_tensors
         gw = spread_adjoint(uy, ux, g, ctx.w, ctx.beta) if ctx.needs_input_grad[2] else None
         return None, None, gw, g if ctx.needs_input_grad[3] else None, None, None
+
+
+def _check_nd(u, wts, grid, w: int) -> None:
+    d = len(u)
+    if d not in (1, 2, 3):
+        raise ValueError(f"spread: d={d} outside 1..3")
+    if grid.dim() != 1 + d:
+        raise ValueError(f"spread: a d={d} grid must be (C, *nf), got {tuple(grid.shape)}")
+    ux = u[1] if d > 1 else u[0]
+    # The 2D checks, run on the first and last axes' coordinates and a
+    # (C, n0, n_last) view of the grid's shape.
+    _check(u[0], ux, wts, grid.new_empty((grid.shape[0], 0, 0)), w)
+    if any(ua.shape != u[0].shape or ua.dtype != u[0].dtype or ua.device != u[0].device
+           for ua in u):
+        raise ValueError("spread: coordinates must be matching (n,) vectors on one device")
+    if grid.device != wts.device or not grid.is_contiguous():
+        raise ValueError("spread: grid must be contiguous on the weights' device")
+
+
+def spread_nd(u, wts, grid, w: int, beta: float) -> torch.Tensor:
+    """Spread (C, n) complex weights at the d per-axis grid coordinates
+    ``u`` (each (n,), in [0, nf]) onto ``grid`` (C, *nf), d = 1, 2, 3, in
+    place.
+
+    d = 2 is :func:`spread`. At d = 1 and 3 a CPU tensor takes
+    :func:`spread_nd_plain`, a CUDA tensor launches ``spread_gm_1d`` /
+    ``spread_gm_3d``, any other device raises; a weight or grid that
+    requires a gradient raises ``NotImplementedError``.
+    """
+    u = tuple(u)
+    if len(u) == 2:
+        return spread(u[0], u[1], wts, grid, w, beta)
+    _check_nd(u, wts, grid, w)
+    if torch.is_grad_enabled() and (wts.requires_grad or grid.requires_grad):
+        raise NotImplementedError(
+            f"gradients through the d={len(u)} spread are ROADMAP item 13")
+    if grid.device.type == "cpu":
+        return spread_nd_plain(u, wts, grid, w, beta)
+    if grid.device.type != "cuda":
+        raise ValueError(f"spread: unsupported device {grid.device}")
+    return _spread_nd_cuda(u, wts, grid, w, beta)
+
+
+def _spread_nd_cuda(u, wts, grid, w: int, beta: float) -> torch.Tensor:
+    global launches_d1, launches_d3
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    d, n = len(u), u[0].shape[0]
+    if n == 0:
+        return grid
+    C, nf = grid.shape[0], tuple(grid.shape[1:]) + (1,) * (3 - len(u))
+    u = [ua.contiguous() for ua in u]
+    wts = wts.contiguous()
+    ptr = [ctypes.c_void_p(ua.data_ptr()) for ua in u] + [ctypes.c_void_p(None)] * (3 - d)
+    fn = lib.fftvis_spread_nd_f32 if u[0].dtype == torch.float32 else lib.fftvis_spread_nd_f64
+    err = fn(
+        d, *ptr,
+        ctypes.c_void_p(wts.data_ptr()),
+        ctypes.c_void_p(grid.data_ptr()),
+        n, C, *nf, w, float(beta),
+        ctypes.c_void_p(torch.cuda.current_stream(grid.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"spread (d={d}) kernel launch failed: CUDA error {err}")
+    if d == 1:
+        launches_d1 += 1
+    else:
+        launches_d3 += 1
+    return grid

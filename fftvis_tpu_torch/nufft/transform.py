@@ -1,24 +1,31 @@
-"""Type-3 NUFFT: host planning (NumPy) + device execution (torch).
+"""The NUFFT transforms: host planning (NumPy) + device execution (torch).
 
-The port's counterpart of ``fftvis_tpu/nufft/transform.py`` for the type-3
-transform
+The port of ``fftvis_tpu/nufft/transform.py``, with the +i sign convention
+of finufft's defaults, f(s) = sum_j c_j exp(+i s . x_j):
 
-    pre-phase + pre-correction -> ES-spread -> batched (i)FFT ->
-    grid deconvolution -> ES-interpolation at the nonuniform targets
+- type-1 (:class:`Type1Executor`): ES-spread onto the periodic fine grid
+  -> batched (i)FFT -> gather at the requested integer modes with their
+  deconvolution. The engine takes it for a gridded array past the exact
+  type-1 path's reach, or under ``FFTVIS_TYPE1=es``;
+- type-2 (:class:`Type2Executor`), its transpose: scatter-add of the
+  deconvolved modes -> FFT -> ES interpolation at the planned points;
+- type-3 (:class:`Type3Executor`): pre-phase + pre-correction -> ES-spread
+  -> batched FFT -> grid deconvolution -> ES interpolation at the
+  nonuniform targets; and in 3D through the low-rank z factorization
+  (non-coplanar arrays, :class:`Type3LowrankZExecutor`: K Chebyshev z
+  modes ride the 2D spread and interpolation as C*K channels, then a
+  contraction with host-planned target coefficients).
 
-in 2D (coplanar arrays, :class:`Type3Executor`) and in 3D through the
-low-rank z factorization (non-coplanar arrays,
-:class:`Type3LowrankZExecutor`: K Chebyshev z modes ride the 2D spread and
-interpolation as C*K channels, then a contraction with host-planned target
-coefficients). Planning (:func:`plan_type3`, :func:`plan_type3_lowrank_z`,
-:func:`fit_plan_precorr`) is a NumPy copy and gives exactly the JAX
-package's plan arrays. Execution runs on the plan's
-torch device: the spread and interpolation go through the hand-written CUDA
-kernels of :mod:`.spread` and :mod:`.interp` on a CUDA tensor and through
-their plain torch versions on a CPU tensor; the FFT is ``torch.fft`` (cuFFT
-on the card).
-
-Sign convention (finufft default, isign=+1): f(s) = sum_j c_j exp(+i s . x_j).
+Planning (:func:`plan_type1`, :func:`plan_type2`, :func:`plan_type3`,
+:func:`plan_type3_lowrank_z`, :func:`fit_plan_precorr`) is a NumPy copy and
+gives exactly the JAX package's plan arrays. Execution runs on the
+executor's torch device, at d = 1, 2 or 3 (the engine's transforms are 2D;
+the public ``make_type{1,2,3}_fn`` take any of the three): the spread and
+interpolation go through the hand-written CUDA kernels of :mod:`.spread`
+and :mod:`.interp` on a CUDA tensor and through their plain torch versions
+on a CPU tensor; the FFT is ``torch.fft`` (cuFFT on the card) and the
+type-2 scatter of the modes is ``index_add_`` (the JAX package's is an XLA
+scatter, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .interp import footprint_runs, interp, target_order
+from .interp import footprint_runs, interp_nd, target_order
 from .kernels import (
     ESKernel,
     es_kernel_ft,
@@ -38,7 +45,7 @@ from .kernels import (
     fit_log_ft_cheb,
     next_fast_size,
 )
-from .spread import spread
+from .spread import spread_nd
 
 
 def _check_int32_grid(nf) -> None:
@@ -49,6 +56,44 @@ def _check_int32_grid(nf) -> None:
             f"planned grid has {cells} cells, exceeding the int32 index "
             "space used for device gather/scatter indices; reduce the mode "
             "extent or split the transform"
+        )
+
+
+@dataclass(frozen=True)
+class Type1Plan:
+    """Plan for a d-dimensional type-1 transform gathered at fixed modes.
+
+    The deconvolution and gather are planned per requested mode, so the
+    full deconvolved grid is never formed.
+    """
+
+    kernel: ESKernel
+    d: int
+    nf: tuple[int, ...]
+    # Per-target gather positions in FFT-order flat indexing, (m,) int32.
+    gather_idx: np.ndarray
+    # Per-target deconvolution factors, (m,) float64.
+    gather_deconv: np.ndarray
+    n_targets: int
+
+    @classmethod
+    def from_reference(cls, plan) -> "Type1Plan":
+        """Build the port's plan from a ``fftvis_tpu`` ``Type1Plan``, its
+        fields read by attribute as NumPy arrays (frozen), so both
+        packages' executors can run one plan."""
+        k = plan.kernel
+        idx = np.array(plan.gather_idx)
+        dec = np.array(plan.gather_deconv)
+        idx.setflags(write=False)
+        dec.setflags(write=False)
+        return cls(
+            kernel=ESKernel(w=int(k.w), beta=float(k.beta),
+                            sigma=float(k.sigma), eps=float(k.eps)),
+            d=int(plan.d),
+            nf=tuple(int(n) for n in plan.nf),
+            gather_idx=idx,
+            gather_deconv=dec,
+            n_targets=int(plan.n_targets),
         )
 
 
@@ -101,6 +146,66 @@ class Type3Plan:
             ),
             ft_xi_max=tuple(float(v) for v in plan.ft_xi_max),
         )
+
+
+def plan_type1(
+    modes: np.ndarray,
+    eps: float,
+    upsample_factor: float = 2.0,
+    prefer_pow2: bool = False,
+) -> Type1Plan:
+    """Plan a type-1 transform gathered at integer ``modes``.
+
+    Parameters
+    ----------
+    modes
+        Integer mode indices, shape (d, m). May be negative (FFT wrap).
+    eps
+        Requested accuracy (same semantics as finufft / the reference API).
+    upsample_factor
+        Fine-grid oversampling sigma, 1.25 or 2.
+    """
+    modes = np.atleast_2d(np.asarray(modes, dtype=np.int64))
+    d, m = modes.shape
+    kernel = ESKernel.from_eps(eps, upsample_factor)
+
+    # The fine grid must hold the requested modes inside the accurate band
+    # |k| <= nf / (2 sigma).
+    kmax = np.max(np.abs(modes), axis=1)  # (d,)
+    nf = tuple(
+        next_fast_size(
+            int(np.ceil(2 * upsample_factor * max(km, 1) + kernel.w)),
+            prefer_pow2=prefer_pow2,
+        )
+        for km in kmax
+    )
+
+    # FFT-order flat gather index and per-target deconvolution. The kernel
+    # FT is evaluated once per unique |k| per axis.
+    _check_int32_grid(nf)
+    flat = np.zeros(m, dtype=np.int64)
+    deconv = np.ones(m, dtype=np.float64)
+    for axis in range(d):
+        k = modes[axis]
+        idx = np.mod(k, nf[axis])
+        flat = flat * nf[axis] + idx
+        km = int(kmax[axis])
+        table = es_kernel_ft(
+            2.0 * np.pi * np.arange(km + 1) / nf[axis], kernel.w, kernel.beta
+        )
+        deconv /= table[np.abs(k)]
+    gather_idx = flat.astype(np.int32)
+    # Frozen: cache keys fingerprint these (core/hashing.py).
+    gather_idx.setflags(write=False)
+    deconv.setflags(write=False)
+    return Type1Plan(
+        kernel=kernel,
+        d=d,
+        nf=nf,
+        gather_idx=gather_idx,
+        gather_deconv=deconv,
+        n_targets=m,
+    )
 
 
 @dataclass(frozen=True)
@@ -393,8 +498,32 @@ def _fmod_positive(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(r < 0, r + n, r)
 
 
+def tap_tables(tap_idx, tap_val, rdtype: torch.dtype, device, sel=None):
+    """A plan's per-axis (m, w) interpolation tap tables of every target, or
+    of the subset ``sel``, on ``device``: indices as int32, kernel values as
+    ``rdtype``, and the ``order`` and ``runs`` the 2D kernel takes (None at d
+    = 1 and 3, whose tables stay in target order). At d = 2 the rows are put
+    in :func:`~.interp.target_order` and that order (as positions in the
+    subset) and the tables' :func:`~.interp.footprint_runs` come as int32
+    device tensors. A plan's taps are w consecutive cells (mod nf) from the
+    first, so order and runs come from the first column alone. Returns
+    (indices, values, order, runs)."""
+    idx = [a if sel is None else a[sel] for a in tap_idx]
+    val = [a if sel is None else a[sel] for a in tap_val]
+    order = runs = None
+    if len(idx) == 2:
+        perm = target_order(idx[0][:, 0], idx[1][:, 0])
+        runs = torch.tensor(footprint_runs(idx[0][perm, :1], idx[1][perm, :1]),
+                            dtype=torch.int32, device=device)
+        order = torch.tensor(perm, dtype=torch.int32, device=device)
+        idx, val = [a[perm] for a in idx], [a[perm] for a in val]
+    return (tuple(torch.tensor(a, dtype=torch.int32, device=device) for a in idx),
+            tuple(torch.tensor(a, dtype=rdtype, device=device) for a in val),
+            order, runs)
+
+
 class Type3Executor:
-    """Split-phase coplanar type-3 execution on the plan's device.
+    """Split-phase type-3 execution on the plan's device.
 
     ``spread`` (pre-phase + pre-correction + ES spreading) is linear in the
     weights and accumulates across source blocks into one grid;
@@ -407,13 +536,6 @@ class Type3Executor:
     channel_multiplier = 1
 
     def __init__(self, plan: Type3Plan, device="cuda"):
-        if plan.d != 2:
-            # The engine's 3D arrays take Type3LowrankZExecutor; a full 3D
-            # fine grid belongs to the public NUFFT surface.
-            raise NotImplementedError(
-                f"d={plan.d} Type3Executor (the public NUFFT surface's 3D "
-                "grid) is ROADMAP item 12"
-            )
         self.plan = plan
         self.device = torch.device(device)
         self._tables: dict = {}
@@ -427,35 +549,20 @@ class Type3Executor:
         return self._tables[key]
 
     def _taps(self, rdtype: torch.dtype, sel: np.ndarray | None = None):
-        """The tap tables of every target, or of the subset ``sel``, on the
-        device, built once per (dtype, subset) and kept: indices as int32,
-        kernel values as ``rdtype``, rows put in
-        :func:`~.interp.target_order`, then that order (as positions in the
-        subset) and the tables' :func:`~.interp.footprint_runs` as int32
-        device tensors. A plan's taps are w consecutive cells (mod nf) from
-        the first, so order and runs come from the first column alone."""
+        """:func:`tap_tables` of every target, or of the subset ``sel``,
+        built once per (dtype, subset) and kept."""
         key = ("taps", rdtype, None if sel is None else np.asarray(sel).tobytes())
         tabs = self._tables.get(key)
         if tabs is None:
-            p, dev = self.plan, self.device
-            idx = [a if sel is None else a[sel] for a in p.tap_idx]
-            val = [a if sel is None else a[sel] for a in p.tap_val]
-            order = target_order(idx[0][:, 0], idx[1][:, 0])
-            runs = footprint_runs(idx[0][order, :1], idx[1][order, :1])
-            tabs = (
-                tuple(torch.tensor(a[order], dtype=torch.int32, device=dev) for a in idx),
-                tuple(torch.tensor(a[order], dtype=rdtype, device=dev) for a in val),
-                torch.tensor(order, dtype=torch.int32, device=dev),
-                torch.tensor(runs, dtype=torch.int32, device=dev),
-            )
-            self._tables[key] = tabs
+            tabs = self._tables[key] = tap_tables(self.plan.tap_idx, self.plan.tap_val,
+                                                  rdtype, self.device, sel)
         return tabs
 
     def spread(self, x: torch.Tensor, c: torch.Tensor, grid=None) -> torch.Tensor:
         """Spread sources onto the fine grid.
 
-        x: (2, n) source coords within the planned extent; c: (C, n)
-        complex. Accumulates into ``grid`` (C, nfy, nfx) in place when
+        x: (d, n) source coords within the planned extent; c: (C, n)
+        complex. Accumulates into ``grid`` (C, *nf) in place when
         given -- the engine carries one grid across source blocks instead
         of allocating and summing one per block -- else into a new grid.
         """
@@ -464,7 +571,7 @@ class Type3Executor:
         return self._spread_weights(x, c * self._prephase(x, phase)[None, :], grid)
 
     def _prephase(self, x: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
-        """exp(i phase) over the amplitude pre-correction of the two spread
+        """exp(i phase) over the amplitude pre-correction of the spread
         axes: (n,) complex."""
         p = self.plan
         corr = torch.ones_like(x[0])
@@ -473,18 +580,18 @@ class Type3Executor:
         return torch.complex(torch.cos(phase), torch.sin(phase)) / corr
 
     def _spread_weights(self, x: torch.Tensor, wts: torch.Tensor, grid) -> torch.Tensor:
-        """The ES spread of the (C', n) weights at the sources' first two
-        coordinates into ``grid`` (C', nfy, nfx), or a new grid."""
+        """The ES spread of the (C', n) weights at the sources' first d
+        coordinates into ``grid`` (C', *nf), or a new grid."""
         p = self.plan
         u = [_fmod_positive(x[axis] / p.h[axis], p.nf[axis]) for axis in range(p.d)]
         if grid is None:
             grid = torch.zeros((wts.shape[0],) + tuple(p.nf), dtype=wts.dtype,
                                device=wts.device)
-        spread(u[0], u[1], wts, grid, p.kernel.w, p.kernel.beta)
+        spread_nd(u, wts, grid, p.kernel.w, p.kernel.beta)
         return grid
 
     def transform(self, g: torch.Tensor) -> torch.Tensor:
-        """FFT and mode deconvolution of the (C, nfy, nfx) grid; one new
+        """FFT and mode deconvolution of the (C, *nf) grid; one new
         grid-sized tensor, scaled in place."""
         p = self.plan
         G = _forward_modes(g, p.nf)
@@ -500,7 +607,7 @@ class Type3Executor:
         pair's baselines), from G: (C, m) complex in target (subset)
         order."""
         ti, tv, order, runs = self._taps(G.real.dtype, sel)
-        return interp(G.contiguous(), ti[0], ti[1], tv[0], tv[1], order=order, runs=runs)
+        return interp_nd(G.contiguous(), ti, tv, order=order, runs=runs)
 
 
 class Type3LowrankZExecutor(Type3Executor):
@@ -570,5 +677,255 @@ def make_type3_lowrank_z_fn(zplan: Type3LowrankZPlan, device="cuda"):
 
     def run(x, c):
         return ex.interpolate(ex.transform(ex.spread(x, c)))
+
+    return run
+
+
+def make_type3_fn(plan: Type3Plan, device="cuda"):
+    """(x (d, n), c (C, n)) -> (C, m). One-shot convenience wrapper."""
+    ex = Type3Executor(plan, device=device)
+
+    def run(x, c):
+        return ex.interpolate(ex.transform(ex.spread(x, c)))
+
+    return run
+
+
+class Type1Executor:
+    """Split-phase ES type-1 execution on the plan's device.
+
+    ``spread`` is linear in the weights and accumulates source blocks into
+    one (C, *nf) fine grid; ``transform`` is the FFT; ``gather`` and
+    ``gather_padded`` read the requested modes with their deconvolution,
+    in the exact executor's output layout (``nufft/type1.py``), so the
+    engine's assembly takes either executor.
+    """
+
+    channel_multiplier = 1
+
+    def __init__(self, plan: Type1Plan, device="cuda"):
+        self.plan = plan
+        self.device = torch.device(device)
+        self._tables: dict = {}
+
+    def spread(self, x: torch.Tensor, c: torch.Tensor, grid=None) -> torch.Tensor:
+        """x: (d, n) radians (2 pi periodic), in c's real dtype or float64;
+        c: (C, n) complex. Accumulates
+        into ``grid`` (C, *nf) in place when given (the engine carries one
+        grid across source blocks), else into a new grid, and returns it.
+        Where c requires a gradient, the 2D spread goes through
+        :class:`~.spread.SpreadFunction`."""
+        p = self.plan
+        # Float64 phases (the engine's float32 runs give them) are reduced
+        # to grid coordinates in float64 and cast after.
+        u = [_fmod_positive(x[axis] / (2.0 * np.pi) * p.nf[axis], p.nf[axis]).to(c.real.dtype)
+             for axis in range(p.d)]
+        if grid is None:
+            grid = torch.zeros((c.shape[0],) + tuple(p.nf), dtype=c.dtype, device=c.device)
+        spread_nd(u, c, grid, p.kernel.w, p.kernel.beta)
+        return grid
+
+    def transform(self, g: torch.Tensor) -> torch.Tensor:
+        return _forward_modes(g, self.plan.nf)
+
+    def _gather_tables(self, rdtype: torch.dtype, key, sel):
+        """The flat FFT-order positions (int64) and deconvolution factors
+        (``rdtype``) of the targets ``sel`` (an index array of any shape, or
+        None for every target) on the device, once per (dtype, key)."""
+        key = ("gather", rdtype, key)
+        tabs = self._tables.get(key)
+        if tabs is None:
+            p = self.plan
+            idx = p.gather_idx if sel is None else p.gather_idx[sel]
+            dec = p.gather_deconv if sel is None else p.gather_deconv[sel]
+            tabs = self._tables[key] = (
+                torch.as_tensor(np.asarray(idx, dtype=np.int64), device=self.device),
+                torch.tensor(dec, dtype=rdtype, device=self.device),
+            )
+        return tabs
+
+    def gather(self, G: torch.Tensor, sel: np.ndarray | None = None) -> torch.Tensor:
+        """The deconvolved modes of every target, or of the subset ``sel``,
+        from the (C, *nf) FFT output: (C, m)."""
+        key = None if sel is None else ("sel", np.asarray(sel).tobytes())
+        idx, dec = self._gather_tables(G.real.dtype, key, sel)
+        return G.reshape(G.shape[0], -1)[:, idx] * dec[None, :]
+
+    def gather_padded(self, G: torch.Tensor, sel_pad: np.ndarray) -> torch.Tensor:
+        """Batched gather over the padded pair routing: G (P * nf2, *nf)
+        pair-major, ``sel_pad`` (P, m_max) target rows; returns (P, nf2,
+        m_max)."""
+        P, m_max = sel_pad.shape
+        flat = G.reshape(P, -1, int(np.prod(self.plan.nf)))
+        idx, dec = self._gather_tables(G.real.dtype, ("pad", sel_pad.shape, sel_pad.tobytes()),
+                                       sel_pad)
+        sub = torch.gather(flat, 2, idx[:, None, :].expand(P, flat.shape[1], m_max))
+        return sub * dec[:, None, :]
+
+
+def make_type1_fn(plan: Type1Plan, device="cuda"):
+    """(x (d, n) radians, c (C, n)) -> (C, m). One-shot convenience wrapper."""
+    ex = Type1Executor(plan, device=device)
+
+    def run(x, c):
+        return ex.gather(ex.transform(ex.spread(x, c)))
+
+    return run
+
+
+@dataclass(frozen=True)
+class Type2Plan:
+    """Plan for a d-dimensional type-2 transform (modes -> points).
+
+    c_j = sum_k f_k exp(+i k . x_j) for a static integer mode list and
+    static evaluation points: the transpose of the type-1 (same +i sign
+    convention), sharing its fine grid, kernel and deconvolution table.
+
+        scatter-add (f * deconv) at the mode positions  [gather^T]
+        -> batched +i-sign FFT (symmetric matrix)        [FFT^T]
+        -> ES-kernel tap interpolation at the points     [spread^T]
+
+    The points are planned on the host in float64, like type-3's targets.
+    """
+
+    kernel: ESKernel
+    d: int
+    nf: tuple[int, ...]
+    # Per-mode scatter positions in FFT-order flat indexing, (m,) int32,
+    # and deconvolution factors, (m,) float64 (the type-1 gather tables).
+    scatter_idx: np.ndarray
+    scatter_deconv: np.ndarray
+    n_modes: int
+    # Per-point interpolation taps per dim: indices (n, w) int32 (mod nf
+    # applied) and kernel values (n, w) float64.
+    tap_idx: tuple[np.ndarray, ...]
+    tap_val: tuple[np.ndarray, ...]
+    n_points: int
+
+
+def plan_type2(
+    x: np.ndarray,
+    modes: np.ndarray,
+    eps: float,
+    upsample_factor: float = 2.0,
+    prefer_pow2: bool = False,
+) -> Type2Plan:
+    """Plan a type-2 transform: integer ``modes`` evaluated at points ``x``.
+
+    Parameters
+    ----------
+    x
+        Evaluation points in radians (2 pi periodic), shape (d, n), host
+        data: the interpolation taps are planned from them in float64.
+    modes
+        Integer mode indices, shape (d, m). May be negative (FFT wrap);
+        duplicate modes sum (scatter-add), the type-1 gather's transpose.
+    eps, upsample_factor
+        Accuracy / oversampling, as for :func:`plan_type1`.
+    """
+    x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+    t1 = plan_type1(modes, eps, upsample_factor, prefer_pow2)
+    if x.shape[0] != t1.d:
+        raise ValueError(
+            f"x has {x.shape[0]} dims but modes have {t1.d}"
+        )
+    w = t1.kernel.w
+    tap_idx, tap_val = [], []
+    for axis in range(t1.d):
+        nf_d = t1.nf[axis]
+        u = np.mod(x[axis] / (2.0 * np.pi) * nf_d, nf_d)  # (n,) grid units
+        i0 = np.ceil(u - w / 2.0).astype(np.int64)
+        cells = i0[:, None] + np.arange(w, dtype=np.int64)[None, :]
+        tap_idx.append(np.mod(cells, nf_d).astype(np.int32))
+        tap_val.append(es_kernel_grid(u[:, None] - cells, w, t1.kernel.beta))
+    for arr in (*tap_idx, *tap_val):
+        arr.setflags(write=False)
+    return Type2Plan(
+        kernel=t1.kernel,
+        d=t1.d,
+        nf=t1.nf,
+        scatter_idx=t1.gather_idx,
+        scatter_deconv=t1.gather_deconv,
+        n_modes=t1.n_targets,
+        tap_idx=tuple(tap_idx),
+        tap_val=tuple(tap_val),
+        n_points=x.shape[1],
+    )
+
+
+class Type2Executor:
+    """Split-phase type-2 execution on the plan's device.
+
+    ``interp`` is linear in the grid, so one ``scatter`` + ``transform``
+    can serve several point blocks.
+    """
+
+    def __init__(self, plan: Type2Plan, device="cuda"):
+        self.plan = plan
+        self.device = torch.device(device)
+        self._tables: dict = {}
+
+    def scatter(self, f: torch.Tensor) -> torch.Tensor:
+        """f: (C, m) mode coefficients. Returns the fine mode grid (C, *nf):
+        ``index_add_`` of f times the deconvolution into a zero grid, on the
+        real and imaginary planes (duplicate modes add)."""
+        p = self.plan
+        key = ("scatter", f.real.dtype)
+        tabs = self._tables.get(key)
+        if tabs is None:
+            tabs = self._tables[key] = (
+                torch.as_tensor(np.asarray(p.scatter_idx, dtype=np.int64), device=self.device),
+                torch.tensor(p.scatter_deconv, dtype=f.real.dtype, device=self.device),
+            )
+        idx, dec = tabs
+        vals = f * dec[None, :]
+        g = torch.zeros((f.shape[0], int(np.prod(p.nf))), dtype=f.dtype, device=f.device)
+        torch.view_as_real(g).index_add_(1, idx, torch.view_as_real(vals))
+        return g.reshape((f.shape[0],) + tuple(p.nf))
+
+    def transform(self, G: torch.Tensor) -> torch.Tensor:
+        # e^{+2 pi i k m / nf} is symmetric in (k, m): the +i-sign FFT of
+        # the type-1 is its own transpose.
+        return _forward_modes(G, self.plan.nf)
+
+    def _taps(self, rdtype: torch.dtype, lo: int, hi: int):
+        """:func:`tap_tables` of points [lo, hi), once per (dtype, block)."""
+        key = ("taps", rdtype, lo, hi)
+        tabs = self._tables.get(key)
+        if tabs is None:
+            sel = None if (lo, hi) == (0, self.plan.n_points) else np.arange(lo, hi)
+            tabs = self._tables[key] = tap_tables(self.plan.tap_idx, self.plan.tap_val,
+                                                  rdtype, self.device, sel)
+        return tabs
+
+    def interp(self, g: torch.Tensor, point_block: int | None = None) -> torch.Tensor:
+        """Evaluate the (C, *nf) spatial fine grid from :meth:`transform` at
+        the planned points: (C, n_points).
+
+        ``point_block`` runs the points in blocks of that many (a launch a
+        block, each block's tables kept); the result is the same for every
+        block. n_points = 0 gives (C, 0); a block below 1 raises.
+        """
+        n = self.plan.n_points
+        if n == 0:
+            return torch.zeros((g.shape[0], 0), dtype=g.dtype, device=g.device)
+        if point_block is None or point_block >= n:
+            point_block = n
+        elif point_block < 1:
+            raise ValueError(f"point_block must be >= 1, got {point_block}")
+        g = g.contiguous()
+        out = []
+        for lo in range(0, n, point_block):
+            ti, tv, order, runs = self._taps(g.real.dtype, lo, min(lo + point_block, n))
+            out.append(interp_nd(g, ti, tv, order=order, runs=runs))
+        return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+
+
+def make_type2_fn(plan: Type2Plan, point_block: int | None = None, device="cuda"):
+    """(f (C, m) mode coefficients) -> (C, n_points). One-shot wrapper."""
+    ex = Type2Executor(plan, device=device)
+
+    def run(f):
+        return ex.interp(ex.transform(ex.scatter(f)), point_block=point_block)
 
     return run

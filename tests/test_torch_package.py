@@ -4,10 +4,10 @@
 - the NumPy host modules the port copies give exactly the arrays of the
   originals, and its tensor evaluators match the JAX ones;
 - the kernel wrappers refuse what the kernels do not take, and the slice
-  refuses what it leaves out (ES type-1, meshes, the d = 3 Type3Executor
-  of the public NUFFT surface, beam-table upsampling; on the eigenbeam
-  basis path too) with ``NotImplementedError``, an asynchronous call at
-  dispatch;
+  refuses what it leaves out (meshes, beam-table upsampling) with
+  ``NotImplementedError``; the cases it used to refuse (ES type-1 on the
+  pair routing, the eigenbeam basis and an asynchronous call, and the d =
+  3 Type3Executor) run and match fftvis_tpu;
 - on a CUDA card (marked ``cuda``; skipped without one), each CUDA kernel
   matches its plain torch version and counts its launches.
 """
@@ -24,6 +24,9 @@ import jax.numpy as jnp
 
 from fftvis_tpu.beams.analytic import AiryBeam as JaxAiry
 from fftvis_tpu.beams.analytic import GaussianBeam as JaxGaussian
+from fftvis_tpu import TelescopeLocation as JaxLocation
+from fftvis_tpu import simulate_vis as jax_simulate_vis
+from fftvis_tpu.beams.analytic import ShortDipoleBeam as JaxShortDipole
 from fftvis_tpu.beams.analytic import UniformBeam as JaxUniform
 from fftvis_tpu.beams.analytic import bessel_j1 as jax_bessel_j1
 from fftvis_tpu.coords import erfa_lite as jax_erfa
@@ -34,6 +37,8 @@ from fftvis_tpu.core import beams as jax_core_beams
 from fftvis_tpu.core import coherency as jax_coh
 from fftvis_tpu.core import utils as jax_utils
 from fftvis_tpu.geometry import hex_array as jax_hex_array
+from fftvis_tpu.nufft import make_type3_fn as jax_make_type3_fn
+from fftvis_tpu.nufft import plan_type3 as jax_plan_type3
 from fftvis_tpu.utils import healpix as jax_healpix
 from fftvis_tpu_torch import TelescopeLocation, simulate_vis
 from fftvis_tpu_torch.beams import (
@@ -53,7 +58,7 @@ from fftvis_tpu_torch.core import utils as core_utils
 from fftvis_tpu_torch.geometry import hex_array
 from fftvis_tpu_torch.nufft import interp as interp_mod
 from fftvis_tpu_torch.nufft import spread as spread_mod
-from fftvis_tpu_torch.nufft.transform import Type3Executor, plan_type3
+from fftvis_tpu_torch.nufft.transform import make_type3_fn, plan_type3
 from fftvis_tpu_torch.utils import healpix
 
 REPO = Path(__file__).resolve().parent.parent
@@ -68,6 +73,12 @@ def test_import_pulls_in_no_jax():
         "fftvis_tpu_torch.core.beam_basis, fftvis_tpu_torch.coords.banding; "
         "from fftvis_tpu_torch.nufft.transform import Type3LowrankZExecutor, "
         "Type3LowrankZPlan, plan_type3_lowrank_z, make_type3_lowrank_z_fn; "
+        "from fftvis_tpu_torch.nufft import Type1Executor, Type1Plan, plan_type1, "
+        "make_type1_fn, Type2Executor, Type2Plan, plan_type2, make_type2_fn, "
+        "make_type3_fn, direct_type1_np, direct_type2_np, direct_type3_np, "
+        "direct_type1, direct_type2; "
+        "from fftvis_tpu_torch.nufft.spread import spread_nd; "
+        "from fftvis_tpu_torch.nufft.interp import interp_nd; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fftvis_tpu')); print(bad); sys.exit(bool(bad))"
     )
@@ -205,65 +216,84 @@ def test_interp_wrapper_refuses(case):
         interp_mod.interp(G, iy, ix, vy, vx)
 
 
+def _wide_lattice():
+    """A lattice whose baselines reach 400 cells an axis: an exact mode grid
+    past 512^2 cells, which only ES type-1 takes."""
+    sep = 14.6
+    pts = [(0, 0), (1, 0), (0, 1), (400, 0), (0, 400)]
+    return {i: np.array([a * sep, b * sep, 0.0]) for i, (a, b) in enumerate(pts)}
+
+
 @pytest.mark.parametrize("case", ["polarized", "beam_idx", "beams", "beam_coefs",
                                   "tabulated", "mesh", "async_fetch", "3d"])
 def test_slice_refuses_what_it_leaves_out(case, monkeypatch):
+    """What the port leaves out raises ``NotImplementedError`` naming a
+    ROADMAP item: beam-table upsampling ('tabulated') and meshes ('mesh').
+    The other cases used to refuse ES type-1 or a d = 3 Type3Executor; they
+    now run them and match fftvis_tpu on the same inputs (1e-9 of max|V| at
+    precision 2, the default; the d = 3 transform in complex128)."""
     rng = np.random.default_rng(0)
     ants = {i: np.array([*rng.uniform(-50, 50, 2), 0.0]) for i in range(4)}
     kw = dict(ants=ants, fluxes=rng.uniform(0.1, 1, (6, 1)),
               ra=rng.uniform(0, 6, 6), dec=rng.uniform(-1, 0, 6),
-              freqs=np.array([1e8]), times=np.array([2459863.2]),
-              beam=GaussianBeam(diameter=14.0),
-              telescope_loc=TelescopeLocation(*SITE), device="cpu")
+              freqs=np.array([1e8]), times=np.array([2459863.2]))
+    beam, jbeam = GaussianBeam(diameter=14.0), JaxGaussian(diameter=14.0)
     if case == "3d":
-        # Non-coplanar arrays run (the low-rank-z executor); the full 3D
-        # fine grid of a d = 3 Type3Executor belongs to the public NUFFT
-        # surface, which the port leaves out.
-        plan = plan_type3(rng.uniform(-50, 50, (3, 20)), x_extent=2.3, eps=1e-6)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            Type3Executor(plan, device="cpu")
+        # The full 3D fine grid of a d = 3 Type3Executor (the public NUFFT
+        # surface), against the JAX executor on one plan.
+        s = rng.uniform(-50, 50, (3, 20))
+        x = rng.uniform(-2.3, 2.3, (3, 30))
+        c = rng.normal(size=(2, 30)) + 1j * rng.normal(size=(2, 30))
+        plan = plan_type3(s, x_extent=2.3, eps=1e-6)
+        got = make_type3_fn(plan, device="cpu")(torch.tensor(x), torch.tensor(c)).numpy()
+        want = np.asarray(jax_make_type3_fn(jax_plan_type3(s, 2.3, 1e-6))(
+            jnp.asarray(x), jnp.asarray(c)))
+        assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
         return
-    elif case == "async_fetch":
-        # An asynchronous call refuses at dispatch, not at result(), what the
-        # slice leaves out: ES type-1 asked for on a lattice.
-        monkeypatch.setenv("FFTVIS_TYPE1", "es")
-        kw.update(ants=hex_array(2), async_fetch=True)
-    elif case == "polarized":
-        # Per-antenna polarized beams on a lattice with ES type-1 asked
-        # for: ES type-1 is not ported.
-        monkeypatch.setenv("FFTVIS_TYPE1", "es")
-        kw.update(ants=hex_array(2), polarized=True,
-                  beam=[ShortDipoleBeam(), GaussianBeam(diameter=14.0)],
-                  beam_idx=np.arange(7) % 2)
-    elif case == "tabulated":
+    if case == "tabulated":
         # The opt-in table upsampling of a cubic tabulated beam.
         monkeypatch.setenv("FFTVIS_BEAM_UPSAMPLE", "2")
         kw.update(beam=structured_dipole_beam(n_az=24, n_za=10),
                   beam_spline_opts={"order": 3})
+    if case == "mesh":
+        kw.update(beam=beam, mesh=object())
+    if case in ("tabulated", "mesh"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            simulate_vis(telescope_loc=TelescopeLocation(*SITE), device="cpu", **kw)
+        return
+    if case == "async_fetch":
+        # An asynchronous call on a lattice with ES type-1 asked for.
+        monkeypatch.setenv("FFTVIS_TYPE1", "es")
+        kw.update(ants=hex_array(2))
+    elif case == "polarized":
+        # Per-antenna polarized beams on a lattice with ES type-1 asked for.
+        monkeypatch.setenv("FFTVIS_TYPE1", "es")
+        kw.update(ants=hex_array(2), polarized=True, beam_idx=np.arange(7) % 2)
+        beam = [ShortDipoleBeam(), GaussianBeam(diameter=14.0)]
+        jbeam = [JaxShortDipole(), JaxGaussian(diameter=14.0)]
     elif case == "beam_idx":
-        # Per-antenna beams on a lattice whose exact mode grid passes 512^2
-        # cells: only ES type-1 would take it.
-        sep = 14.6
-        pts = [(0, 0), (1, 0), (0, 1), (400, 0), (0, 400)]
-        kw.update(ants={i: np.array([a * sep, b * sep, 0.0]) for i, (a, b) in enumerate(pts)},
-                  beam=[GaussianBeam(diameter=14.0), GaussianBeam(diameter=12.0)],
-                  beam_idx=np.array([0, 1, 0, 1, 0]))
+        # Per-antenna beams on a lattice past 512^2 exact mode cells: ES
+        # type-1 in auto mode.
+        kw.update(ants=_wide_lattice(), beam_idx=np.array([0, 1, 0, 1, 0]))
+        beam = [GaussianBeam(diameter=14.0), GaussianBeam(diameter=12.0)]
+        jbeam = [JaxGaussian(diameter=14.0), JaxGaussian(diameter=12.0)]
     elif case == "beams":
         # An eigenbeam basis on a lattice with ES type-1 asked for.
         monkeypatch.setenv("FFTVIS_TYPE1", "es")
-        kw.update(ants=hex_array(2), polarized=True, beam_coefs=np.ones((7, 2, 1)),
-                  beam=[GaussianBeam(diameter=14.0), GaussianBeam(diameter=12.0)])
+        kw.update(ants=hex_array(2), polarized=True, beam_coefs=np.ones((7, 2, 1)))
+        beam = [GaussianBeam(diameter=14.0), GaussianBeam(diameter=12.0)]
+        jbeam = [JaxGaussian(diameter=14.0), JaxGaussian(diameter=12.0)]
     elif case == "beam_coefs":
-        # An eigenbeam basis on a lattice whose exact mode grid passes 512^2
-        # cells: only ES type-1 would take it.
-        sep = 14.6
-        pts = [(0, 0), (1, 0), (0, 1), (400, 0), (0, 400)]
-        kw.update(ants={i: np.array([a * sep, b * sep, 0.0]) for i, (a, b) in enumerate(pts)},
-                  polarized=True, beam_coefs=np.ones((5, 1, 1)))
-    else:
-        kw["mesh"] = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate_vis(**kw)
+        # An eigenbeam basis on a lattice past 512^2 exact mode cells.
+        kw.update(ants=_wide_lattice(), polarized=True, beam_coefs=np.ones((5, 1, 1)))
+    want = jax_simulate_vis(beam=jbeam, telescope_loc=JaxLocation(*SITE), **kw)
+    got = simulate_vis(beam=beam, telescope_loc=TelescopeLocation(*SITE), device="cpu",
+                       async_fetch=case == "async_fetch", **kw)
+    if case == "async_fetch":
+        assert got.done()
+        got = got.result()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
 
 
 # ------------------------------------------------------------- on the card

@@ -120,9 +120,11 @@ def test_beam_from_reference():
 
 def test_gridded_array_without_forcing_raises(monkeypatch):
     """A lattice takes the exact type-1 path (tests/test_torch_type1.py);
-    with ES type-1 asked for, which is not ported, it raises."""
+    with ES type-1 asked for, which the port used to refuse, it runs the ES
+    type-1 on both sides and matches fftvis_tpu and the oracle."""
     monkeypatch.setenv("FFTVIS_TYPE1", "es")
-    kw = _common(hex_array(3), precision=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        simulate_vis(beam=GaussianBeam(diameter=14.0),
-                     telescope_loc=TelescopeLocation(*SITE), device="cpu", **kw)
+    got, ref, oracle = _engines("auto", 2, hex_array(3))
+    scale = np.abs(oracle).max()
+    assert got.shape == oracle.shape == (2, 2, 31)
+    assert _rel(got, ref, scale) <= VS_REFERENCE[2]
+    assert _rel(got, oracle, scale) <= VS_ORACLE[2]

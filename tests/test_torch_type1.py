@@ -7,10 +7,10 @@
   float64, 1e-5 relative in float32), on the same lattice phases and
   weights;
 - ``select_gridded_path`` and the gridded branch of ``plan_transform``
-  decide as the JAX planner does, except where the JAX one runs ES type-1,
-  which the port does not have: it raises there; ``FFTVIS_TYPE1=exact``
-  forces the exact executor on both sides, past the 512^2-cell limit too,
-  and any value but auto/exact/es is refused;
+  decide as the JAX planner does: ES type-1 (the same plan arrays) under
+  ``FFTVIS_TYPE1=es`` and past the 512^2-cell limit; ``FFTVIS_TYPE1=exact``
+  forces the exact executor on both sides, past the limit too, and any
+  value but auto/exact/es is refused;
 - under ``FFTVIS_TYPE1=exact`` the port's ``simulate_vis`` gives the JAX
   package's result (1e-9 at precision 2);
 - ``simulate_vis`` in ``auto`` mode on hex_array(3) -- a lattice, so the
@@ -46,6 +46,7 @@ from fftvis_tpu_torch.core.utils import get_pos_reds
 from fftvis_tpu_torch.cuda import planning
 from fftvis_tpu_torch.geometry import hex_array
 from fftvis_tpu_torch.nufft import type1
+from fftvis_tpu_torch.nufft.transform import Type1Executor
 from fftvis_tpu_torch.utils import healpix_radec
 
 ASSET = str(Path(__file__).resolve().parent / "data" / "structured_dipole_100MHz.beamfits")
@@ -161,13 +162,19 @@ def test_select_gridded_path_decisions(case, monkeypatch):
         # grid past 512^2 cells with "exact wide").
         monkeypatch.setenv("FFTVIS_TYPE1", "exact")
     want = jax_planning.plan_transform(mode, *args)
-    if case in ("es", "wide"):
-        # The JAX planner runs ES type-1 there; the port refuses.
-        assert type(want.executor).__name__ == "Type1Executor"
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            planning.plan_transform(mode, *args, device="cpu")
-        return
     got = planning.plan_transform(mode, *args, device="cpu")
+    if case in ("es", "wide"):
+        # ES type-1 on both sides (asked for, or past the exact path's
+        # 512^2 cells): the same fine grid, kernel and gather tables.
+        assert type(want.executor).__name__ == "Type1Executor"
+        assert isinstance(got.executor, Type1Executor)
+        gp, wp = got.executor.plan, want.executor.plan
+        assert (got.mode, gp.nf, gp.d, gp.n_targets) == (want.mode, wp.nf, wp.d, wp.n_targets)
+        assert (gp.kernel.w, gp.kernel.beta) == (wp.kernel.w, wp.kernel.beta)
+        np.testing.assert_array_equal(gp.gather_idx, wp.gather_idx)
+        np.testing.assert_array_equal(gp.gather_deconv, wp.gather_deconv)
+        np.testing.assert_array_equal(got.lattice_matrix, want.lattice_matrix)
+        return
     assert got.mode == want.mode
     np.testing.assert_array_equal(got.lattice_matrix, want.lattice_matrix)
     np.testing.assert_array_equal(got.rotation_matrix, want.rotation_matrix)
