@@ -95,11 +95,17 @@ Phases, one printed line each (any failure raises and exits non-zero):
      864), w = 8 float32 and w = 14 float64) and of (a) ((192, 360), w =
      8), 4096 uniform sources, C = 1, the kernel alone too; interp on a
      type-2 plan of 100,000 non-redundant points on (a)'s grid (one-row
-     footprint runs); and the d = 1 / d = 3 entries (``spread_gm_1d``,
-     ``spread_gm_3d``, ``interp_taps_nd``) at 100,000 uniform points on a
-     10^6-cell line and a (64, 64, 32) grid, C = 1, float32 (w = 8) and
-     float64 (w = 14): gates 1e-5 / 1e-12 of max|plain|, the kernel alone,
-     the bound and ``sparse.addmm`` / ``sparse.mm`` of the CSRs;
+     footprint runs); the d = 1 entries (``spread_gm_1d``,
+     ``interp_taps_nd``) at 100,000 uniform points on a 10^6-cell line, C
+     = 1; both d = 3 forms of each (``spread_gm_3d`` and ``spread_sm_3d``
+     with its device bin sort, ``interp_taps_nd`` and ``interp_sm_3d``) on
+     cases (i)-(iv) (ND3_CASES), C = 1 and 4; float32 (w = 8) and float64
+     (w = 14): gates 1e-5 / 1e-12 of max|plain|, the wrapper, the kernel
+     alone, the bound and ``sparse.addmm`` / ``sparse.mm`` of the CSRs;
+     then the sweep of the d = 3 choice (ND3_SWEEP): both forms' calls
+     side by side over densities and clusters that straddle each threshold
+     of the rules, the two forms held to each other, and the form the
+     library or the plan picks;
    - ``nufft public``: ``make_type{1,2,3}_fn`` at d = 1, 2, 3 on the card,
      100,000 sources or points and 10,000 modes or targets, in float64
      (eps 1e-9) and float32 (eps 1e-6), against the torch direct oracles in
@@ -328,16 +334,19 @@ def slice_config():
     )
 
 
-def kernel_us(fn, symbol: str, reps: int = 20, tries: int = 3) -> float:
+def kernel_us(fn, symbol: str, reps: int = 20, tries: int = 3):
     """Mean device time in us of the kernels whose name holds ``symbol``
-    over ``reps`` calls of ``fn`` (torch.profiler). The profiler now and
-    then reports no device events for a session: it tries again, up to
-    ``tries`` sessions."""
+    over ``reps`` calls of ``fn`` (torch.profiler), or None where the
+    profiler recorded no device event at all in ``tries`` sessions (it now
+    and then records none for a session): the callers print "not measured".
+    Raises where the profiler recorded device events but no kernel named
+    like ``symbol``: the call never launched it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    others = set()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -349,9 +358,26 @@ def kernel_us(fn, symbol: str, reps: int = 20, tries: int = 3) -> float:
                 us = getattr(ev, "self_device_time_total", None)
                 total += ev.self_cuda_time_total if us is None else us
                 count += ev.count
+            elif ev.device_type == torch.autograd.DeviceType.CUDA:
+                others.add(ev.key)
         if count:
             return total / count
-    raise AssertionError(f"the profiler saw no kernel named like {symbol!r} in {tries} sessions")
+    if others:
+        raise AssertionError(f"the profiler saw no kernel named like {symbol!r} in {tries} "
+                             f"sessions, but saw {sorted(others)[:8]}")
+    print(f"[3] the profiler recorded no device event in {tries} sessions: {symbol} alone "
+          "not measured", flush=True)
+    return None
+
+
+def us_txt(us) -> str:
+    """A kernel_us time for a line: "12.34 us", or "not measured"."""
+    return "not measured" if us is None else f"{us:.2f} us"
+
+
+def bound_share(b_ms: float, us) -> str:
+    """The bound's share of a kernel_us time, or "not measured"."""
+    return "not measured" if us is None else f"{b_ms * 1e3 / us:.0%}"
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -517,7 +543,7 @@ def check_spread(name, rdt, cdt, grid, w: int, beta: float, C: int, case: str, r
     alone_txt = ""
     if alone:
         us = kernel_us(lambda: spread_mod.spread(uy, ux, wts, acc, w, beta), "spread_gm")
-        alone_txt = f" (alone {us:.2f} us)"
+        alone_txt = f" (alone {us_txt(us)})"
     del got, acc
     flat_idx = spread_mod.spread_taps(uy, ux, nfy, nfx, w, beta)[0].cpu().numpy()
     (b_ms, b_by), cells = spread_bound(flat_idx, wts, w, name)
@@ -574,7 +600,7 @@ def check_interp(name, rdt, cdt, plan, C: int, rng, label: str = "", alone: bool
     if alone:
         us = kernel_us(lambda: interp_mod.interp(G, *tabs, order=order, runs=runs),
                        "interp_runs")
-        alone_txt = f" (alone {us:.2f} us)"
+        alone_txt = f" (alone {us_txt(us)})"
     (b_ms, b_by), cells = interp_bound(plan.tap_idx[0], plan.tap_idx[1], C, nfx, name)
     lib_ms, lib_txt = None, ""
     lib = library(f"interp {name} C={C}", lambda: interp_library(G, iy, ix, vy, vx))
@@ -677,7 +703,7 @@ def check_per_antenna_nufft(pa) -> None:
     print(f"[3] interp {name} subset: grid ({nfy}, {nfx}) w={w} C=4, the {pp.npairs} pairs' "
           f"target subsets (m {min(sizes)}..{max(sizes)}) with their own tables: max err "
           f"{max(errs):.3e} of max|plain|; the largest (m={max(sizes)}) kernel {ms:.4f} ms "
-          f"(alone {alone:.2f} us), plain {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
+          f"(alone {us_txt(alone)}), plain {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
     if not max(errs) <= TOL[name]:
         raise AssertionError(f"interp {name} on a pair's subset disagrees with its plain version")
     del G
@@ -776,12 +802,12 @@ def check_beam_eval() -> dict:
             lib_err = (lib()[0, :, 0, :].T - want).abs().max().item()
             lib_ms = cuda_ms(lib, 50)
             lib_txt = (f"grid_sample {lib_ms:.4f} ms, alone "
-                       f"{kernel_us(lib, 'grid_sampler'):.2f} us (err {lib_err / scale:.1e})")
+                       f"{us_txt(kernel_us(lib, 'grid_sampler'))} (err {lib_err / scale:.1e})")
         else:
             lib_txt = "library call: none (bicubic is Keys' convolution, not the B-spline)"
         print(f"[3] beam_eval {name}: table ({ny}, {nx}, {ch}) order {order} n=4096: "
               f"max err {err:.3e} = {err / scale:.3e} of max|plain|; "
-              f"kernel {ms:.4f} ms (alone {alone:.2f} us), plain {plain:.4f} ms; "
+              f"kernel {ms:.4f} ms (alone {us_txt(alone)}), plain {plain:.4f} ms; "
               f"bound {b_ms:.5f} ms ({b_by}, {cells} cells); {lib_txt}", flush=True)
         if not err <= BEAM_TOL[name] * scale:
             raise AssertionError(f"beam_eval {name} {(ch, order)} disagrees with its plain version")
@@ -877,7 +903,7 @@ def check_beam_rows() -> dict:
                 print(f"[3] beam_rows {name} {epilogue}: table ({ny}, {nx}, {ch}) order "
                       f"{order} n={n} ({active} unmasked): max err {err:.3e} = "
                       f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone "
-                      f"{alone:.2f} us), plain {plain:.4f} ms; bound {b_ms:.5f} ms "
+                      f"{us_txt(alone)}), plain {plain:.4f} ms; bound {b_ms:.5f} ms "
                       f"({b_by}, {cells} cells); library call: none (no one PyTorch "
                       f"call interpolates and forms coherency rows)", flush=True)
                 if not err <= BEAM_TOL[name] * scale:
@@ -1065,7 +1091,7 @@ def check_pair_rows(ns) -> dict:
                       f"channels) P={npairs} n={n} ({active} unmasked"
                       f"{'' if masked else ', the north star case'}), rows ({C}, {n}): max err "
                       f"{err:.3e} = {err / scale:.3e} of max|plain|; kernel {ms:.4f} ms "
-                      f"(alone {alone:.2f} us, {b_ms * 1e3 / alone:.0%} of the bound), plain "
+                      f"(alone {us_txt(alone)}, {bound_share(b_ms, alone)} of the bound), plain "
                       f"{plain:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.1f} MB); "
                       f"library call: none (no one PyTorch call forms pair coherency rows)",
                       flush=True)
@@ -1136,8 +1162,8 @@ def check_pair_rows_wide(ns) -> dict:
             print(f"[3] pair_rows {name} {epilogue} wide: K={K} ({K * chf} channels) "
                   f"P={npairs} n={n} ({active} unmasked), {form}-memory form "
                   f"({staged / 1024:.0f} KiB a tile): max err {err:.3e} = {err / scale:.3e} "
-                  f"of max|plain|; kernel {ms:.4f} ms (alone {alone:.2f} us, "
-                  f"{b_ms * 1e3 / alone:.0%} of the bound); bound {b_ms:.5f} ms ({b_by}, "
+                  f"of max|plain|; kernel {ms:.4f} ms (alone {us_txt(alone)}, "
+                  f"{bound_share(b_ms, alone)} of the bound); bound {b_ms:.5f} ms ({b_by}, "
                   f"{nbytes / 1e6:.1f} MB)", flush=True)
             if not err <= BEAM_TOL[name] * scale:
                 raise AssertionError(f"pair_rows {name} {epilogue} K={K} disagrees with its "
@@ -1238,8 +1264,8 @@ def check_pair_rows_basis(eig, ns) -> dict:
             print(f"[3] pair_rows {name} jones-I {label}: K={nbeams} {kind} "
                   f"({evals.shape[1]} channels) P={len(pairs)} n={n} (all unmasked), rows "
                   f"({got.shape[0]}, {n}): max err {err:.3e} = {err / scale:.3e} of "
-                  f"max|plain|; kernel {ms:.4f} ms (alone {alone:.2f} us, "
-                  f"{b_ms * 1e3 / alone:.0%} of the bound), plain {plain:.4f} ms; bound "
+                  f"max|plain|; kernel {ms:.4f} ms (alone {us_txt(alone)}, "
+                  f"{bound_share(b_ms, alone)} of the bound), plain {plain:.4f} ms; bound "
                   f"{b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB)", flush=True)
             if not err <= BEAM_TOL[name] * scale:
                 raise AssertionError(f"pair_rows {name} {label} disagrees with its plain version")
@@ -1256,11 +1282,7 @@ def factored_product(ex, x, c, grid):
     record of that choice."""
     import torch
 
-    from fftvis_tpu_torch.nufft.transform import _fmod_positive
-
-    nf = ex.plan.nf
-    u = [_fmod_positive(x[axis] / (2.0 * np.pi) * nf[axis], nf[axis]) for axis in range(2)]
-    ey, exf = ex._factor(u[0], 0), ex._factor(u[1], 1)
+    ey, exf = (ex._factor(*ex._cell_frac(x[axis], axis, x.dtype), axis) for axis in range(2))
     grid += torch.matmul((c[:, :, None] * ey[None, :, :]).transpose(1, 2), exf)
     return grid
 
@@ -2047,9 +2069,19 @@ def check_new_rows(z3d, z_vis, obs, obs_vis) -> None:
 
 # (b): the HERA-style core with 10 rings of lattice outriggers.
 OUTRIGGERS = 10
-# The d = 1 / d = 3 kernel checks: points, grids, and C = 1 channel.
+# The d = 1 / d = 3 kernel checks: points, the d = 1 grid, and C = 1
+# channel at d = 1.
 ND_POINTS = 100_000
-ND_GRIDS = {1: (1_000_000,), 3: (64, 64, 32)}
+ND_GRIDS = {1: (1_000_000,)}
+# The d = 3 forms' cases: (i) uniform points on the (64, 64, 32) grid, (ii)
+# the same number clustered into ND_CLUSTERS boxes of 3 cells a side (bins
+# far past their share, contention), (iii) low density on (256, 256, 128),
+# (iv) points within w/2 of a face, so that the tiles wrap; each at C = 1
+# and 4.
+ND3_CASES = {"(i) uniform": (64, 64, 32), "(ii) clustered": (64, 64, 32),
+             "(iii) low density": (256, 256, 128), "(iv) faces": (64, 64, 32)}
+ND3_CHANNELS = (1, 4)
+ND_CLUSTERS = 4
 # The ES run (c) against its exact type-1 run, relative to max|V|: the ES
 # kernel's eps = 1e-13 truncation and the FFT's rounding, in float64.
 ES_VS_EXACT = 1e-11
@@ -2062,6 +2094,10 @@ PUBLIC_FLOOR = {"float64": 3e-11, "float32": 1e-4}
 # Sizes of the public runs: sources (type-1, type-3) and points (type-2),
 # modes (targets), and the largest |mode| an axis.
 PUBLIC_N, PUBLIC_M = 100_000, 10_000
+# Points of the sparse d = 3 runs: below kSmMinSources (spread) and, at
+# ~0.005 a fine-grid cell, too few targets a bin (interp), so the
+# one-warp-a-point forms run.
+PUBLIC_SPARSE = 1_000
 PUBLIC_KMAX = {1: (250,), 2: (60, 60), 3: (14, 14, 7)}
 
 
@@ -2122,7 +2158,7 @@ def nd_taps(u, nf, w: int, beta: float):
 
 
 def check_spread_nd(d: int, rdt, cdt, rng) -> tuple:
-    """A d = 1 / d = 3 spread entry against its plain version on ND_POINTS
+    """The d = 1 spread entry against its plain version on ND_POINTS
     uniform sources on ND_GRIDS[d], C = 1: the wrapper, the kernel alone,
     the plain version, the bound and ``sparse.addmm`` with the (cells, n)
     CSR of the ES weights. Returns the kernels-line row."""
@@ -2168,7 +2204,7 @@ def check_spread_nd(d: int, rdt, cdt, rng) -> tuple:
         lib_ms = cuda_ms(lib, 3)
         lib_txt = f"; sparse.addmm {lib_ms:.4f} ms"
     print(f"[3] spread_d{d} {name}: grid {nf} w={w} n={n} C=1: max err {err:.3e} = "
-          f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone {alone:.2f} us), plain "
+          f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone {us_txt(alone)}), plain "
           f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells){lib_txt}", flush=True)
     if not err <= TOL[name] * scale:
         raise AssertionError(f"spread_d{d} {name} disagrees with its plain version")
@@ -2178,7 +2214,7 @@ def check_spread_nd(d: int, rdt, cdt, rng) -> tuple:
 
 
 def check_interp_nd(d: int, rdt, cdt, rng) -> tuple:
-    """A d = 1 / d = 3 interpolation entry against its plain version at
+    """The d = 1 interpolation entry against its plain version at
     ND_POINTS uniform targets on ND_GRIDS[d], C = 1, with ``sparse.mm`` of
     the (m, cells) CSR tap matrix beside it. Returns the kernels-line
     row."""
@@ -2230,13 +2266,335 @@ def check_interp_nd(d: int, rdt, cdt, rng) -> tuple:
         lib_ms = cuda_ms(lib, 5)
         lib_txt = f"; sparse.mm {lib_ms:.4f} ms"
     print(f"[3] interp_d{d} {name}: grid {nf} w={w} m={m} C=1: max err {err:.3e} = "
-          f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone {alone:.2f} us), plain "
+          f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone {us_txt(alone)}), plain "
           f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells){lib_txt}", flush=True)
     if not err <= TOL[name] * scale:
         raise AssertionError(f"interp_d{d} {name} disagrees with its plain version")
     del G, flat, wt, lib
     torch.cuda.empty_cache()
     return err, ms, plain, (b_ms, b_by), lib_ms
+
+
+def nd3_points(case: str, nf, w: int, rng):
+    """ND_POINTS grid coordinates (3 numpy vectors) of a d = 3 case."""
+    n = ND_POINTS
+    if case.startswith("(ii)"):
+        pick = rng.integers(0, ND_CLUSTERS, n)
+        return [np.mod(rng.uniform(0, m, ND_CLUSTERS)[pick] + rng.uniform(0, 3, n), m)
+                for m in nf]
+    u = [rng.uniform(0, m, n) for m in nf]
+    if case.startswith("(iv)"):
+        axis, side = rng.integers(0, 3, n), rng.integers(0, 2, n)
+        depth = rng.uniform(0, w / 2, n)
+        for a, m in enumerate(nf):
+            sel = axis == a
+            u[a][sel] = np.where(side[sel] == 1, m - depth[sel], depth[sel])
+    return u
+
+
+def check_spread_3d(case: str, rdt, cdt, C: int, rng) -> dict:
+    """Both d = 3 spread forms on one case against ``spread_nd_plain``: the
+    wrapper's choice, each form's call by CUDA events (the SM form's with its
+    device bin sort) and alone (profiler), the bound and ``sparse.addmm``.
+    Returns {form: kernels-line row}."""
+    import torch
+
+    from fftvis_tpu_torch._build import load_kernels
+    from fftvis_tpu_torch.nufft import spread as spread_mod
+    from fftvis_tpu_torch.nufft.kernels import ESKernel
+
+    name = str(rdt).split(".")[-1]
+    f64 = int(name == "float64")
+    k = ESKernel.from_eps(EPS[1 + f64])
+    w, beta, nf, n, d = k.w, k.beta, ND3_CASES[case], ND_POINTS, 3
+    cells_all = int(np.prod(nf))
+    lib = load_kernels()
+    edge = lib.fftvis_spread_nd_bin_edge(f64, w, cells_all, *nf)  # the table's edge
+    chosen = "spread_sm_3d" if lib.fftvis_spread_nd_bin_edge(f64, w, n, *nf) else "spread_gm_3d"
+    u = [torch.tensor(a, dtype=rdt, device="cuda") for a in nd3_points(case, nf, w, rng)]
+    wts = torch.tensor(rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n)), dtype=cdt,
+                       device="cuda")
+    acc = torch.zeros((C,) + nf, dtype=cdt, device="cuda")
+    forms = {"spread_gm_3d": lambda g: spread_mod._spread_gm_nd(u, wts, g, w, beta),
+             "spread_sm_3d": lambda g: spread_mod._spread_sm_3d(u, wts, g, w, beta, edge)}
+    # The device bin sort against its plain version: the same offsets, the
+    # same bin at every position (the order within a bin follows atomics),
+    # and each bin's first subproblem.
+    perm, offsets, sub = spread_mod.device_bin_sort_3d(u, nf, w, edge)
+    pperm, poffsets = spread_mod.bin_sort_3d(u, nf, w, edge)
+    keys = spread_mod.bin_keys_3d(u, nf, w, edge)
+    psub = torch.zeros_like(poffsets)
+    psub[1:] = torch.cumsum((poffsets.diff() + spread_mod.SUBPROBLEM - 1)
+                            // spread_mod.SUBPROBLEM, 0)
+    if not (torch.equal(offsets, poffsets) and torch.equal(keys[perm], keys[pperm])
+            and torch.equal(sub, psub) and torch.equal(torch.sort(perm).values, torch.sort(
+                pperm).values)):
+        raise AssertionError(f"spread_d3 {name} {case}: the device bin sort disagrees with "
+                             "bin_sort_3d")
+    sort_ms = cuda_ms(lambda: spread_mod.device_bin_sort_3d(u, nf, w, edge), 5)
+    sort_plain = cuda_ms(lambda: spread_mod.bin_sort_3d(u, nf, w, edge), 5)
+    # Its bound: the coordinates read, the permutation and both offset
+    # vectors written once.
+    rb = 4 if name == "float32" else 8
+    sort_bound = bound(3 * n * rb + 8 * n + 16 * offsets.numel(), 0, name)
+    del perm, offsets, sub, pperm, poffsets, keys, psub
+    want = spread_mod.spread_nd_plain(u, wts, torch.zeros_like(acc), w, beta)
+    wrapper = spread_mod.spread_nd(u, wts, torch.zeros_like(acc), w, beta)
+    got = {f: fn(torch.zeros_like(acc)) for f, fn in forms.items()}
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    errs = {f: (g - want).abs().max().item() for f, g in got.items()}
+    errs["wrapper"] = (wrapper - want).abs().max().item()
+    del got, wrapper
+    ms = {f: cuda_ms(lambda: fn(acc), 5) for f, fn in forms.items()}
+    alone = {f: kernel_us(lambda: fn(acc), f, reps=5) for f, fn in forms.items()}
+    plain = cuda_ms(lambda: spread_mod.spread_nd_plain(u, wts, acc, w, beta), 1)
+    del want
+    flat_idx, vals = spread_mod.spread_taps_nd(u, nf, w, beta)
+    cells = torch.unique(flat_idx).numel()
+    nbytes = 2 * cells * C * 2 * rb + d * n * rb + C * n * 2 * rb
+    (b_ms, b_by) = bound(nbytes, n * (8 * d * w + w**d + 2 * C * w**d), name)
+    lib_ms, lib_txt = None, ""
+    src = torch.arange(n, device="cuda").repeat_interleave(w**d)
+
+    def make():
+        S = torch.sparse_coo_tensor(torch.stack([flat_idx, src]), vals.reshape(-1).to(cdt),
+                                    (cells_all, n)).coalesce().to_sparse_csr()
+        Wt, Gt = wts.T.contiguous(), torch.zeros((cells_all, C), dtype=cdt, device="cuda")
+        return lambda: torch.sparse.addmm(Gt, S, Wt)
+
+    yard = library(f"spread_d3 {name} {case}", make)
+    if yard is not None:
+        lib_ms = cuda_ms(yard, 2)
+        lib_txt = f"; sparse.addmm {lib_ms:.4f} ms"
+    print(f"[3] spread_d3 {name} {case}: grid {nf} w={w} n={n} C={C}, bin edge {edge}: "
+          f"max err / max|plain| wrapper ({chosen}) {errs['wrapper'] / scale:.3e}, gm "
+          f"{errs['spread_gm_3d'] / scale:.3e}, sm {errs['spread_sm_3d'] / scale:.3e}; gm "
+          f"{ms['spread_gm_3d']:.4f} ms (alone {us_txt(alone['spread_gm_3d'])}), sm with its "
+          f"sort {ms['spread_sm_3d']:.4f} ms (alone {us_txt(alone['spread_sm_3d'])}; the sort "
+          f"{sort_ms:.4f} ms, equal to the plain bin_sort_3d's, which takes {sort_plain:.4f} "
+          f"ms; its bound {sort_bound[0]:.4f} ms), plain "
+          f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells){lib_txt}", flush=True)
+    if not max(errs.values()) <= TOL[name] * scale:
+        raise AssertionError(f"spread_d3 {name} {case} C={C} disagrees with its plain version")
+    del flat_idx, vals, src, yard, acc
+    torch.cuda.empty_cache()
+    rows = {f: (errs[f], ms[f], plain, (b_ms, b_by), lib_ms) for f in forms}
+    rows["bin_sort_3d"] = (0.0, sort_ms, sort_plain, sort_bound, None)
+    return rows
+
+
+def check_interp_3d(case: str, rdt, cdt, C: int, rng) -> dict:
+    """Both d = 3 interpolation forms on one case against
+    ``interp_nd_plain``: ``interp_taps_nd`` on the tables in target order,
+    ``interp_sm_3d`` on the tables in ``bin_order_3d``'s order (what the
+    executors hold), each call by CUDA events and alone, the bound and
+    ``sparse.mm`` of the (m, cells) CSR tap matrix. Returns {form: row}."""
+    import torch
+
+    from fftvis_tpu_torch.nufft import interp as interp_mod
+    from fftvis_tpu_torch.nufft.kernels import ESKernel
+
+    name = str(rdt).split(".")[-1]
+    rb = 4 if name == "float32" else 8
+    k = ESKernel.from_eps(EPS[1 if name == "float32" else 2])
+    w, nf, m, d = k.w, ND3_CASES[case], ND_POINTS, 3
+    idx_np, val_np = nd_taps(nd3_points(case, nf, w, rng), nf, w, k.beta)
+    perm, offsets = interp_mod.bin_order_3d(idx_np, nf, rb, select=False)
+    pick = "interp_sm_3d" if interp_mod.bin_order_3d(idx_np, nf, rb) else "interp_taps_nd"
+    idx = [torch.tensor(a, device="cuda") for a in idx_np]
+    val = [torch.tensor(a, dtype=rdt, device="cuda") for a in val_np]
+    sidx = [torch.tensor(a[perm], device="cuda") for a in idx_np]
+    sval = [torch.tensor(a[perm], dtype=rdt, device="cuda") for a in val_np]
+    order = torch.tensor(perm, device="cuda")
+    runs = torch.tensor(offsets, device="cuda")
+    G = torch.tensor(rng.normal(size=(C,) + nf) + 1j * rng.normal(size=(C,) + nf), dtype=cdt,
+                     device="cuda")
+    forms = {"interp_taps_nd": lambda: interp_mod.interp_nd(G, idx, val),
+             "interp_sm_3d": lambda: interp_mod.interp_nd(G, sidx, sval, order, runs)}
+    want = interp_mod.interp_nd_plain(G, idx, val)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    errs = {f: (fn() - want).abs().max().item() for f, fn in forms.items()}
+    ms = {f: cuda_ms(fn, 10) for f, fn in forms.items()}
+    alone = {f: kernel_us(fn, f, reps=10) for f, fn in forms.items()}
+    plain = cuda_ms(lambda: interp_mod.interp_nd_plain(G, idx, val), 2)
+    del want
+    flat = idx[0].long()
+    for a in range(1, d):
+        flat = (flat[:, :, None] * nf[a] + idx[a].long()[:, None, :]).reshape(m, -1)
+    wt = val[0]
+    for a in range(1, d):
+        wt = (wt[:, :, None] * val[a][:, None, :]).reshape(m, -1)
+    cells = torch.unique(flat).numel()
+    nbytes = C * cells * 2 * rb + m * w * d * (4 + rb) + C * m * 2 * rb
+    (b_ms, b_by) = bound(nbytes, m * w**d * (1 + 4 * C), name)
+    lib_ms, lib_txt = None, ""
+
+    def make():
+        cols, p = torch.sort(flat, dim=1)
+        T = torch.sparse_csr_tensor(torch.arange(0, m * w**d + 1, w**d, device="cuda"),
+                                    cols.reshape(-1), torch.gather(wt, 1, p).reshape(-1)
+                                    .to(cdt), (m, int(np.prod(nf))))
+        Gt = G.reshape(C, -1).T.contiguous()
+        return lambda: torch.sparse.mm(T, Gt)
+
+    yard = library(f"interp_d3 {name} {case}", make)
+    if yard is not None:
+        lib_ms = cuda_ms(yard, 3)
+        lib_txt = f"; sparse.mm {lib_ms:.4f} ms"
+    print(f"[3] interp_d3 {name} {case}: grid {nf} w={w} m={m} C={C}, "
+          f"{offsets.size - 1} pieces, bin edge {interp_mod.bin_edge_3d(w, rb)}, plan picks "
+          f"{pick}: max err / "
+          f"max|plain| taps_nd {errs['interp_taps_nd'] / scale:.3e}, sm "
+          f"{errs['interp_sm_3d'] / scale:.3e}; taps_nd {ms['interp_taps_nd']:.4f} ms (alone "
+          f"{us_txt(alone['interp_taps_nd'])}), sm {ms['interp_sm_3d']:.4f} ms (alone "
+          f"{us_txt(alone['interp_sm_3d'])}), plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}, {cells} cells){lib_txt}", flush=True)
+    if not max(errs.values()) <= TOL[name] * scale:
+        raise AssertionError(f"interp_d3 {name} {case} C={C} disagrees with its plain version")
+    del G, flat, wt, yard
+    torch.cuda.empty_cache()
+    return {f: (errs[f], ms[f], plain, (b_ms, b_by), lib_ms) for f in forms}
+
+
+# The sweep of the d = 3 forms' choice (phase 3): (grid, points, boxes)
+# for each form and dtype; points uniform (boxes None) or clustered into
+# that many boxes of 3 cells a side. The points straddle each threshold of
+# the rules (csrc/spread.cu kSmMinSources, kSmMinSourcesPerBin;
+# nufft/interp.py _sm_pays).
+_G64, _G256, _G512 = (64, 64, 32), (256, 256, 128), (512, 256, 256)
+ND3_SWEEP = {
+    ("spread", "float32"): [(_G64, n, None) for n in (1_000, 10_000, 30_000, 45_000, 60_000,
+                                                       75_000, 100_000)]
+    + [(_G256, n, None) for n in (30_000, 100_000, 300_000)]
+    + [(_G512, n, None) for n in (100_000, 150_000, 200_000, 300_000)]
+    + [(_G64, 100_000, 4)],
+    ("spread", "float64"): [(_G64, n, None) for n in (1_000, 3_000, 4_000, 5_000, 6_000,
+                                                       7_500, 10_000, 100_000)]
+    + [(_G256, n, None) for n in (10_000, 30_000, 45_000, 60_000, 75_000, 100_000)]
+    + [(_G64, 100_000, 4)],
+    ("interp", "float32"): [(_G64, n, None) for n in (1_000, 10_000, 30_000, 45_000, 60_000,
+                                                       75_000, 100_000)]
+    + [(_G256, n, None) for n in (10_000, 100_000, 150_000, 200_000, 300_000)]
+    + [(_G64, 100_000, k) for k in (4, 8, 16, 64)],
+    ("interp", "float64"): [(_G64, n, None) for n in (1_000, 10_000, 15_000, 20_000, 25_000,
+                                                       30_000, 100_000)]
+    + [(_G256, n, None) for n in (10_000, 100_000, 150_000, 200_000, 300_000)]
+    + [(_G64, 100_000, k) for k in (4, 8, 16, 64)],
+}
+
+
+def boxed_points(n: int, k: int, nf, rng):
+    """n grid coordinates clustered into k boxes of 3 cells a side."""
+    pick = rng.integers(0, k, n)
+    return [np.mod(rng.uniform(0, m, k)[pick] + rng.uniform(0, 3, n), m) for m in nf]
+
+
+def check_nd3_selection() -> None:
+    """The choice between the two d = 3 forms over ND3_SWEEP, C = 1: each
+    form's call by CUDA events (the SM spread's with its device sort, the
+    interp on the tables in the order each form takes), the two forms held
+    against each other (TOL of max|form|), and the form the library
+    (spread) or the plan (interp) picks, beside what the rules read: points
+    a cell and a bin, and for the interp plan the nonempty bins, their
+    cells and the targets a nonempty bin."""
+    import torch
+
+    from fftvis_tpu_torch._build import load_kernels
+    from fftvis_tpu_torch.nufft import interp as interp_mod
+    from fftvis_tpu_torch.nufft import spread as spread_mod
+    from fftvis_tpu_torch.nufft.kernels import ESKernel
+
+    lib = load_kernels()
+    rng = np.random.default_rng(12)
+    for (form, name), cases in ND3_SWEEP.items():
+        rdt, cdt = ((torch.float32, torch.complex64) if name == "float32"
+                    else (torch.float64, torch.complex128))
+        f64 = int(name == "float64")
+        rb = 8 if f64 else 4
+        k = ESKernel.from_eps(EPS[1 + f64])
+        w, beta = k.w, k.beta
+        for nf, n, boxes in cases:
+            cells = int(np.prod(nf))
+            pts = (boxed_points(n, boxes, nf, rng) if boxes else
+                   [rng.uniform(0, m, n) for m in nf])
+            label = (f"{form} {name} {nf} n={n} " + (f"in {boxes} boxes" if boxes else "uniform")
+                     + f" ({n / cells:.4g} a cell)")
+            if form == "spread":
+                edge = lib.fftvis_spread_nd_bin_edge(f64, w, cells, *nf)
+                pick = "sm" if lib.fftvis_spread_nd_bin_edge(f64, w, n, *nf) else "gm"
+                u = [torch.tensor(a, dtype=rdt, device="cuda") for a in pts]
+                wts = torch.tensor(rng.normal(size=(1, n)) + 1j * rng.normal(size=(1, n)),
+                                   dtype=cdt, device="cuda")
+                acc = torch.zeros((1,) + nf, dtype=cdt, device="cuda")
+                fns = {"gm": lambda g: spread_mod._spread_gm_nd(u, wts, g, w, beta),
+                       "sm": lambda g: spread_mod._spread_sm_3d(u, wts, g, w, beta, edge)}
+                got = {f: fn(torch.zeros_like(acc)) for f, fn in fns.items()}
+                err = (got["sm"] - got["gm"]).abs().max().item()
+                scale = got["gm"].abs().max().item()
+                del got
+                ms = {f: cuda_ms(lambda: fn(acc), 10) for f, fn in fns.items()}
+                print(f"[3] d3 choice {label}, {n * edge**3 / cells:.3g} a bin of edge {edge}: "
+                      f"gm {ms['gm']:.4f} ms, sm with its sort {ms['sm']:.4f} ms; sm vs gm "
+                      f"{err / scale:.1e} of max|gm|; library picks {pick}", flush=True)
+                del u, wts, acc
+            else:
+                idx_np, val_np = nd_taps(pts, nf, w, beta)
+                perm, offsets = interp_mod.bin_order_3d(idx_np, nf, rb, select=False)
+                edge = interp_mod.bin_edge_3d(w, rb)
+                stats = interp_mod.bin_stats_3d(idx_np, nf, rb)
+                pick = "sm" if interp_mod.bin_order_3d(idx_np, nf, rb) is not None else "taps_nd"
+                G = torch.tensor(rng.normal(size=(1,) + nf) + 1j * rng.normal(size=(1,) + nf),
+                                 dtype=cdt, device="cuda")
+                idx = [torch.tensor(a, device="cuda") for a in idx_np]
+                val = [torch.tensor(a, dtype=rdt, device="cuda") for a in val_np]
+                sidx = [torch.tensor(a[perm], device="cuda") for a in idx_np]
+                sval = [torch.tensor(a[perm], dtype=rdt, device="cuda") for a in val_np]
+                order = torch.tensor(perm, device="cuda")
+                runs = torch.tensor(offsets, device="cuda")
+                fns = {"taps_nd": lambda: interp_mod.interp_nd(G, idx, val),
+                       "sm": lambda: interp_mod.interp_nd(G, sidx, sval, order, runs)}
+                got = {f: fn() for f, fn in fns.items()}
+                err = (got["sm"] - got["taps_nd"]).abs().max().item()
+                scale = got["taps_nd"].abs().max().item()
+                del got
+                ms = {f: cuda_ms(fn, 10) for f, fn in fns.items()}
+                print(f"[3] d3 choice {label}: taps_nd {ms['taps_nd']:.4f} ms, sm "
+                      f"{ms['sm']:.4f} ms; sm vs taps_nd {err / scale:.1e} of max|taps_nd|; "
+                      f"{stats['bins']} nonempty bins of edge {edge} ({stats['bin_cells']} "
+                      f"cells, {stats['bin_cells'] * 2 * rb / 2**10:.0f} KiB a channel, "
+                      f"{n / stats['bins']:.3g} targets a bin), {offsets.size - 1} pieces; plan "
+                      f"picks {pick}", flush=True)
+                del G, idx, val, sidx, sval, order, runs
+            if not err <= TOL[name] * scale:
+                raise AssertionError(f"d3 choice {label}: the two forms disagree")
+            torch.cuda.empty_cache()
+
+
+def check_nd3_kernels() -> dict:
+    """Phase 3's d = 3 forms: every case, dtype and channel count. Returns
+    the kernels-line rows of case (i) at C = 1: spread_d3 (spread_gm_3d),
+    spread_d3_sm, interp_d3 (interp_taps_nd) and interp_d3_sm, a dtype
+    each."""
+    import torch
+
+    rows = {}
+    rng = np.random.default_rng(11)
+    for rdt, cdt in ((torch.float32, torch.complex64), (torch.float64, torch.complex128)):
+        name = str(rdt).split(".")[-1]
+        for case in ND3_CASES:
+            for C in ND3_CHANNELS:
+                sp = check_spread_3d(case, rdt, cdt, C, rng)
+                it = check_interp_3d(case, rdt, cdt, C, rng)
+                if case.startswith("(i)") and C == 1:
+                    rows[f"spread_d3_{name}"] = sp["spread_gm_3d"]
+                    rows[f"spread_d3_sm_{name}"] = sp["spread_sm_3d"]
+                    rows[f"bin_sort_3d_{name}"] = sp["bin_sort_3d"]
+                    rows[f"interp_d3_{name}"] = it["interp_taps_nd"]
+                    rows[f"interp_d3_sm_{name}"] = it["interp_sm_3d"]
+    check_nd3_selection()
+    return rows
 
 
 def check_es_kernels(es_a, es_b) -> dict:
@@ -2264,25 +2622,26 @@ def check_es_kernels(es_a, es_b) -> dict:
     t2 = plan_type2(rng.uniform(-np.pi, np.pi, (2, ND_POINTS)), modes, EPS[1])
     check_interp("float32", torch.float32, torch.complex64, t2, 1, rng,
                  label=" type-2 non-redundant points", alone=True)
-    rows = {}
-    for d in (1, 3):
-        for rdt, cdt in ((torch.float32, torch.complex64), (torch.float64, torch.complex128)):
-            name = str(rdt).split(".")[-1]
-            rows[f"spread_d{d}_{name}"] = check_spread_nd(d, rdt, cdt, rng)
-            rows[f"interp_d{d}_{name}"] = check_interp_nd(d, rdt, cdt, rng)
+    rows = check_nd3_kernels()
+    for rdt, cdt in ((torch.float32, torch.complex64), (torch.float64, torch.complex128)):
+        name = str(rdt).split(".")[-1]
+        rows[f"spread_d1_{name}"] = check_spread_nd(1, rdt, cdt, rng)
+        rows[f"interp_d1_{name}"] = check_interp_nd(1, rdt, cdt, rng)
     return rows
 
 
-def public_problem(kind: str, d: int, rng):
+def public_problem(kind: str, d: int, rng, npts: int = 0):
     """One public transform's inputs (numpy): sources or points x (d, n) in
-    [-pi, pi), weights (1, n) or mode coefficients (1, m), and integer modes
-    (d, m) (type-1, type-2) or real targets (d, m) (type-3)."""
+    [-pi, pi), n = ``npts`` or PUBLIC_N, weights (1, n) or mode coefficients
+    (1, m), and integer modes (d, m) (type-1, type-2) or real targets (d, m)
+    (type-3)."""
     kmax = PUBLIC_KMAX[d]
-    x = rng.uniform(-np.pi, np.pi, (d, PUBLIC_N))
+    npts = npts or PUBLIC_N
+    x = rng.uniform(-np.pi, np.pi, (d, npts))
     modes = np.stack([rng.integers(-k, k + 1, PUBLIC_M) for k in kmax])
     if kind == "type3":
         modes = modes + rng.uniform(-0.5, 0.5, modes.shape)
-    n = PUBLIC_M if kind == "type2" else PUBLIC_N
+    n = PUBLIC_M if kind == "type2" else npts
     c = rng.normal(size=(1, n)) + 1j * rng.normal(size=(1, n))
     return x, c, modes
 
@@ -2316,34 +2675,39 @@ def public_nufft(counters) -> dict:
         errs = []
         reset(counters)
         t0 = time.perf_counter()
-        for d in (1, 2, 3):
-            for kind in ("type1", "type2", "type3"):
-                x, c, modes = public_problem(kind, d, rng)
-                xt = torch.tensor(x, dtype=rdt, device="cuda")
-                ct = torch.tensor(c, dtype=cdt, device="cuda")
-                x64, c64 = xt.double(), ct.to(torch.complex128)
-                if kind == "type1":
-                    got = make_type1_fn(plan_type1(modes, eps))(xt, ct)
-                    want = direct_type1(x64, c64, modes)
-                elif kind == "type2":
-                    got = make_type2_fn(plan_type2(x64.cpu().numpy(), modes, eps))(ct)
-                    want = direct_type2(x64, c64, modes)
-                else:
-                    got = make_type3_fn(plan_type3(modes, np.pi, eps))(xt, ct)
-                    want = direct_type3(x64, c64, modes)
-                err = ((got.to(torch.complex128) - want).abs().max()
-                       / want.abs().max()).item()
-                tol = max(PUBLIC_FACTOR[kind][d] * eps, PUBLIC_FLOOR[name])
-                errs.append(f"{kind} d={d} {err:.2e}")
-                if not err <= tol:
-                    raise AssertionError(f"public {kind} d={d} {name}: {err:.3e} > {tol:.0e}")
+        # Every transform at d = 1, 2, 3; then a sparse d = 3 type-1 and
+        # type-2 (PUBLIC_SPARSE points), where the d = 3 entries take their
+        # low-density forms (spread_gm_3d, interp_taps_nd).
+        runs = [(d, kind, 0) for d in (1, 2, 3) for kind in ("type1", "type2", "type3")]
+        runs += [(3, "type1", PUBLIC_SPARSE), (3, "type2", PUBLIC_SPARSE)]
+        for d, kind, npts in runs:
+            x, c, modes = public_problem(kind, d, rng, npts)
+            xt = torch.tensor(x, dtype=rdt, device="cuda")
+            ct = torch.tensor(c, dtype=cdt, device="cuda")
+            x64, c64 = xt.double(), ct.to(torch.complex128)
+            if kind == "type1":
+                got = make_type1_fn(plan_type1(modes, eps))(xt, ct)
+                want = direct_type1(x64, c64, modes)
+            elif kind == "type2":
+                got = make_type2_fn(plan_type2(x64.cpu().numpy(), modes, eps))(ct)
+                want = direct_type2(x64, c64, modes)
+            else:
+                got = make_type3_fn(plan_type3(modes, np.pi, eps))(xt, ct)
+                want = direct_type3(x64, c64, modes)
+            err = ((got.to(torch.complex128) - want).abs().max()
+                   / want.abs().max()).item()
+            tol = max(PUBLIC_FACTOR[kind][d] * eps, PUBLIC_FLOOR[name])
+            errs.append(f"{kind} d={d}{' sparse' if npts else ''} {err:.2e}")
+            if not err <= tol:
+                raise AssertionError(f"public {kind} d={d} {name}: {err:.3e} > {tol:.0e}")
         torch.cuda.synchronize()
         got = out[name] = read(counters)
-        for key in ("spread_d1", "spread_d3", "interp_d1", "interp_d3", "spread", "interp"):
+        for key in ("spread_d1", "spread_d3", "spread_d3_sm", "bin_sort_3d", "interp_d1",
+                    "interp_d3", "interp_d3_sm", "spread", "interp"):
             if got[key] <= 0:
                 raise AssertionError(f"public NUFFT run {name}: {key} never launched ({got})")
         print(f"[3] nufft public {name} (eps {eps:.0e}): make_type{{1,2,3}}_fn at d = 1, 2, 3, "
-              f"n = {PUBLIC_N} sources or points, m = {PUBLIC_M} modes or targets, |k| <= "
+              f"n = {PUBLIC_N} sources or points (sparse: {PUBLIC_SPARSE}), m = {PUBLIC_M} modes or targets, |k| <= "
               f"{PUBLIC_KMAX}, against the float64 direct oracles on the card: "
               f"{', '.join(errs)}; launches {got}; {time.perf_counter() - t0:.2f} s", flush=True)
     return out
@@ -2508,7 +2872,7 @@ def check_spread_adjoint(name, rdt, cdt, grid, w: int, beta: float, C: int, case
     print(f"[3] spread_adjoint {name} {case}{label}: grid ({nfy}, {nfx}) w={w} n={n} C={C}: "
           f"max err {err:.3e} = {err / scale:.3e} of max|plain|, identity {ident:.3e}; "
           f"kernel {ms:.4f} ms "
-          f"(alone {alone:.2f} us), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, "
+          f"(alone {us_txt(alone)}), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, "
           f"{cells} cells){lib_txt}", flush=True)
     del g, got
     torch.cuda.empty_cache()
@@ -2521,9 +2885,11 @@ def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, plain_tabs, C: i
     (rows in target order, the order and the runs; ``plain_tabs`` the same
     taps in target order): the wrapper against its plain version for a
     random (C, m) gradient, the identity <interp G, g> = <G, interp_adjoint
-    g> with the forward kernel, the kernel alone, the bound (the (C, nfy,
-    nfx) output written once, the tap tables and the gradient read once)
-    and ``sparse.mm`` of the transposed tap CSR."""
+    g> with the forward kernel, the kernel alone, the bound (the cells the
+    kernel writes -- the distinct tap cells of all C planes -- once, the tap
+    tables and the gradient read once; the wrapper's zeroing of the whole
+    (C, nfy, nfx) output is given beside it) and ``sparse.mm`` of the
+    transposed tap CSR."""
     import torch
 
     from fftvis_tpu_torch.nufft import interp as interp_mod
@@ -2549,8 +2915,11 @@ def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, plain_tabs, C: i
     plain = cuda_ms(lambda: interp_mod.interp_adjoint_plain(g, *plain_tabs, nfy, nfx), 5)
     alone = kernel_us(call, "interp_adjoint_runs")
     rb = 4 if name == "float32" else 8
-    bnd = bound(C * nfy * nfx * 2 * rb + m * w * 2 * (4 + rb) + C * m * 2 * rb,
+    iy, ix = (t.cpu().numpy() for t in plain_tabs[:2])
+    cells = np.unique((iy.astype(np.int64)[:, :, None] * nfx + ix[:, None, :]).ravel()).size
+    bnd = bound(C * cells * 2 * rb + m * w * 2 * (4 + rb) + C * m * 2 * rb,
                 m * w * w * (1 + 4 * C), name)
+    zero_ms = C * nfy * nfx * 2 * rb / HBM_BYTES_PER_S * 1e3
     lib_ms, lib_txt = None, ""
 
     def make():
@@ -2568,8 +2937,9 @@ def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, plain_tabs, C: i
     print(f"[3] interp_adjoint {name}{label}: grid ({nfy}, {nfx}) w={w} m={m} C={C}: "
           f"max err {err:.3e} = {err / scale:.3e} of max|plain|, identity {ident:.3e}; "
           f"kernel {ms:.4f} ms "
-          f"(alone {alone:.2f} us), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms "
-          f"({bnd[1]}){lib_txt}", flush=True)
+          f"(alone {us_txt(alone)}), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}, {cells} cells written; the wrapper's zeroing of the grid "
+          f"{zero_ms:.4f} ms beside it){lib_txt}", flush=True)
     del g, lib
     torch.cuda.empty_cache()
     return adjoint_row(name, "interp_adjoint", err, scale, ident, ms, plain, bnd, lib_ms)
@@ -2633,7 +3003,7 @@ def check_beam_eval_adjoint(ch: int, order: int, dt, rng) -> tuple:
     print(f"[3] beam_eval_adjoint {name}: table ({ny}, {nx}, {ch}) order {order} n=4096: max err "
           f"{err:.3e} = {err / scale:.3e} of max|plain| (vs float64 plain {err64:.3e}; the "
           f"coordinates {err_xy:.3e}), identity {ident:.3e}; "
-          f"kernel {ms:.4f} ms (alone {alone:.2f} us; with the coordinates {ms_xy:.4f} ms), "
+          f"kernel {ms:.4f} ms (alone {us_txt(alone)}; with the coordinates {ms_xy:.4f} ms), "
           f"plain {plain:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}); {lib_txt}", flush=True)
     return adjoint_row(name, "beam_eval_adjoint", err, scale, ident, ms, plain, bnd, lib_ms)
 
@@ -3088,7 +3458,10 @@ def main() -> int:
                 "beam_eval": (eval_mod, "launches"), "beam_rows": (eval_mod, "rows_launches"),
                 "pair_rows": (eval_mod, "pair_launches"),
                 "spread_d1": (spread_mod, "launches_d1"), "spread_d3": (spread_mod, "launches_d3"),
-                "interp_d1": (interp_mod, "launches_d1"), "interp_d3": (interp_mod, "launches_d3")}
+                "spread_d3_sm": (spread_mod, "launches_d3_sm"),
+                "bin_sort_3d": (spread_mod, "sort_launches"),
+                "interp_d1": (interp_mod, "launches_d1"), "interp_d3": (interp_mod, "launches_d3"),
+                "interp_d3_sm": (interp_mod, "launches_d3_sm")}
     public_launches = public_nufft(counters)
     nbl = len(cfg["baselines"])
     vis, launches = {}, {}
@@ -3343,12 +3716,21 @@ def main() -> int:
                 "bound_by": b_by,
                 "library_ms": lib_ms,
             })
-    # The d = 1 / 3 entries: their launches are the public NUFFT run's.
+    # The d = 1 / 3 entries (at d = 3 both forms: spread_gm_3d and
+    # interp_taps_nd, spread_sm_3d and interp_sm_3d): their launches are the
+    # public NUFFT run's.
     for kname, source, replaces in (
         ("spread_d1", "fftvis_tpu_torch/csrc/spread.cu", "fftvis_tpu/nufft/pallas_spread.py:219"),
         ("spread_d3", "fftvis_tpu_torch/csrc/spread.cu", "fftvis_tpu/nufft/pallas_spread.py:219"),
+        ("spread_d3_sm", "fftvis_tpu_torch/csrc/spread.cu",
+         "fftvis_tpu/nufft/pallas_spread.py:219"),
+        # The device bin sort that spread_sm_3d's wrapper launches first.
+        ("bin_sort_3d", "fftvis_tpu_torch/csrc/spread.cu",
+         "fftvis_tpu/nufft/pallas_spread.py:219"),
         ("interp_d1", "fftvis_tpu_torch/csrc/interp.cu", "fftvis_tpu/nufft/pallas_interp.py:162"),
         ("interp_d3", "fftvis_tpu_torch/csrc/interp.cu", "fftvis_tpu/nufft/pallas_interp.py:162"),
+        ("interp_d3_sm", "fftvis_tpu_torch/csrc/interp.cu",
+         "fftvis_tpu/nufft/pallas_interp.py:162"),
     ):
         for dname in ("float32", "float64"):
             err, ms, plain_ms, (b_ms, b_by), lib_ms = nd_checks[f"{kname}_{dname}"]

@@ -49,7 +49,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -117,6 +117,27 @@ def load_kernels():
         fn = getattr(lib, name)
         # d, u0, u1, u2, wts, grid, n, C, n0, n1, n2, w, beta, stream
         fn.argtypes = [I] + [P] * 5 + [I] * 6 + [D, P]
+        fn.restype = I
+    # f64, w, n, n0, n1, n2 -> the SM form's bin edge, or 0
+    lib.fftvis_spread_nd_bin_edge.argtypes = [I] * 6
+    lib.fftvis_spread_nd_bin_edge.restype = I
+    for name in ("fftvis_spread_sm_3d_f32", "fftvis_spread_sm_3d_f64"):
+        fn = getattr(lib, name)
+        # u0, u1, u2, wts, perm, offsets, subproblems, grid, n, C, n0, n1, n2,
+        # blocks, K, w, beta, stream
+        fn.argtypes = [P] * 8 + [I] * 8 + [D, P]
+        fn.restype = I
+    for name in ("fftvis_bin_sort_3d_f32", "fftvis_bin_sort_3d_f64"):
+        fn = getattr(lib, name)
+        # u0, u1, u2, n, n0, n1, n2, w, edge, K, key/count scratch, perm,
+        # offsets, subproblems, stream
+        fn.argtypes = [P] * 3 + [I] * 7 + [P] * 5
+        fn.restype = I
+    for name in ("fftvis_interp_sm_3d_f32", "fftvis_interp_sm_3d_f64"):
+        fn = getattr(lib, name)
+        # G, i0, i1, i2, v0, v1, v2, order, offsets, out, C, n0, n1, n2, m,
+        # nbins, w, bin edge, stream
+        fn.argtypes = [P] * 10 + [I] * 8 + [P]
         fn.restype = I
     for name in ("fftvis_interp_nd_f32", "fftvis_interp_nd_f64"):
         fn = getattr(lib, name)

@@ -74,8 +74,37 @@
 // reduction sums a channel; outputs are disjoint, no atomics. Bound, in
 // bytes: the distinct cells the taps touch of every channel, the tables and
 // the output, each moved once.
+//
+// interp_sm_3d is the D = 3 interpolation redesigned for Hopper. What holds
+// interp_taps_nd back: its warps take the targets in input order, so each
+// of a target's w^3 (~2,700 at w = 14) taps is a read from L2, and
+// neighbouring warps hit unrelated cells (4.4 GB of L2 traffic at 10^5
+// targets in complex128). Here the host orders the targets once, at plan
+// time, by the 3D bin of their first tap cell (nufft/interp.py
+// bin_order_3d: a permutation, kept with the plan's tap tables, and CSR
+// offsets of the nonempty bins cut into pieces of at most 64 targets), and:
+// - one block takes one piece of one channel (blockIdx.y). It loads the
+//   bin's padded tile, (B + w - 1)^3 cells wrapped periodically, into
+//   dynamic shared memory with coalesced 8- or 16-byte loads, once;
+// - it stages the piece's tap values, first cells and order in shared
+//   memory too (its rows are contiguous in the tables: coalesced loads);
+// - its warps take the piece's targets, one a warp, the lanes over the
+//   w x w (axis-1, axis-2) taps and a loop over axis 0, as interp_taps_nd
+//   does, but every tap and weight reads shared memory; a __shfl_xor_sync
+//   reduction sums the target, and lane 0 writes out[c, order[k]], so the
+//   caller sees target order.
+// A plan's taps are w consecutive cells (mod n) from the first, so a target
+// reads tile cells l + k. B is bins.cuh's edge (the host's order must use
+// it). Where an axis is shorter than the tile, or where the host's
+// measured choice (nufft/interp.py _sm_pays) finds interp_taps_nd faster,
+// the host plans no order and interp_taps_nd stays. A target whose
+// first cell lies outside its block's bin (malformed offsets) reads its
+// taps from the grid through its tables: wrong order, never an access out
+// of bounds. Bound: as interp_taps_nd's.
 
 #include <cuda_runtime.h>
+
+#include "bins.cuh"
 
 namespace {
 
@@ -409,6 +438,187 @@ __global__ void __launch_bounds__(WARPS * 32) interp_taps_nd(
   }
 }
 
+__device__ __forceinline__ int wrap(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// The shared memory of interp_sm_3d: the (P, P, P) tile, then a piece's
+// tables (sub targets a round).
+template <typename T>
+constexpr long long sm_bytes(int P, int W, int sub) {
+  return static_cast<long long>(P) * P * P * 2 * sizeof(T) +
+         static_cast<long long>(sub) * (3 * W * sizeof(T) + 4 * sizeof(int));
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(WARPS * 32) interp_sm_3d(
+    const T* __restrict__ G,          // (C, n0, n1, n2, 2) interleaved re/im
+    const int* __restrict__ i0,       // (m, W) axis-0 taps, rows in bin order
+    const int* __restrict__ i1,       // (m, W)
+    const int* __restrict__ i2,       // (m, W)
+    const T* __restrict__ v0,         // (m, W)
+    const T* __restrict__ v1,         // (m, W)
+    const T* __restrict__ v2,         // (m, W)
+    const int* __restrict__ order,    // (m,) row k is target order[k]
+    const int* __restrict__ off,      // (npieces + 1,) CSR offsets of the pieces
+    T* __restrict__ out,              // (C, m, 2) interleaved re/im
+    int C, int n0, int n1, int n2, int m, int B, int sub) {
+  using V = typename Vec2<T>::type;
+  constexpr int STEPS = (W * W + 31) / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int P = B + W - 1;
+  const int PP = P * P;
+  V* tile = reinterpret_cast<V*>(smem_raw);                // (P, P, P)
+  T* val_s = reinterpret_cast<T*>(tile + PP * P);          // (sub, 3, W)
+  int* first_s = reinterpret_cast<int*>(val_s + sub * 3 * W);  // (sub, 3)
+  int* order_s = first_s + sub * 3;                        // (sub,)
+  const int k0 = max(off[blockIdx.x], 0);
+  const int k1 = min(off[blockIdx.x + 1], m);
+  if (k0 >= k1) return;
+  const int c = blockIdx.y;
+  const long long row0 = static_cast<long long>(k0) * W;
+  const int s0 = i0[row0] / B * B;
+  const int s1 = i1[row0] / B * B;
+  const int s2 = i2[row0] / B * B;
+  const long long slab = static_cast<long long>(n1) * n2;
+  const V* Gc = reinterpret_cast<const V*>(G) + c * (n0 * slab);
+  for (int i = threadIdx.x; i < PP * P; i += blockDim.x) {
+    const int q0 = i / PP;
+    const int q1 = i / P % P;
+    const int q2 = i % P;
+    tile[i] = Gc[wrap(s0 + q0, n0) * slab + static_cast<long long>(wrap(s1 + q1, n1)) * n2 +
+                 wrap(s2 + q2, n2)];
+  }
+
+  const int lane = threadIdx.x & 31;
+  V* outv = reinterpret_cast<V*>(out);
+  for (int base = k0; base < k1; base += sub) {
+    const int cnt = min(sub, k1 - base);
+    // Stage the round's tables: its rows are contiguous in every table.
+    const long long r0 = static_cast<long long>(base) * W;
+    for (int t = threadIdx.x; t < cnt * W; t += blockDim.x) {
+      val_s[(t / W * 3 + 0) * W + t % W] = v0[r0 + t];
+      val_s[(t / W * 3 + 1) * W + t % W] = v1[r0 + t];
+      val_s[(t / W * 3 + 2) * W + t % W] = v2[r0 + t];
+    }
+    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
+      const long long row = r0 + static_cast<long long>(t) * W;
+      first_s[t * 3 + 0] = i0[row] - s0;
+      first_s[t * 3 + 1] = i1[row] - s1;
+      first_s[t * 3 + 2] = i2[row] - s2;
+      order_s[t] = order[base + t];
+    }
+    __syncthreads();
+    for (int j = threadIdx.x >> 5; j < cnt; j += blockDim.x >> 5) {
+      const int l0 = first_s[j * 3 + 0];
+      const int l1 = first_s[j * 3 + 1];
+      const int l2 = first_s[j * 3 + 2];
+      const bool inside = l0 >= 0 && l0 < B && l1 >= 0 && l1 < B && l2 >= 0 && l2 < B;
+      const T* vj = val_s + j * 3 * W;
+      const long long row = r0 + static_cast<long long>(j) * W;
+      long long offs[STEPS];
+      T wt[STEPS];
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s) {
+        const int tap = s * 32 + lane;
+        const bool ok = tap < W * W;
+        const int b = ok ? tap / W : 0;
+        const int e = ok ? tap % W : 0;
+        wt[s] = ok ? vj[W + b] * vj[2 * W + e] : T(0);
+        offs[s] = inside ? (l1 + b) * P + (l2 + e)
+                         : static_cast<long long>(i1[row + b]) * n2 + i2[row + e];
+      }
+      T re = T(0);
+      T im = T(0);
+      for (int a = 0; a < W; ++a) {
+        const T wa = vj[a];
+        T tr = T(0);
+        T ti = T(0);
+        if (inside) {
+          const V* ta = tile + (l0 + a) * PP;
+#pragma unroll
+          for (int s = 0; s < STEPS; ++s) {
+            const V g = ta[offs[s]];
+            tr += g.x * wt[s];
+            ti += g.y * wt[s];
+          }
+        } else {
+          const V* ga = Gc + i0[row + a] * slab;
+#pragma unroll
+          for (int s = 0; s < STEPS; ++s) {
+            const V g = ga[offs[s]];
+            tr += g.x * wt[s];
+            ti += g.y * wt[s];
+          }
+        }
+        re += wa * tr;
+        im += wa * ti;
+      }
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        re += __shfl_xor_sync(kFull, re, d);
+        im += __shfl_xor_sync(kFull, im, d);
+      }
+      const int t = order_s[j];
+      if (lane == 0 && t >= 0 && t < m) {
+        V o;
+        o.x = re;
+        o.y = im;
+        outv[c * static_cast<long long>(m) + t] = o;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int W>
+int launch_sm_w(const void* G, const void* i0, const void* i1, const void* i2,
+                const void* v0, const void* v1, const void* v2, const void* order,
+                const void* off, void* out, int C, int n0, int n1, int n2, int m,
+                int nbins, int B, cudaStream_t stream) {
+  if (B != fftvis_bins::bin_edge<T>(W) || C > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Targets staged a round: up to 64, as many as keep the tile and the
+  // round within kTileBytes, so that two blocks share an SM (at least 8).
+  int sub = 64;
+  while (sub > 8 && sm_bytes<T>(B + W - 1, W, sub) > fftvis_bins::kTileBytes) sub /= 2;
+  const long long smem = sm_bytes<T>(B + W - 1, W, sub);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      interp_sm_3d<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 blocks(static_cast<unsigned int>(nbins), static_cast<unsigned int>(C));
+  interp_sm_3d<T, W><<<blocks, WARPS * 32, static_cast<size_t>(smem), stream>>>(
+      static_cast<const T*>(G), static_cast<const int*>(i0), static_cast<const int*>(i1),
+      static_cast<const int*>(i2), static_cast<const T*>(v0), static_cast<const T*>(v1),
+      static_cast<const T*>(v2), static_cast<const int*>(order), static_cast<const int*>(off),
+      static_cast<T*>(out), C, n0, n1, n2, m, B, sub);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_interp_sm(const void* G, const void* i0, const void* i1, const void* i2,
+                     const void* v0, const void* v1, const void* v2, const void* order,
+                     const void* off, void* out, int C, int n0, int n1, int n2, int m,
+                     int nbins, int w, int B, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  switch (w) {
+#define FFTVIS_INTERP_SM_CASE(W)                                                    \
+  case W:                                                                           \
+    return launch_sm_w<T, W>(G, i0, i1, i2, v0, v1, v2, order, off, out, C, n0, n1, \
+                             n2, m, nbins, B, stream);
+    FFTVIS_INTERP_SM_CASE(2) FFTVIS_INTERP_SM_CASE(3) FFTVIS_INTERP_SM_CASE(4)
+    FFTVIS_INTERP_SM_CASE(5) FFTVIS_INTERP_SM_CASE(6) FFTVIS_INTERP_SM_CASE(7)
+    FFTVIS_INTERP_SM_CASE(8) FFTVIS_INTERP_SM_CASE(9) FFTVIS_INTERP_SM_CASE(10)
+    FFTVIS_INTERP_SM_CASE(11) FFTVIS_INTERP_SM_CASE(12) FFTVIS_INTERP_SM_CASE(13)
+    FFTVIS_INTERP_SM_CASE(14) FFTVIS_INTERP_SM_CASE(15) FFTVIS_INTERP_SM_CASE(16)
+#undef FFTVIS_INTERP_SM_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
 int launch_interp_nd(int d, const void* G, const void* i0, const void* i1,
                      const void* i2, const void* v0, const void* v1,
@@ -562,4 +772,24 @@ extern "C" int fftvis_interp_nd_f64(int d, const void* G, const void* i0,
                                     int n1, int n2, int m, int w, void* stream) {
   return launch_interp_nd<double>(d, G, i0, i1, i2, v0, v1, v2, out, C, n0, n1,
                                   n2, m, w, stream);
+}
+
+// D = 3 interpolation through the bin-ordered tables: order (m,) and off
+// (nbins + 1,) int32 from nufft/interp.py bin_order_3d at bin edge B.
+extern "C" int fftvis_interp_sm_3d_f32(const void* G, const void* i0, const void* i1,
+                                       const void* i2, const void* v0, const void* v1,
+                                       const void* v2, const void* order, const void* off,
+                                       void* out, int C, int n0, int n1, int n2, int m,
+                                       int nbins, int w, int B, void* stream) {
+  return launch_interp_sm<float>(G, i0, i1, i2, v0, v1, v2, order, off, out, C, n0, n1, n2,
+                                 m, nbins, w, B, stream);
+}
+
+extern "C" int fftvis_interp_sm_3d_f64(const void* G, const void* i0, const void* i1,
+                                       const void* i2, const void* v0, const void* v1,
+                                       const void* v2, const void* order, const void* off,
+                                       void* out, int C, int n0, int n1, int n2, int m,
+                                       int nbins, int w, int B, void* stream) {
+  return launch_interp_sm<double>(G, i0, i1, i2, v0, v1, v2, order, off, out, C, n0, n1, n2,
+                                  m, nbins, w, B, stream);
 }

@@ -70,8 +70,46 @@
 //   cells.
 // Bound, in bytes: as spread_gm, the touched cells read and written once,
 // plus coordinates and weights.
+//
+// spread_sm_3d is the D = 3 spread redesigned for a dense grid, after
+// cuFINUFFT's SM method (arXiv 2102.08463). What holds spread_gm_3d back
+// there: at 10^5 sources on a (64, 64, 32) grid and w = 14 every cell takes
+// ~2,000 taps, and each is a global atomic (two fp64 atomics at complex128)
+// on a 2 MB grid that lives in L2, so they serialise on the same lines.
+// Here:
+// - the sources are sorted on the device by the 3D bin of their first tap
+//   cell: bin_count, bin_scan and bin_scatter below, a counting sort giving
+//   a permutation, CSR bin offsets and each bin's first subproblem, launched
+//   by the same wrapper call (nufft/spread.py bin_sort_3d is its plain
+//   version);
+// - one block takes one subproblem -- up to K = 256 sources of one bin, so
+//   that a crowded bin spreads over many blocks -- of one channel
+//   (blockIdx.y) and owns the bin's padded tile, (B + w - 1)^3 cells, in registers: a thread a (axis-1,
+//   axis-2) column, its B + w - 1 axis-0 cells unrolled. The block stages
+//   a third as many sources as it has threads in shared memory at a time
+//   (their 3w ES values, evaluated once, a thread a source's axis, local
+//   first cells and weights); then every
+//   thread whose column a staged source's footprint covers adds psi_1
+//   psi_2 w times the source's axis-0 values into its cells. No two threads share a cell, so there
+//   are no atomics until the flush (a first form that kept the tile in
+//   shared memory and spread with shared-memory atomics ran only 1.4x
+//   faster than spread_gm_3d at complex128 and 1.6x slower at complex64:
+//   PERF.md row 1b);
+// - the tile is then added to the global grid once, with global atomics
+//   (neighbouring bins' halos overlap).
+// B comes from the constexpr table fftvis_bins::kBinEdge (bins.cuh). Where
+// a grid axis is shorter than the padded tile, or the sources are too few
+// in all or a bin (kSmMinSources, kSmMinSourcesPerBin),
+// fftvis_spread_nd_bin_edge picks spread_gm_3d. A source whose first tap cell lies outside its block's bin
+// (a malformed permutation or offsets) adds nothing: a wrong sum, never an
+// access out of bounds. Each thread adds a staged source to its column at
+// the source's axis-0 offset through a switch over the B offsets, so the
+// column's cells keep compile-time register indices. Bound: as
+// spread_gm_3d's.
 
 #include <cuda_runtime.h>
+
+#include "bins.cuh"
 
 namespace {
 
@@ -364,6 +402,318 @@ __global__ void spread_gm_3d(
   }
 }
 
+using fftvis_bins::bin_edge;
+
+// Where spread_gm_3d is the faster form, [0] complex64, [1] complex128:
+// below kSmMinSources sources on any grid, where the SM form's sort and
+// launches cost more than the GM form's atomics, and below
+// kSmMinSourcesPerBin sources a bin of uniform density (n B^3 / cells),
+// where the SM form flushes a padded tile of (B + w - 1)^3 cells for a
+// source or two. Each is the crossover of the two wrappers' times on the
+// card, interpolated between the two points of chip_smoke.py phase 3's
+// sweep that straddle it (PERF.md row 1b).
+constexpr int kSmMinSources[2] = {49000, 4200};
+constexpr double kSmMinSourcesPerBin[2] = {2.5, 1.55};
+
+template <int P>
+__host__ __device__ constexpr int tile_threads() { return (P * P + 31) / 32 * 32; }
+
+// Sources a block of spread_sm_3d stages a round: a (source, axis) pair a
+// thread, within 40 KB of static shared memory.
+template <typename T, int W, int P>
+__host__ __device__ constexpr int stage_sources() {
+  constexpr int by_threads = tile_threads<P>() / 3;
+  constexpr int bytes = (3 * W + 2) * static_cast<int>(sizeof(T)) + 3 * static_cast<int>(sizeof(int));
+  constexpr int by_bytes = 40 * 1024 / bytes;
+  return by_threads < by_bytes ? by_threads : by_bytes;
+}
+
+// Adds z[a] (vre, vim) to the column's cells L + a, a < W: the source's
+// first axis-0 cell L a compile-time offset, so the column stays in
+// registers.
+template <int L, int W, int P, typename T>
+__device__ __forceinline__ void add_column(T (&cre)[P], T (&cim)[P], const T (&z)[W], T vre,
+                                           T vim) {
+#pragma unroll
+  for (int a = 0; a < W; ++a) {
+    cre[L + a] += z[a] * vre;
+    cim[L + a] += z[a] * vim;
+  }
+}
+
+// add_column at the runtime offset l0 in [0, B) (the same for every thread
+// of the block: one source's).
+template <int W, int B, int P, typename T>
+__device__ __forceinline__ void add_column_at(int l0, T (&cre)[P], T (&cim)[P], const T (&z)[W],
+                                              T vre, T vim) {
+  switch (l0) {
+#define FFTVIS_COLUMN_CASE(L)                                          \
+  case L:                                                              \
+    if constexpr (L < B) add_column<L, W, P>(cre, cim, z, vre, vim);   \
+    break;
+    FFTVIS_COLUMN_CASE(0) FFTVIS_COLUMN_CASE(1) FFTVIS_COLUMN_CASE(2) FFTVIS_COLUMN_CASE(3)
+    FFTVIS_COLUMN_CASE(4) FFTVIS_COLUMN_CASE(5) FFTVIS_COLUMN_CASE(6) FFTVIS_COLUMN_CASE(7)
+#undef FFTVIS_COLUMN_CASE
+    default:
+      break;
+  }
+}
+
+// B: the bin edge, fftvis_bins::kBinEdge's entry (at most 8); P = B + W - 1.
+template <typename T, int W, int B>
+__global__ void __launch_bounds__(tile_threads<B + W - 1>()) spread_sm_3d(
+    const T* __restrict__ u0, const T* __restrict__ u1, const T* __restrict__ u2,
+    const T* __restrict__ wts,          // (C, n, 2) interleaved re/im
+    const long long* __restrict__ perm, // (n,) sources in bin order
+    const long long* __restrict__ off,  // (nbins + 1,) CSR bin offsets
+    const long long* __restrict__ sub,  // (nbins + 1,) first subproblem of each bin
+    T* __restrict__ grid,               // (C, n0, n1, n2, 2) interleaved re/im
+    int n, int C, int n0, int n1, int n2, int nb1, int nb2, int nbins, int K, T beta) {
+  static_assert(B >= 1 && B <= 8, "add_column_at covers edges up to 8");
+  constexpr int P = B + W - 1;  // padded tile edge
+  constexpr int kStage = stage_sources<T, W, P>();
+  __shared__ T psi_s[kStage][3][W];
+  __shared__ T w_s[kStage][2];
+  __shared__ int l_s[kStage][3];  // local first tap cell; l_s[.][0] < 0: skip
+
+  // Block b is subproblem b: up to K sources of one bin, the bin found by
+  // a binary search of sub.
+  const long long b = blockIdx.x;
+  if (b >= sub[nbins]) return;
+  int lo = 0;
+  int hi = nbins;  // sub[lo] <= b < sub[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (sub[mid] <= b) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  const int bin = lo;
+  const int c = blockIdx.y;
+  const long long k0 = max(off[bin] + (b - sub[bin]) * K, 0LL);
+  const long long k1 = min(min(k0 + K, off[bin + 1]), static_cast<long long>(n));
+  if (k0 >= k1) return;
+  const int s0 = bin / (nb1 * nb2) * B;
+  const int s1 = bin / nb2 % nb1 * B;
+  const int s2 = bin % nb2 * B;
+  const long long slab = static_cast<long long>(n1) * n2 * 2;
+  T* gc = grid + c * (n0 * slab);
+
+  // This thread's tile column (q1, q2) and its P cells along axis 0.
+  const int q1 = threadIdx.x / P;
+  const int q2 = threadIdx.x % P;
+  const bool own = threadIdx.x < P * P;
+  T cre[P], cim[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) cre[p] = cim[p] = T(0);
+
+  for (long long base = k0; base < k1; base += kStage) {
+    const int cnt = static_cast<int>(min(static_cast<long long>(kStage), k1 - base));
+    // Stage: thread (j, axis) evaluates source j's W ES values on the axis
+    // and its local first cell. A source with zero weights, or outside this
+    // bin (a malformed permutation or offsets), is skipped.
+    for (int t = threadIdx.x; t < cnt * 3; t += blockDim.x) {
+      const int j = t / 3;
+      const int ax = t % 3;
+      const long long src = perm[base + j];
+      const bool valid = src >= 0 && src < n;
+      const long long sv = valid ? src : 0;
+      const T* ua = ax == 0 ? u0 : ax == 1 ? u1 : u2;
+      const int na = ax == 0 ? n0 : ax == 1 ? n1 : n2;
+      const int sa = ax == 0 ? s0 : ax == 1 ? s1 : s2;
+      const T uu = ua[sv];
+      const T cell = floor(uu);
+      const T frac = uu - cell;
+      const long long i0 = static_cast<long long>(ceil(uu - T(W) / T(2)));
+#pragma unroll
+      for (int k = 0; k < W; ++k) psi_s[j][ax][k] = es_kernel((cell - T(i0 + k)) + frac, W, beta);
+      const int l = wrap(i0, na) - sa;
+      l_s[j][ax] = valid && l >= 0 && l < B ? l : -1;
+      if (ax == 0) {
+        const T* wc = wts + (static_cast<long long>(c) * n + sv) * 2;
+        w_s[j][0] = wc[0];
+        w_s[j][1] = wc[1];
+      }
+    }
+    __syncthreads();
+    // Accumulate: each staged source into the columns its footprint covers.
+    for (int j = 0; j < cnt; ++j) {
+      const int l0 = l_s[j][0];
+      const int l1 = l_s[j][1];
+      const int l2 = l_s[j][2];
+      const int b1 = q1 - l1;
+      const int b2 = q2 - l2;
+      if (!own || l0 < 0 || l1 < 0 || l2 < 0 || b1 < 0 || b1 >= W || b2 < 0 || b2 >= W) continue;
+      const T wre = w_s[j][0];
+      const T wim = w_s[j][1];
+      if (wre == T(0) && wim == T(0)) continue;
+      const T v = psi_s[j][1][b1] * psi_s[j][2][b2];
+      T z[W];
+#pragma unroll
+      for (int a = 0; a < W; ++a) z[a] = psi_s[j][0][a];
+      add_column_at<W, B, P>(l0, cre, cim, z, v * wre, v * wim);
+    }
+    __syncthreads();
+  }
+
+  // The flush: the column's nonzero cells, wrapped onto the grid.
+  if (!own) return;
+  const long long col = static_cast<long long>(wrap(s1 + q1, n1)) * n2 + wrap(s2 + q2, n2);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (cre[p] == T(0) && cim[p] == T(0)) continue;
+    add_complex(gc + (wrap(s0 + p, n0) * static_cast<long long>(n1) * n2 + col) * 2, cre[p],
+                cim[p]);
+  }
+}
+
+// The device bin sort of spread_sm_3d, a counting sort in three kernels
+// (nufft/spread.py bin_sort_3d is its plain version): bin_count gives every
+// source its bin key (the bin of its first tap cell ceil(u - w/2) mod n,
+// edge cells a side, row-major) and counts the bins with integer atomics;
+// bin_scan (one block) turns the counts into the CSR offsets and the first
+// subproblem of every bin (K sources a subproblem); bin_scatter writes each
+// source's index at its bin's next free slot. The order within a bin
+// follows the atomics, so it varies from run to run, as the spread's
+// summation order does.
+template <typename T>
+__global__ void bin_count(const T* __restrict__ u0, const T* __restrict__ u1,
+                          const T* __restrict__ u2, int n, int n0, int n1, int n2, int nb1,
+                          int nb2, int edge, T half_w, int* __restrict__ key,
+                          int* __restrict__ count) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int b0 = wrap(static_cast<long long>(ceil(u0[j] - half_w)), n0) / edge;
+  const int b1 = wrap(static_cast<long long>(ceil(u1[j] - half_w)), n1) / edge;
+  const int b2 = wrap(static_cast<long long>(ceil(u2[j] - half_w)), n2) / edge;
+  const int k = (b0 * nb1 + b1) * nb2 + b2;
+  key[j] = k;
+  atomicAdd(count + k, 1);
+}
+
+constexpr int kScanThreads = 1024;
+
+__global__ void __launch_bounds__(kScanThreads) bin_scan(
+    int* __restrict__ count, int nbins, int K, long long* __restrict__ off,
+    long long* __restrict__ sub) {
+  __shared__ long long part[kScanThreads][2];
+  const int t = threadIdx.x;
+  const int chunk = (nbins + kScanThreads - 1) / kScanThreads;
+  const int lo = min(t * chunk, nbins);
+  const int hi = min(lo + chunk, nbins);
+  long long a = 0;
+  long long s = 0;
+  for (int i = lo; i < hi; ++i) {
+    a += count[i];
+    s += (count[i] + K - 1) / K;
+  }
+  part[t][0] = a;
+  part[t][1] = s;
+  __syncthreads();
+  // Inclusive scan of the threads' sums (Hillis-Steele).
+  for (int d = 1; d < kScanThreads; d <<= 1) {
+    const long long pa = t >= d ? part[t - d][0] : 0;
+    const long long ps = t >= d ? part[t - d][1] : 0;
+    __syncthreads();
+    part[t][0] += pa;
+    part[t][1] += ps;
+    __syncthreads();
+  }
+  a = t ? part[t - 1][0] : 0;
+  s = t ? part[t - 1][1] : 0;
+  for (int i = lo; i < hi; ++i) {
+    off[i] = a;
+    sub[i] = s;
+    a += count[i];
+    s += (count[i] + K - 1) / K;
+    count[i] = 0;  // the scatter's cursor
+  }
+  if (t == kScanThreads - 1) {
+    off[nbins] = part[t][0];
+    sub[nbins] = part[t][1];
+  }
+}
+
+__global__ void bin_scatter(const int* __restrict__ key, int n, const long long* __restrict__ off,
+                            int* __restrict__ cursor, long long* __restrict__ perm) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int k = key[j];
+  perm[off[k] + atomicAdd(cursor + k, 1)] = j;
+}
+
+template <typename T>
+int launch_bin_sort(const void* u0, const void* u1, const void* u2, int n, int n0, int n1,
+                    int n2, int w, int edge, int K, void* key_count, void* perm, void* off,
+                    void* sub, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n < 1 || edge < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb0 = (n0 + edge - 1) / edge;
+  const int nb1 = (n1 + edge - 1) / edge;
+  const int nb2 = (n2 + edge - 1) / edge;
+  const int nbins = nb0 * nb1 * nb2;
+  int* key = static_cast<int*>(key_count);
+  int* count = key + n;
+  const cudaError_t set = cudaMemsetAsync(count, 0, sizeof(int) * nbins, stream);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const unsigned int blocks = static_cast<unsigned int>((n + 255) / 256);
+  bin_count<T><<<blocks, 256, 0, stream>>>(
+      static_cast<const T*>(u0), static_cast<const T*>(u1), static_cast<const T*>(u2), n, n0,
+      n1, n2, nb1, nb2, edge, static_cast<T>(w) / T(2), key, count);
+  bin_scan<<<1, kScanThreads, 0, stream>>>(count, nbins, K, static_cast<long long*>(off),
+                                           static_cast<long long*>(sub));
+  bin_scatter<<<blocks, 256, 0, stream>>>(key, n, static_cast<const long long*>(off), count,
+                                          static_cast<long long*>(perm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// nsub: the grid's blocks, at least the subproblems (sub[nbins]); K the
+// sources a subproblem.
+template <typename T, int W>
+int launch_sm_w(const void* u0, const void* u1, const void* u2, const void* wts,
+                const void* perm, const void* off, const void* sub, void* grid, int n,
+                int C, int n0, int n1, int n2, int nsub, int K, double beta,
+                cudaStream_t stream) {
+  constexpr int B = bin_edge<T>(W);
+  const int nb0 = (n0 + B - 1) / B;
+  const int nb1 = (n1 + B - 1) / B;
+  const int nb2 = (n2 + B - 1) / B;
+  if (nsub < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 blocks(static_cast<unsigned int>(nsub), static_cast<unsigned int>(C));
+  spread_sm_3d<T, W, B><<<blocks, tile_threads<B + W - 1>(), 0, stream>>>(
+      static_cast<const T*>(u0), static_cast<const T*>(u1), static_cast<const T*>(u2),
+      static_cast<const T*>(wts), static_cast<const long long*>(perm),
+      static_cast<const long long*>(off), static_cast<const long long*>(sub),
+      static_cast<T*>(grid), n, C, n0, n1, n2, nb1, nb2, nb0 * nb1 * nb2, K,
+      static_cast<T>(beta));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_spread_sm(const void* u0, const void* u1, const void* u2, const void* wts,
+                     const void* perm, const void* off, const void* sub, void* grid, int n,
+                     int C, int n0, int n1, int n2, int nsub, int K, int w, double beta,
+                     void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (C > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  switch (w) {
+#define FFTVIS_SPREAD_SM_CASE(W)                                                       \
+  case W:                                                                              \
+    return launch_sm_w<T, W>(u0, u1, u2, wts, perm, off, sub, grid, n, C, n0, n1, n2,  \
+                             nsub, K, beta, stream);
+    FFTVIS_SPREAD_SM_CASE(2) FFTVIS_SPREAD_SM_CASE(3) FFTVIS_SPREAD_SM_CASE(4)
+    FFTVIS_SPREAD_SM_CASE(5) FFTVIS_SPREAD_SM_CASE(6) FFTVIS_SPREAD_SM_CASE(7)
+    FFTVIS_SPREAD_SM_CASE(8) FFTVIS_SPREAD_SM_CASE(9) FFTVIS_SPREAD_SM_CASE(10)
+    FFTVIS_SPREAD_SM_CASE(11) FFTVIS_SPREAD_SM_CASE(12) FFTVIS_SPREAD_SM_CASE(13)
+    FFTVIS_SPREAD_SM_CASE(14) FFTVIS_SPREAD_SM_CASE(15) FFTVIS_SPREAD_SM_CASE(16)
+#undef FFTVIS_SPREAD_SM_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T, int W>
 void launch_nd_w(int d, const void* u0, const void* u1, const void* u2,
                  const void* wts, void* grid, int n, int C, int n0, int n1,
@@ -483,6 +833,60 @@ extern "C" int fftvis_spread_adjoint_f64(const void* uy, const void* ux,
                                          double beta, void* stream) {
   return launch_spread<double>(uy, ux, out, const_cast<void*>(grid), n, C, nfy,
                                nfx, w, beta, true, stream);
+}
+
+// The form of a D = 3 spread of n sources onto the (n0, n1, n2) grid at
+// width w (f64: complex128): the SM form's bin edge, or 0 for spread_gm_3d
+// (an axis shorter than the padded tile, fewer than kSmMinSources[f64]
+// sources, or fewer than kSmMinSourcesPerBin a bin).
+extern "C" int fftvis_spread_nd_bin_edge(int f64, int w, int n, int n0, int n1, int n2) {
+  if (w < 2 || w > 16) return 0;
+  const int B = fftvis_bins::kBinEdge[f64 != 0][w];
+  const int P = B + w - 1;
+  if (n0 < P || n1 < P || n2 < P || n < kSmMinSources[f64 != 0]) return 0;
+  const double cells = static_cast<double>(n0) * n1 * n2;
+  return static_cast<double>(n) * B * B * B >= kSmMinSourcesPerBin[f64 != 0] * cells ? B : 0;
+}
+
+// The SM form onto the (C, n0, n1, n2) grid: perm (n,), off and sub
+// (nbins + 1,) int64 from the wrapper's bin sort with
+// fftvis_spread_nd_bin_edge's edge and subproblems of K sources; nsub
+// blocks, at least sub[nbins].
+extern "C" int fftvis_spread_sm_3d_f32(const void* u0, const void* u1, const void* u2,
+                                       const void* wts, const void* perm, const void* off,
+                                       const void* sub, void* grid, int n, int C, int n0,
+                                       int n1, int n2, int nsub, int K, int w, double beta,
+                                       void* stream) {
+  return launch_spread_sm<float>(u0, u1, u2, wts, perm, off, sub, grid, n, C, n0, n1, n2,
+                                 nsub, K, w, beta, stream);
+}
+
+extern "C" int fftvis_spread_sm_3d_f64(const void* u0, const void* u1, const void* u2,
+                                       const void* wts, const void* perm, const void* off,
+                                       const void* sub, void* grid, int n, int C, int n0,
+                                       int n1, int n2, int nsub, int K, int w, double beta,
+                                       void* stream) {
+  return launch_spread_sm<double>(u0, u1, u2, wts, perm, off, sub, grid, n, C, n0, n1, n2,
+                                  nsub, K, w, beta, stream);
+}
+
+// The device bin sort of n sources on the (n0, n1, n2) grid at width w and
+// bin edge ``edge``: key_count int32 scratch of n + nbins, perm (n,) and
+// off, sub (nbins + 1,) int64 outputs (subproblems of K sources).
+extern "C" int fftvis_bin_sort_3d_f32(const void* u0, const void* u1, const void* u2, int n,
+                                      int n0, int n1, int n2, int w, int edge, int K,
+                                      void* key_count, void* perm, void* off, void* sub,
+                                      void* stream) {
+  return launch_bin_sort<float>(u0, u1, u2, n, n0, n1, n2, w, edge, K, key_count, perm, off,
+                                sub, stream);
+}
+
+extern "C" int fftvis_bin_sort_3d_f64(const void* u0, const void* u1, const void* u2, int n,
+                                      int n0, int n1, int n2, int w, int edge, int K,
+                                      void* key_count, void* perm, void* off, void* sub,
+                                      void* stream) {
+  return launch_bin_sort<double>(u0, u1, u2, n, n0, n1, n2, w, edge, K, key_count, perm, off,
+                                 sub, stream);
 }
 
 // D = 1 (u1, u2 unused, n1 = n2 = 1) or D = 3 spreading onto the (C, n0[,

@@ -73,8 +73,12 @@ logger = logging.getLogger(__name__)
 # Sources per device block: one spread call (type-3), one mode-grid
 # product (type-1) or one (block, nbl) phase matrix (direct) at a time.
 SOURCE_BLOCK = 4096
-# Bytes one direct-path block's complex phase matrix may take.
+# Bytes one direct-path block's phase matrix may take, at the bytes a
+# (source, baseline) entry of DIRECT_ENTRY_BYTES: the complex128
+# exponential of a float64 run; a float32 run's float64 phase (8), its
+# float32 reduction (4) and the complex64 exponential (8).
 DIRECT_BLOCK_BYTES = 1 << 29
+DIRECT_ENTRY_BYTES = {torch.complex128: 16, torch.complex64: 20}
 # Bytes one type-1/type-3 block's coherency rows and transform temporaries
 # may take.
 BLOCK_BYTES = 1 << 30
@@ -382,9 +386,11 @@ class CUDASimulationEngine(SimulationEngine):
             return rot.aberration if rot.aberration is not None else np.zeros((rot.ntimes, 3))
 
         coord64 = None
-        if real_dtype == torch.float32 and isinstance(plan.executor, Type1Executor):
-            # The float32 ES type-1 takes its grid coordinates from a float64
-            # coordinate chain: at a lattice's long baselines (|k| ~ 400)
+        if real_dtype == torch.float32:
+            # Every float32 path takes its transform coordinates from a
+            # float64 coordinate chain and reduces them in float64 (direct
+            # phases, grid coordinates, the exact type-1's cell split,
+            # type-3's pre-phase): on km baselines (|k| ~ 400 on a lattice)
             # the float32 chain's ~1e-7 relative rounding of the source
             # phases is a phase error of ~1e-3 rad.
             f64 = torch.float64
@@ -586,7 +592,8 @@ def source_block(plan, C: int, nbl: int, npairs: int, pad_routing: bool, m_max: 
     type-1 has no per-source term beyond the rows)."""
     if plan.mode == "direct":
         eff_bl = npairs * m_max if pad_routing else nbl
-        return max(1, min(SOURCE_BLOCK, DIRECT_BLOCK_BYTES // (16 * eff_bl)))
+        entry = DIRECT_ENTRY_BYTES[complex_dtype]
+        return max(1, min(SOURCE_BLOCK, DIRECT_BLOCK_BYTES // (entry * eff_bl)))
     per_source = 2 * C * complex_dtype.itemsize
     if plan.mode == "type3" and plan.executor.channel_multiplier > 1:
         per_source += C * plan.executor.channel_multiplier * complex_dtype.itemsize

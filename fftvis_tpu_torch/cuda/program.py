@@ -51,7 +51,7 @@ from ..beams.eval import pair_rows, response_channels
 from ..beams.interface import stack_prepared
 from ..coords.rotation import enu_to_az_za
 from ..core.beams import BeamPairPlan
-from ..nufft.direct import direct_type3
+from ..nufft.direct import direct_type3, phasor
 from .planning import SimPlan
 
 
@@ -227,8 +227,11 @@ class ProgramConfig:
     # (host ints); None runs every block at every time.
     active: tuple | None = None
     # Float64 (coordinate matrix, mats, abvel, eq) on the device, from which
-    # the transform coordinates are formed in float64 (a float32 ES type-1
-    # run); None forms them from the inputs, in real_dtype.
+    # a float32 run forms its transform coordinates in float64: each path
+    # reduces them to what it consumes (direct phases mod 2 pi, grid
+    # coordinates mod nf, the exact type-1's cell and fraction, type-3's
+    # pre-phase) before it casts to float32. None (a float64 run) forms them
+    # from the inputs, in real_dtype.
     coord64: tuple | None = None
 
     @property
@@ -242,7 +245,8 @@ def device_tables(plan: SimPlan, pair_plan: BeamPairPlan | None, flipped: np.nda
     configuration: the :class:`Routing` (of ``basis``, the arguments of a
     :class:`Basis`, when given), the coordinate matrix and, on the direct
     path, the signed targets as the routing reads them -- (d, nbl); (d, P,
-    m_max) padded; or one (d, m_p) a pair -- else None; d = 3 on a
+    m_max) padded; or one (d, m_p) a pair -- in float64 (the phases are
+    formed in float64 at either precision), else None; d = 3 on a
     non-coplanar array."""
     dev = torch.device(device)
     r = Routing(pair_plan, flipped, pad, m_max, dev,
@@ -250,7 +254,7 @@ def device_tables(plan: SimPlan, pair_plan: BeamPairPlan | None, flipped: np.nda
     coord = torch.tensor(plan.coord_matrix, dtype=real_dtype, device=dev)
     targets = None
     if plan.mode == "direct":
-        tg = torch.tensor(plan.targets, dtype=real_dtype, device=dev)
+        tg = torch.tensor(plan.targets, dtype=torch.float64, device=dev)
         if not r.multi:
             targets = tg
         elif r.pad:
@@ -263,15 +267,16 @@ def device_tables(plan: SimPlan, pair_plan: BeamPairPlan | None, flipped: np.nda
 def _direct_block(cfg: ProgramConfig, acc, x, rows, targets):
     """One source block of the direct path into ``acc``: (C, nbl) for one
     pair, (P, nf2, m_max) batched over the padded routing, or a list of
-    (nf2, m_p) per pair; ``targets`` from :func:`_direct_targets`."""
+    (nf2, m_p) per pair; ``targets`` from :func:`device_tables`, ``x``
+    float64 at either precision (the phases are formed in float64 and, at
+    float32, reduced mod 2 pi before the cast: :func:`~..nufft.direct.phasor`)."""
     r = cfg.routing
     if not r.multi:
         acc += direct_type3(x, rows, targets, source_block=x.shape[1])
         return acc
     nf2 = cfg.nfeeds**2
     if r.pad:
-        phase = torch.einsum("dpm,dn->pnm", targets, x)
-        e = torch.complex(torch.cos(phase), torch.sin(phase))  # (P, n, m_max)
+        e = phasor(torch.einsum("dpm,dn->pnm", targets, x), cfg.real_dtype)  # (P, n, m_max)
         acc += torch.bmm(rows.reshape(r.npairs, nf2, -1), e)
         return acc
     for p, tg in enumerate(targets):
@@ -357,8 +362,11 @@ def run_program(cfg: ProgramConfig, mats, abvel, eq, coh, table=None) -> torch.T
         topo = mats[t] @ eqa  # (3, nsrc)
         mask = (topo[2] > 0).to(cfg.real_dtype)
         az, za = enu_to_az_za(topo[0], topo[1], orientation="uvbeam")
-        xr = coord @ topo  # (d, nsrc) array-frame or lattice coordinates
-        if cfg.coord64 is not None:
+        # (d, nsrc) array-frame or lattice coordinates, float64 from the
+        # float64 chain of a float32 run.
+        if cfg.coord64 is None:
+            xr = coord @ topo
+        else:
             c64, m64, ab64, eq64 = cfg.coord64
             e64 = eq64 + ab64[t][:, None]
             xr = c64 @ (m64[t] @ (e64 / torch.linalg.norm(e64, dim=0, keepdim=True)))

@@ -50,12 +50,23 @@ def direct_type2_np(x: np.ndarray, f: np.ndarray, modes: np.ndarray) -> np.ndarr
     return np.asarray(f) @ np.exp(1j * phase)
 
 
+def phasor(phase: torch.Tensor, rdtype: torch.dtype) -> torch.Tensor:
+    """exp(i phase) in the complex dtype of ``rdtype``. A phase wider than
+    ``rdtype`` (float64 phases of a float32 run) is reduced mod 2 pi in its
+    own dtype first and cast after, so that a phase of thousands of radians
+    keeps float32's ~1e-7 rad, not ~1e-7 of itself."""
+    if phase.dtype != rdtype:
+        phase = torch.remainder(phase, 2.0 * np.pi).to(rdtype)
+    return torch.complex(torch.cos(phase), torch.sin(phase))
+
+
 def direct_type3(x, c, s, source_block: int = 8192) -> torch.Tensor:
     """Exact f[., k] = sum_j c[., j] exp(+i s_k . x_j).
 
     x: (d, n) real tensor, c: (C, n) complex tensor, s: (d, m) real (tensor
-    or array; moved to x's dtype and device). Blocks over sources so the
-    (block, m) phase matrix stays bounded. Returns (C, m).
+    or array; moved to x's dtype and device). The phases are formed in x's
+    dtype, which may be wider than c's (:func:`phasor`). Blocks over sources
+    so the (block, m) phase matrix stays bounded. Returns (C, m).
     """
     x = torch.atleast_2d(x)
     s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
@@ -63,8 +74,7 @@ def direct_type3(x, c, s, source_block: int = 8192) -> torch.Tensor:
     out = torch.zeros((c.shape[0], s.shape[1]), dtype=c.dtype, device=c.device)
     for b0 in range(0, x.shape[1], source_block):
         xb = x[:, b0 : b0 + source_block]
-        phase = torch.einsum("db,dm->bm", xb, s)  # (B, m)
-        e = torch.complex(torch.cos(phase), torch.sin(phase))
+        e = phasor(torch.einsum("db,dm->bm", xb, s), c.real.dtype)  # (B, m)
         out += c[:, b0 : b0 + source_block] @ e
     return out
 

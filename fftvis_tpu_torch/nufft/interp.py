@@ -48,17 +48,28 @@ when G requires a gradient. ``launches`` and ``adjoint_launches`` count
 the two kernels' launches.
 
 :func:`interp_nd` interpolates a grid of any dimension d = 1, 2, 3 (the
-public type-2 and type-3 transforms): d = 2 is :func:`interp`, and d = 1
-and d = 3 launch ``interp_taps_nd`` (one warp a target, the lanes over the
-w taps, or over the w x w taps of the last two axes with a loop over the
-first, a shuffle reduction a channel), counted by ``launches_d1`` and
-``launches_d3``, with :func:`interp_nd_plain` (the JAX gather and einsum)
-on the CPU. Gradients at d = 1 and 3 are not ported.
+public type-2 and type-3 transforms): d = 2 is :func:`interp`; d = 1, and
+d = 3 without a bin order, launch ``interp_taps_nd`` (one warp a target,
+the lanes over the w taps, or over the w x w taps of the last two axes with
+a loop over the first, a shuffle reduction a channel), counted by
+``launches_d1`` and ``launches_d3``. At d = 3 with the plan-time bin order
+of :func:`bin_order_3d` (the executors keep it with their tap tables:
+``transform.tap_tables``), ``interp_sm_3d`` runs, counted by
+``launches_d3_sm``: one block a bin loads the bin's padded tile of the grid
+into shared memory once, and its warps read every tap from there. The
+order is planned only where every grid axis holds the padded tile, the
+tables are plan tables (w consecutive cells from the first) and the
+measured choice :func:`_sm_pays` finds the SM form faster (enough targets a
+nonempty bin, and bins whose cells do not stay in cache); elsewhere
+``interp_taps_nd`` stays. :func:`interp_nd_plain` (the JAX gather and
+einsum) runs on the CPU. Gradients at d = 1 and 3 are not ported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -70,6 +81,40 @@ launches = 0
 adjoint_launches = 0
 launches_d1 = 0
 launches_d3 = 0
+launches_d3_sm = 0
+# Targets a block of interp_sm_3d at most (a crowded bin's targets go to
+# several blocks).
+SUBPROBLEM = 64
+# The choice of that form (:func:`_sm_pays`), by itemsize: interp_taps_nd
+# reads every tap through the caches, so it wins where the cells of the
+# targets' nonempty bins (a channel) are few, below SM_MIN_REGION_BYTES,
+# and wherever the bins hold too few targets to repay the SM form's tile
+# loads: fewer than SM_MIN_TARGETS_PER_BIN[itemsize][0] a nonempty bin
+# while those cells fit the card's L2 (L2_BYTES), where a gather's hit is
+# cheap, [1] past it. Each is the crossover of the two forms' times on the
+# card, interpolated between the two points of chip_smoke.py phase 3's
+# sweep that straddle it (PERF.md row 2b).
+SM_MIN_REGION_BYTES = {4: 50 * 2**10, 8: 128 * 2**10}
+L2_BYTES = 50 * 2**20
+SM_MIN_TARGETS_PER_BIN = {4: (180.0, 11.5), 8: (19.0, 5.2)}
+
+
+def _bins_table():
+    """csrc/bins.cuh's bin rule, read from the header the kernels are built
+    from: (kTileBytes, kMaxEdge, {itemsize: edges by w})."""
+    text = (Path(__file__).resolve().parent.parent / "csrc" / "bins.cuh").read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} = ([0-9 *]+);", text).group(1)
+        return int(np.prod([int(f) for f in expr.split("*")]))
+
+    body = re.search(r"kBinEdge\[2\]\[17\] = \{(.*?)\n\};", text, re.S).group(1)
+    rows = [[int(v) for v in r.split(",") if v.strip()]
+            for r in re.findall(r"\{([0-9, ]+)\}", body)]
+    return const("kTileBytes"), const("kMaxEdge"), {4: rows[0], 8: rows[1]}
+
+
+TILE_BYTES, MAX_BIN_EDGE, _BIN_EDGE = _bins_table()
 
 
 def target_order(iy0: np.ndarray, ix0: np.ndarray, tile: int = TILE) -> np.ndarray:
@@ -102,6 +147,72 @@ def footprint_runs(iy: np.ndarray, ix: np.ndarray, cap: int = RUN_CAP) -> np.nda
     first = np.repeat(np.cumsum(pieces) - pieces, pieces)
     cut = np.repeat(starts, pieces) + (np.arange(pieces.sum()) - first) * cap
     return np.append(cut, m).astype(np.int32)
+
+
+def bin_edge_3d(w: int, itemsize: int) -> int:
+    """The bin edge of ``interp_sm_3d`` at width ``w`` and a real dtype of
+    ``itemsize`` bytes: csrc/bins.cuh's ``kBinEdge`` entry, the largest edge
+    B <= MAX_BIN_EDGE whose padded tile, (B + w - 1)^3 complex cells, fits
+    TILE_BYTES."""
+    return _BIN_EDGE[itemsize][w]
+
+
+def _bin_keys_3d(idx, nf, edge: int) -> np.ndarray:
+    """Each target's 3D bin (``edge`` cells a side, row-major) of its first
+    tap cell, int64."""
+    key = np.zeros(idx[0].shape[0], dtype=np.int64)
+    for a, n in zip(idx, nf):
+        key = key * -(-int(n) // edge) + a[:, 0].astype(np.int64) // edge
+    return key
+
+
+def bin_stats_3d(idx, nf, itemsize: int) -> dict:
+    """What :func:`bin_order_3d`'s choice reads of the tables: the nonempty
+    bins (``bins``) and their cells (``bin_cells``)."""
+    edge = bin_edge_3d(idx[0].shape[1], itemsize)
+    bins = int(np.unique(_bin_keys_3d(idx, nf, edge)).size)
+    return {"bins": bins, "bin_cells": bins * edge**3}
+
+
+def _sm_pays(m: int, bins: int, edge: int, itemsize: int) -> bool:
+    """Whether ``interp_sm_3d`` is the faster form for m targets in
+    ``bins`` nonempty bins of edge ``edge`` (complex cells of 2 x
+    ``itemsize`` bytes)."""
+    region = bins * edge**3 * 2 * itemsize
+    if region < SM_MIN_REGION_BYTES[itemsize]:
+        return False
+    return m >= SM_MIN_TARGETS_PER_BIN[itemsize][region > L2_BYTES] * bins
+
+
+def bin_order_3d(idx, nf, itemsize: int, select: bool = True):
+    """The plan-time target order of ``interp_sm_3d`` for the 3 per-axis (m,
+    w) tap tables ``idx`` (host NumPy, taken mod ``nf``): the targets
+    ordered stably by the 3D bin (``bin_edge_3d`` cells a side, row-major)
+    of their first tap cell, and the CSR offsets of the nonempty bins, each
+    cut into pieces of at most SUBPROBLEM targets (one block a piece).
+    Returns (perm int32 (m,), offsets int32 (npieces + 1,)), or None -- the
+    tables stay for ``interp_taps_nd`` -- where a grid axis is shorter than
+    the padded tile, where a table is not w consecutive cells (mod nf) from
+    its first, which the kernel assumes, or, with ``select``, where
+    ``interp_taps_nd`` is the faster form (:func:`_sm_pays`)."""
+    m, w = idx[0].shape
+    edge = bin_edge_3d(w, itemsize)
+    if m == 0 or any(int(n) < edge + w - 1 for n in nf):
+        return None
+    steps = np.arange(w)[None, :]
+    if any(not np.array_equal(np.mod(a.astype(np.int64) - a[:, :1], int(n)),
+                              np.broadcast_to(steps, a.shape)) for a, n in zip(idx, nf)):
+        return None
+    key = _bin_keys_3d(idx, nf, edge)
+    perm = np.argsort(key, kind="stable")
+    ks = key[perm]
+    pos = np.arange(m)
+    new = np.r_[True, ks[1:] != ks[:-1]]
+    if select and not _sm_pays(m, int(new.sum()), edge, itemsize):
+        return None
+    first = np.maximum.accumulate(np.where(new, pos, 0))
+    starts = np.flatnonzero((pos - first) % SUBPROBLEM == 0)
+    return perm.astype(np.int32), np.append(starts, m).astype(np.int32)
 
 
 def interp_plain(G, iy, ix, vy, vx) -> torch.Tensor:
@@ -315,12 +426,15 @@ class InterpFunction(torch.autograd.Function):
 def interp_nd(G, idx, val, order=None, runs=None) -> torch.Tensor:
     """Interpolate G (C, *nf) complex, d = 1, 2, 3, at m targets from the
     d per-axis (m, w) tap tables ``idx`` (int32) and ``val`` (G's real
-    dtype). Returns (C, m).
+    dtype). Returns (C, m) in target order.
 
-    d = 2 is :func:`interp` (with its ``order`` and ``runs``). At d = 1 and
-    3 the tables are in target order; a CPU tensor takes
-    :func:`interp_nd_plain`, a CUDA tensor launches ``interp_taps_nd``, any
-    other device raises; a grid that requires a gradient raises
+    d = 2 is :func:`interp` (with its ``order`` and ``runs``). At d = 3,
+    ``order`` and ``runs`` are :func:`bin_order_3d`'s permutation and bin
+    offsets as int32 tensors on G's device, the tables' rows in that order
+    (row k is target ``order[k]``); without them the tables are in target
+    order. A CPU tensor takes :func:`interp_nd_plain`; a CUDA tensor
+    launches ``interp_sm_3d`` (d = 3 with an order) or ``interp_taps_nd``;
+    any other device raises; a grid that requires a gradient raises
     ``NotImplementedError``.
     """
     d = len(idx)
@@ -329,26 +443,65 @@ def interp_nd(G, idx, val, order=None, runs=None) -> torch.Tensor:
     if d not in (1, 3) or len(val) != d or G.dim() != 1 + d:
         raise ValueError(f"interp: {len(idx)} index and {len(val)} value tables for a "
                          f"grid of shape {tuple(G.shape)}")
-    # The 2D checks on the first and last axes' tables and a (C, n0,
-    # n_last) view of the grid's shape.
-    _check(G.new_empty((G.shape[0], 1, 1)), idx[0], idx[-1], val[0], val[-1], None, None)
-    if any(t.shape != idx[0].shape or t.device != G.device or not t.is_contiguous()
-           for t in (*idx, *val)) or any(t.dtype != idx[0].dtype for t in idx) or any(
-               v.dtype != val[0].dtype for v in val):
-        raise ValueError("interp: tap tables must be matching contiguous (m, w) tensors")
-    if not G.is_contiguous():
-        raise ValueError("interp: G must be contiguous")
+    _check_nd(G, idx, val, order, runs)
     if torch.is_grad_enabled() and G.requires_grad:
         raise NotImplementedError(f"gradients through the d={d} interpolation are "
                                   "ROADMAP item 13")
     if G.device.type == "cpu":
-        return interp_nd_plain(G, idx, val)
+        out = interp_nd_plain(G, idx, val)
+        if order is None:
+            return out
+        return torch.empty_like(out).index_copy_(1, order.long(), out)
     if G.device.type != "cuda":
         raise ValueError(f"interp: unsupported device {G.device}")
+    if order is not None:
+        return _interp_sm_3d(G, idx, val, order, runs)
     return _interp_nd_cuda(G, idx, val)
 
 
+def _check_nd(G, idx, val, order, runs) -> None:
+    """:func:`interp_nd`'s checks of the d = 1 / 3 tables, the grid and a
+    d = 3 bin order."""
+    dev = G.device
+    if G.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"interp: grid must be complex64/complex128, got {G.dtype}")
+    rdt = torch.float32 if G.dtype == torch.complex64 else torch.float64
+    shape = idx[0].shape
+    if len(shape) != 2:
+        raise ValueError("interp: tap tables must all be (m, w)")
+    if not 2 <= shape[1] <= 16:
+        raise ValueError(f"interp: kernel width {shape[1]} outside [2, 16]")
+    for t in idx:
+        if t.device != dev:
+            raise ValueError("interp: all tensors must be on one device")
+        if t.dtype != torch.int32:
+            raise TypeError("interp: tap indices must be int32")
+    for v in val:
+        if v.device != dev:
+            raise ValueError("interp: all tensors must be on one device")
+        if v.dtype != rdt:
+            raise TypeError(f"interp: tap values must be {rdt}, got {v.dtype}")
+    for t in (*idx, *val):
+        if t.shape != shape or not t.is_contiguous():
+            raise ValueError("interp: tap tables must be matching contiguous (m, w) tensors")
+    if not G.is_contiguous():
+        raise ValueError("interp: G must be contiguous")
+    if (order is None) != (runs is None) or (order is not None and len(idx) != 3):
+        raise ValueError("interp: a bin order (order and runs) is for d = 3 tables")
+    if order is not None:
+        for name, t in (("order", order), ("runs", runs)):
+            if t.device != dev or t.dtype != torch.int32 or t.dim() != 1:
+                raise TypeError(f"interp: {name} must be an int32 vector on the grid's device")
+        if order.shape[0] != shape[0] or not 1 <= runs.shape[0] - 1 <= max(shape[0], 1):
+            raise ValueError("interp: order must be (m,) and runs (nbins + 1,)")
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
 def _interp_nd_cuda(G, idx, val) -> torch.Tensor:
+    """``interp_taps_nd`` on CUDA tensors that passed :func:`_check_nd`."""
     global launches_d1, launches_d3
     from .._build import load_kernels
 
@@ -367,8 +520,7 @@ def _interp_nd_cuda(G, idx, val) -> torch.Tensor:
         *[ctypes.c_void_p(t.data_ptr()) for t in idx], *none,
         *[ctypes.c_void_p(t.data_ptr()) for t in val], *none,
         ctypes.c_void_p(out.data_ptr()),
-        C, *nf, m, w,
-        ctypes.c_void_p(torch.cuda.current_stream(G.device).cuda_stream),
+        C, *nf, m, w, _stream(G),
     )
     if err != 0:
         raise RuntimeError(f"interp (d={d}) kernel launch failed: CUDA error {err}")
@@ -376,4 +528,27 @@ def _interp_nd_cuda(G, idx, val) -> torch.Tensor:
         launches_d1 += 1
     else:
         launches_d3 += 1
+    return out
+
+
+def _interp_sm_3d(G, idx, val, order, runs) -> torch.Tensor:
+    """``interp_sm_3d`` on CUDA tensors that passed :func:`_check_nd`, the
+    tables in :func:`bin_order_3d`'s order."""
+    global launches_d3_sm
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    C = G.shape[0]
+    m, w = idx[0].shape
+    out = torch.empty((C, m), dtype=G.dtype, device=G.device)
+    if m == 0:
+        return out
+    edge = bin_edge_3d(w, 4 if G.dtype == torch.complex64 else 8)
+    fn = (lib.fftvis_interp_sm_3d_f32 if G.dtype == torch.complex64
+          else lib.fftvis_interp_sm_3d_f64)
+    err = fn(*[ctypes.c_void_p(t.data_ptr()) for t in (G, *idx, *val, order, runs, out)],
+             C, *G.shape[1:], m, runs.shape[0] - 1, w, edge, _stream(G))
+    if err != 0:
+        raise RuntimeError(f"interp (d=3, SM) kernel launch failed: CUDA error {err}")
+    launches_d3_sm += 1
     return out

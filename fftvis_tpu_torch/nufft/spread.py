@@ -41,18 +41,28 @@ either way. The coordinates are planning inputs and get no gradient.
 
 :func:`spread_nd` spreads onto a grid of any dimension d = 1, 2, 3 (the
 public type-1 and type-3 transforms): d = 2 is :func:`spread`, and d = 1
-and d = 3 launch ``spread_gm_1d`` and ``spread_gm_3d`` (the same GM
-method: one warp a source, its ES values once, atomics; at d = 3 the lanes
-cover the taps of the last two axes and a loop the first), counted by
-``launches_d1`` and ``launches_d3``, with :func:`spread_nd_plain` (the JAX
-``_spread_scatter`` of any d) on the CPU. Gradients at d = 1 and 3 are not
-ported.
+launches ``spread_gm_1d`` (the same GM method: one warp a source, its ES
+values once, atomics), counted by ``launches_d1``. At d = 3 the library
+picks the form by size and shape (``fftvis_spread_nd_bin_edge``): on a dense grid
+``spread_sm_3d``, after cuFINUFFT's SM method -- a counting sort on the
+card orders the sources by the 3D bin of their first tap cell
+(:func:`device_bin_sort_3d`; :func:`bin_sort_3d` is its plain version),
+one block accumulates up to SUBPROBLEM sources of a bin into the bin's
+padded tile, held in registers, and adds it to the grid once -- counted by
+``launches_d3_sm``; with too few sources in all or a bin (the library's
+``kSmMinSources``, ``kSmMinSourcesPerBin``, measured on the card), or on a
+grid with an axis shorter than the padded tile, ``spread_gm_3d`` (the GM
+method, the lanes over the taps of the last two axes and a loop over the
+first), counted by ``launches_d3``. :func:`spread_nd_plain` (the JAX
+``_spread_scatter`` of any d) runs on the CPU. Gradients at d = 1 and 3 are
+not ported.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .kernels import es_kernel_grid
@@ -61,6 +71,11 @@ launches = 0
 adjoint_launches = 0
 launches_d1 = 0
 launches_d3 = 0
+launches_d3_sm = 0
+sort_launches = 0
+# Sources a subproblem (a block) of spread_sm_3d at most: a crowded bin
+# spreads over several blocks, each flushing its own tile.
+SUBPROBLEM = 256
 
 
 def spread_taps_nd(u, nf, w: int, beta: float):
@@ -107,6 +122,26 @@ def spread_nd_plain(u, wts, grid, w: int, beta: float) -> torch.Tensor:
     return grid
 
 
+def bin_keys_3d(u, nf, w: int, edge: int) -> torch.Tensor:
+    """Every source's bin: the bin (``edge`` cells a side, row-major over the
+    bins) of its first tap cell ``ceil(u - w/2) mod nf``, int64."""
+    key = None
+    for ua, n in zip(u, nf):
+        b = torch.remainder(torch.ceil(ua - w / 2.0).long(), int(n)) // edge
+        key = b if key is None else key * -(-int(n) // edge) + b
+    return key
+
+
+def bin_sort_3d(u, nf, w: int, edge: int):
+    """The plain version of ``spread_sm_3d``'s device bin sort: the sources
+    ordered stably by :func:`bin_keys_3d`, on the coordinates' device.
+    Returns (perm, offsets), int64: ``perm[k]`` the k-th source in bin
+    order, and the CSR offsets (nbins + 1,) of every bin, empty or not."""
+    nbins = int(np.prod([-(-int(n) // edge) for n in nf]))
+    keys, perm = torch.sort(bin_keys_3d(u, nf, w, edge), stable=True)
+    return perm, torch.searchsorted(keys, torch.arange(nbins + 1, device=keys.device))
+
+
 def spread_plain(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
     """Plain torch 2D spreader (:func:`spread_nd_plain` at d = 2).
     Accumulates into ``grid`` in place and returns it."""
@@ -149,8 +184,10 @@ def _check(uy, ux, wts, grid, w: int) -> None:
 
 
 def spread(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
-    """Spread (C, n) complex weights at grid coordinates (uy, ux) in
-    [0, nf] onto ``grid`` (C, nfy, nfx), in place.
+    """Spread (C, n) complex weights at grid coordinates (uy, ux) onto
+    ``grid`` (C, nfy, nfx), in place; every tap is taken mod nf, so the
+    coordinates may be any reals (the executors pass them in [-nf/2,
+    nf]).
 
     A CPU tensor takes :func:`spread_plain`; a CUDA tensor launches the
     CUDA kernel; any other device raises. Where the weights or the grid
@@ -265,26 +302,41 @@ def _check_nd(u, wts, grid, w: int) -> None:
         raise ValueError(f"spread: d={d} outside 1..3")
     if grid.dim() != 1 + d:
         raise ValueError(f"spread: a d={d} grid must be (C, *nf), got {tuple(grid.shape)}")
-    ux = u[1] if d > 1 else u[0]
-    # The 2D checks, run on the first and last axes' coordinates and a
-    # (C, n0, n_last) view of the grid's shape.
-    _check(u[0], ux, wts, grid.new_empty((grid.shape[0], 0, 0)), w)
-    if any(ua.shape != u[0].shape or ua.dtype != u[0].dtype or ua.device != u[0].device
-           for ua in u):
+    u0 = u[0]
+    dev, rdt, shape = u0.device, u0.dtype, u0.shape
+    if wts.device != dev or grid.device != dev:
+        raise ValueError("spread: all tensors must be on one device")
+    if rdt not in (torch.float32, torch.float64):
+        raise TypeError(f"spread: coordinates must be float32/float64, got {rdt}")
+    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+    for ua in u:
+        if ua.dtype != rdt or wts.dtype != cdt or grid.dtype != cdt:
+            raise TypeError(f"spread: expected {rdt} coordinates and {cdt} weights/grid, got "
+                            f"{ua.dtype}, {wts.dtype}, {grid.dtype}")
+        if ua.shape != shape or ua.device != dev:
+            raise ValueError("spread: coordinates must be matching (n,) vectors on one device")
+    if u0.dim() != 1:
         raise ValueError("spread: coordinates must be matching (n,) vectors on one device")
-    if grid.device != wts.device or not grid.is_contiguous():
-        raise ValueError("spread: grid must be contiguous on the weights' device")
+    if wts.dim() != 2 or wts.shape[1] != shape[0]:
+        raise ValueError(f"spread: weights must be (C, n), got {tuple(wts.shape)}")
+    if grid.shape[0] != wts.shape[0]:
+        raise ValueError(f"spread: grid must be (C, *nf), got {tuple(grid.shape)}")
+    if not grid.is_contiguous():
+        raise ValueError("spread: grid must be contiguous")
+    if not 2 <= w <= 16:
+        raise ValueError(f"spread: kernel width {w} outside [2, 16]")
 
 
 def spread_nd(u, wts, grid, w: int, beta: float) -> torch.Tensor:
     """Spread (C, n) complex weights at the d per-axis grid coordinates
-    ``u`` (each (n,), in [0, nf]) onto ``grid`` (C, *nf), d = 1, 2, 3, in
-    place.
+    ``u`` (each (n,), any reals: taps are taken mod nf) onto ``grid`` (C,
+    *nf), d = 1, 2, 3, in place.
 
     d = 2 is :func:`spread`. At d = 1 and 3 a CPU tensor takes
-    :func:`spread_nd_plain`, a CUDA tensor launches ``spread_gm_1d`` /
-    ``spread_gm_3d``, any other device raises; a weight or grid that
-    requires a gradient raises ``NotImplementedError``.
+    :func:`spread_nd_plain`; a CUDA tensor launches ``spread_gm_1d``, or at
+    d = 3 ``spread_sm_3d`` or ``spread_gm_3d`` as the library's
+    ``fftvis_spread_nd_bin_edge`` picks by size and shape; any other device raises; a
+    weight or grid that requires a gradient raises ``NotImplementedError``.
     """
     u = tuple(u)
     if len(u) == 2:
@@ -297,33 +349,91 @@ def spread_nd(u, wts, grid, w: int, beta: float) -> torch.Tensor:
         return spread_nd_plain(u, wts, grid, w, beta)
     if grid.device.type != "cuda":
         raise ValueError(f"spread: unsupported device {grid.device}")
-    return _spread_nd_cuda(u, wts, grid, w, beta)
+    if u[0].shape[0] == 0:
+        return grid
+    if len(u) == 3:
+        from .._build import load_kernels
+
+        edge = load_kernels().fftvis_spread_nd_bin_edge(
+            int(u[0].dtype == torch.float64), w, u[0].shape[0], *grid.shape[1:])
+        if edge:
+            return _spread_sm_3d(u, wts, grid, w, beta, edge)
+    return _spread_gm_nd(u, wts, grid, w, beta)
 
 
-def _spread_nd_cuda(u, wts, grid, w: int, beta: float) -> torch.Tensor:
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _spread_gm_nd(u, wts, grid, w: int, beta: float) -> torch.Tensor:
+    """``spread_gm_1d`` / ``spread_gm_3d`` on CUDA tensors that passed
+    :func:`_check_nd`."""
     global launches_d1, launches_d3
     from .._build import load_kernels
 
     lib = load_kernels()
     d, n = len(u), u[0].shape[0]
-    if n == 0:
-        return grid
     C, nf = grid.shape[0], tuple(grid.shape[1:]) + (1,) * (3 - len(u))
     u = [ua.contiguous() for ua in u]
     wts = wts.contiguous()
     ptr = [ctypes.c_void_p(ua.data_ptr()) for ua in u] + [ctypes.c_void_p(None)] * (3 - d)
     fn = lib.fftvis_spread_nd_f32 if u[0].dtype == torch.float32 else lib.fftvis_spread_nd_f64
-    err = fn(
-        d, *ptr,
-        ctypes.c_void_p(wts.data_ptr()),
-        ctypes.c_void_p(grid.data_ptr()),
-        n, C, *nf, w, float(beta),
-        ctypes.c_void_p(torch.cuda.current_stream(grid.device).cuda_stream),
-    )
+    err = fn(d, *ptr, ctypes.c_void_p(wts.data_ptr()), ctypes.c_void_p(grid.data_ptr()),
+             n, C, *nf, w, float(beta), _stream(grid))
     if err != 0:
         raise RuntimeError(f"spread (d={d}) kernel launch failed: CUDA error {err}")
     if d == 1:
         launches_d1 += 1
     else:
         launches_d3 += 1
+    return grid
+
+
+def device_bin_sort_3d(u, nf, w: int, edge: int):
+    """:func:`bin_sort_3d` on CUDA coordinates by the library's counting sort
+    (``bin_count``, ``bin_scan``, ``bin_scatter``), which also gives each
+    bin's first subproblem of SUBPROBLEM sources: (perm, offsets, sub),
+    int64. Within a bin the order follows the sort's atomics. Counted by
+    ``sort_launches``."""
+    global sort_launches
+    from .._build import load_kernels
+
+    n = u[0].shape[0]
+    nbins = int(np.prod([-(-int(m) // edge) for m in nf]))
+    dev = u[0].device
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    off, sub = torch.empty((2, nbins + 1), dtype=torch.int64, device=dev)
+    scratch = torch.empty(n + nbins, dtype=torch.int32, device=dev)
+    lib = load_kernels()
+    fn = lib.fftvis_bin_sort_3d_f32 if u[0].dtype == torch.float32 else lib.fftvis_bin_sort_3d_f64
+    err = fn(*[ctypes.c_void_p(t.data_ptr()) for t in u], n, *(int(m) for m in nf), w, edge,
+             SUBPROBLEM, *[ctypes.c_void_p(t.data_ptr()) for t in (scratch, perm, off, sub)],
+             _stream(u[0]))
+    if err != 0:
+        raise RuntimeError(f"bin sort kernel launch failed: CUDA error {err}")
+    sort_launches += 1
+    return perm, off, sub
+
+
+def _spread_sm_3d(u, wts, grid, w: int, beta: float, edge: int) -> torch.Tensor:
+    """``spread_sm_3d`` on CUDA tensors that passed :func:`_check_nd`, after
+    the device bin sort at bin edge ``edge`` (the library's for this w and
+    dtype), which counts in its time."""
+    global launches_d3_sm
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    n, C = u[0].shape[0], grid.shape[0]
+    u = [ua.contiguous() for ua in u]
+    wts = wts.contiguous()
+    perm, offsets, sub = device_bin_sort_3d(u, grid.shape[1:], w, edge)
+    # Blocks enough for every subproblem (the surplus exits at once).
+    nsub = offsets.shape[0] - 1 + -(-n // SUBPROBLEM)
+    fn = (lib.fftvis_spread_sm_3d_f32 if u[0].dtype == torch.float32
+          else lib.fftvis_spread_sm_3d_f64)
+    err = fn(*[ctypes.c_void_p(t.data_ptr()) for t in (*u, wts, perm, offsets, sub, grid)],
+             n, C, *grid.shape[1:], nsub, SUBPROBLEM, w, float(beta), _stream(grid))
+    if err != 0:
+        raise RuntimeError(f"spread (d=3, SM) kernel launch failed: CUDA error {err}")
+    launches_d3_sm += 1
     return grid

@@ -36,7 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .interp import footprint_runs, interp_nd, target_order
+from .interp import bin_order_3d, footprint_runs, interp_nd, target_order
 from .kernels import (
     ESKernel,
     es_kernel_ft,
@@ -45,6 +45,7 @@ from .kernels import (
     fit_log_ft_cheb,
     next_fast_size,
 )
+from .direct import phasor
 from .spread import spread_nd
 
 
@@ -498,23 +499,44 @@ def _fmod_positive(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(r < 0, r + n, r)
 
 
-def tap_tables(tap_idx, tap_val, rdtype: torch.dtype, device, sel=None):
+def _grid_coord(v: torch.Tensor, n: int, rdt: torch.dtype) -> torch.Tensor:
+    """The spreaders' grid coordinate of ``v`` (cells) on a periodic axis of
+    ``n`` cells in ``rdt``: ``v mod n`` in [0, n]. A wider ``v`` (a float32
+    run's float64 chain) is reduced in its own dtype and centred into
+    [-n/2, n/2] before the cast (the spreaders wrap every tap mod n, so any
+    representative serves): centred, the float32 coordinate keeps the ulp
+    of |v| <= n/2 rather than of values up to n -- on a (16000, ...) grid
+    2^-12 of a cell for the sky's ~4,000-cell half-width, against 2^-10
+    past 8,192."""
+    u = _fmod_positive(v, n)
+    if v.dtype == rdt:
+        return u
+    return torch.where(u > n / 2, u - n, u).to(rdt)  # u - n exact (Sterbenz)
+
+
+def tap_tables(tap_idx, tap_val, rdtype: torch.dtype, device, sel=None, nf=None):
     """A plan's per-axis (m, w) interpolation tap tables of every target, or
     of the subset ``sel``, on ``device``: indices as int32, kernel values as
-    ``rdtype``, and the ``order`` and ``runs`` the 2D kernel takes (None at d
-    = 1 and 3, whose tables stay in target order). At d = 2 the rows are put
-    in :func:`~.interp.target_order` and that order (as positions in the
-    subset) and the tables' :func:`~.interp.footprint_runs` come as int32
-    device tensors. A plan's taps are w consecutive cells (mod nf) from the
-    first, so order and runs come from the first column alone. Returns
-    (indices, values, order, runs)."""
+    ``rdtype``, and the ``order`` and ``runs`` the kernels take. At d = 2 the
+    rows are put in :func:`~.interp.target_order` and that order (as
+    positions in the subset) and the tables' :func:`~.interp.footprint_runs`
+    come as int32 device tensors. At d = 3 on the grid ``nf`` the rows are
+    put in :func:`~.interp.bin_order_3d`'s order (for ``rdtype``'s bin edge)
+    and ``runs`` holds its bin offsets, where it plans one; at d = 1, or
+    without one, both are None and the rows stay in target order. A plan's
+    taps are w consecutive cells (mod nf) from the first, so order and runs
+    come from the first column alone. Returns (indices, values, order,
+    runs)."""
     idx = [a if sel is None else a[sel] for a in tap_idx]
     val = [a if sel is None else a[sel] for a in tap_val]
-    order = runs = None
+    order = runs = perm = None
     if len(idx) == 2:
         perm = target_order(idx[0][:, 0], idx[1][:, 0])
-        runs = torch.tensor(footprint_runs(idx[0][perm, :1], idx[1][perm, :1]),
-                            dtype=torch.int32, device=device)
+        runs = footprint_runs(idx[0][perm, :1], idx[1][perm, :1])
+    elif len(idx) == 3 and nf is not None:
+        perm, runs = bin_order_3d(idx, nf, torch.finfo(rdtype).bits // 8) or (None, None)
+    if perm is not None:
+        runs = torch.tensor(runs, dtype=torch.int32, device=device)
         order = torch.tensor(perm, dtype=torch.int32, device=device)
         idx, val = [a[perm] for a in idx], [a[perm] for a in val]
     return (tuple(torch.tensor(a, dtype=torch.int32, device=device) for a in idx),
@@ -555,35 +577,44 @@ class Type3Executor:
         tabs = self._tables.get(key)
         if tabs is None:
             tabs = self._tables[key] = tap_tables(self.plan.tap_idx, self.plan.tap_val,
-                                                  rdtype, self.device, sel)
+                                                  rdtype, self.device, sel, self.plan.nf)
         return tabs
 
     def spread(self, x: torch.Tensor, c: torch.Tensor, grid=None) -> torch.Tensor:
         """Spread sources onto the fine grid.
 
-        x: (d, n) source coords within the planned extent; c: (C, n)
-        complex. Accumulates into ``grid`` (C, *nf) in place when
-        given -- the engine carries one grid across source blocks instead
-        of allocating and summing one per block -- else into a new grid.
+        x: (d, n) source coords within the planned extent, in c's real
+        dtype or float64 (a float32 run's float64 chain: the pre-phase and
+        the grid coordinates are reduced in float64 and cast after); c: (C,
+        n) complex. Accumulates into ``grid`` (C, *nf) in place when given
+        -- the engine carries one grid across source blocks instead of
+        allocating and summing one per block -- else into a new grid.
         """
         p = self.plan
         phase = sum(p.s_center[axis] * x[axis] for axis in range(p.d))
-        return self._spread_weights(x, c * self._prephase(x, phase)[None, :], grid)
+        return self._spread_weights(x, c * self._prephase(x, phase, c.real.dtype)[None, :],
+                                    grid)
 
-    def _prephase(self, x: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    def _prephase(self, x: torch.Tensor, phase: torch.Tensor, rdt: torch.dtype) -> torch.Tensor:
         """exp(i phase) over the amplitude pre-correction of the spread
-        axes: (n,) complex."""
+        axes: (n,) complex in ``rdt``'s complex dtype. A float64 phase is
+        reduced mod 2 pi before the cast (:func:`~.direct.phasor`); the
+        pre-correction is evaluated at x cast to ``rdt``."""
         p = self.plan
-        corr = torch.ones_like(x[0])
+        xr = x.to(rdt)
+        corr = torch.ones_like(xr[0])
         for axis in range(p.d):
-            corr = corr * _precorr_axis(p, axis, x[axis])
-        return torch.complex(torch.cos(phase), torch.sin(phase)) / corr
+            corr = corr * _precorr_axis(p, axis, xr[axis])
+        return phasor(phase, rdt) / corr
 
     def _spread_weights(self, x: torch.Tensor, wts: torch.Tensor, grid) -> torch.Tensor:
         """The ES spread of the (C', n) weights at the sources' first d
-        coordinates into ``grid`` (C', *nf), or a new grid."""
+        coordinates into ``grid`` (C', *nf), or a new grid; the grid
+        coordinates are reduced in x's dtype and cast to the weights' real
+        dtype after (:func:`_grid_coord`)."""
         p = self.plan
-        u = [_fmod_positive(x[axis] / p.h[axis], p.nf[axis]) for axis in range(p.d)]
+        u = [_grid_coord(x[axis] / p.h[axis], p.nf[axis], wts.real.dtype)
+             for axis in range(p.d)]
         if grid is None:
             grid = torch.zeros((wts.shape[0],) + tuple(p.nf), dtype=wts.dtype,
                                device=wts.device)
@@ -632,16 +663,18 @@ class Type3LowrankZExecutor(Type3Executor):
         return self.zplan.K
 
     def spread(self, x: torch.Tensor, c: torch.Tensor, grid=None) -> torch.Tensor:
-        """x: (3, n) source coords; c: (C, n). Accumulates into ``grid``
+        """x: (3, n) source coords (c's real dtype or float64, as
+        :meth:`Type3Executor.spread`); c: (C, n). Accumulates into ``grid``
         (C*K, nfy, nfx) in place when given, else into a new grid."""
         p, zp = self.plan, self.zplan
         # Pre-phase: 2D target centering plus the z-center factor; the
         # pre-correction applies to the spread axes only.
         phase = p.s_center[0] * x[0] + p.s_center[1] * x[1] + zp.s_center_z * x[2]
-        wts = c * self._prephase(x, phase)[None, :]
+        rdt = c.real.dtype
+        wts = c * self._prephase(x, phase, rdt)[None, :]
         # Chebyshev z-modes. Clamp: masked (below-horizon) sources carry
         # zero weight but may sit outside [zlo, zhi], where T_k explodes.
-        t = torch.clamp((x[2] - zp.x_center_z) / zp.x_half_z, -1.0, 1.0)
+        t = torch.clamp((x[2] - zp.x_center_z) / zp.x_half_z, -1.0, 1.0).to(rdt)
         cheb = [torch.ones_like(t)]
         if zp.K > 1:
             cheb.append(t)
@@ -718,7 +751,7 @@ class Type1Executor:
         p = self.plan
         # Float64 phases (the engine's float32 runs give them) are reduced
         # to grid coordinates in float64 and cast after.
-        u = [_fmod_positive(x[axis] / (2.0 * np.pi) * p.nf[axis], p.nf[axis]).to(c.real.dtype)
+        u = [_grid_coord(x[axis] / (2.0 * np.pi) * p.nf[axis], p.nf[axis], c.real.dtype)
              for axis in range(p.d)]
         if grid is None:
             grid = torch.zeros((c.shape[0],) + tuple(p.nf), dtype=c.dtype, device=c.device)
@@ -895,7 +928,7 @@ class Type2Executor:
         if tabs is None:
             sel = None if (lo, hi) == (0, self.plan.n_points) else np.arange(lo, hi)
             tabs = self._tables[key] = tap_tables(self.plan.tap_idx, self.plan.tap_val,
-                                                  rdtype, self.device, sel)
+                                                  rdtype, self.device, sel, self.plan.nf)
         return tabs
 
     def interp(self, g: torch.Tensor, point_block: int | None = None) -> torch.Tensor:

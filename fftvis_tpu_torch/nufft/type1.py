@@ -106,14 +106,14 @@ class Type1ExactExecutor:
         self.device = torch.device(device)
         self._gather = {}
 
-    def _factor(self, u: torch.Tensor, axis: int) -> torch.Tensor:
+    def _factor(self, cell: torch.Tensor, frac: torch.Tensor, axis: int) -> torch.Tensor:
         """E[s, j] = exp(+2 pi i (j - kmax) u_s / nm), (n, nm) complex, for
-        ``u`` in [0, nm); rows j >= 2 kmax + 1 are padding modes."""
+        ``u`` = ``cell`` + ``frac`` in [0, nm] (the integer cell and the
+        fraction, in the working dtype); rows j >= 2 kmax + 1 are padding
+        modes."""
         nm = int(self.plan.nf[axis])
         km = int(self.plan.kmax[axis])
         K, nhi = self.plan.split[axis]
-        cell = torch.floor(u)
-        frac = u - cell  # exact (Sterbenz)
 
         def phases(kvals, reduce_mod):
             q = kvals[None, :] * cell[:, None]  # integer product, exact
@@ -122,31 +122,30 @@ class Type1ExactExecutor:
             arg = (q + kvals[None, :] * frac[:, None]) * (2.0 * np.pi / nm)
             return torch.complex(torch.cos(arg), torch.sin(arg))
 
-        khi = torch.arange(nhi, dtype=u.dtype, device=u.device) * K - km
-        klo = torch.arange(K, dtype=u.dtype, device=u.device)  # |klo cell| < K nm
+        khi = torch.arange(nhi, dtype=cell.dtype, device=cell.device) * K - km
+        klo = torch.arange(K, dtype=cell.dtype, device=cell.device)  # |klo cell| < K nm
         a = phases(khi, True)  # (n, nhi)
         b = phases(klo, False)  # (n, K)
-        return (a[:, :, None] * b[:, None, :]).reshape(u.shape[0], nm)
+        return (a[:, :, None] * b[:, None, :]).reshape(cell.shape[0], nm)
 
     def spread(self, x: torch.Tensor, c: torch.Tensor, grid=None) -> torch.Tensor:
         """Add the sources' modes to the (C, nmy, nmx) grid.
 
-        x: (2, n) lattice phases in radians (2 pi periodic); c: (C, n)
-        complex. Accumulates into ``grid`` in place when given (the engine
-        carries one grid across source blocks), else into a new grid, and
-        returns it; where c or the grid requires a gradient, the sum is a
-        new grid. The (n, nmy * nmx) outer factor is built whole: the
-        caller bounds n.
+        x: (2, n) lattice phases in radians (2 pi periodic), in c's real
+        dtype or float64; c: (C, n) complex. Accumulates into ``grid`` in
+        place when given (the engine carries one grid across source blocks),
+        else into a new grid, and returns it; where c or the grid requires a
+        gradient, the sum is a new grid. The (n, nmy * nmx) outer factor is
+        built whole: the caller bounds n.
         """
         p = self.plan
         nmy, nmx = (int(v) for v in p.nf)
         C, n = c.shape
+        rdt = c.real.dtype
         if grid is None:
             grid = torch.zeros((C, nmy, nmx), dtype=c.dtype, device=c.device)
-        u = [_fmod_positive(x[axis] / (2.0 * np.pi) * p.nf[axis], p.nf[axis])
-             for axis in range(p.d)]
-        ey = self._factor(u[0], 0)  # (n, nmy)
-        ex = self._factor(u[1], 1)  # (n, nmx)
+        ey, ex = (self._factor(*self._cell_frac(x[axis], axis, rdt), axis)
+                  for axis in range(p.d))  # (n, nmy), (n, nmx)
         outer = (ey[:, :, None] * ex[:, None, :]).reshape(n, nmy * nmx)
         flat = grid.view(C, nmy * nmx)
         if torch.is_grad_enabled() and (c.requires_grad or grid.requires_grad):
@@ -158,6 +157,16 @@ class Type1ExactExecutor:
         global products
         products += 1
         return grid
+
+    def _cell_frac(self, x: torch.Tensor, axis: int, rdt: torch.dtype):
+        """The grid coordinate u = (x / 2 pi) nm mod nm of the phases ``x``
+        split into its integer cell and fraction in x's dtype (float64 on a
+        float32 run's float64 chain: u reaches nm ~ 10^3 cells, and float32
+        would round it to ~1e-4 of a cell), then cast to ``rdt``."""
+        nm = self.plan.nf[axis]
+        u = _fmod_positive(x / (2.0 * np.pi) * nm, nm)
+        cell = torch.floor(u)
+        return cell.to(rdt), (u - cell).to(rdt)  # u - cell exact (Sterbenz)
 
     def transform(self, g: torch.Tensor) -> torch.Tensor:
         return g  # the mode grid IS the accumulator

@@ -3,11 +3,13 @@
 The signature is that of ``fftvis_tpu.simulate_vis`` (itself the reference
 fftvis/matvis wrapper's) plus ``device``, the torch device the simulation
 runs on. The port simulates unpolarized and polarized visibilities of a
-coplanar array with one beam shared by all antennas, per-antenna beams
-(a beam list and ``beam_idx``) or an eigenbeam basis (``beam_coefs``),
-analytic or tabulated; a gridded array takes the exact type-1 transform.
-What it leaves out raises ``NotImplementedError`` naming its ROADMAP item,
-and nothing falls back to another path.
+coplanar or non-coplanar array with one beam shared by all antennas,
+per-antenna beams (a beam list and ``beam_idx``) or an eigenbeam basis
+(``beam_coefs``), analytic or tabulated; a gridded array takes the exact
+type-1 transform, or the ES type-1 past its reach or under
+``FFTVIS_TYPE1=es``. What it leaves out (``mesh``) raises
+``NotImplementedError`` naming its ROADMAP item, and nothing falls back to
+another path.
 """
 
 from __future__ import annotations
@@ -123,10 +125,12 @@ def simulate_vis(
     ``FFTVIS_AUTO_RANK=0`` turns it off). A non-coplanar array runs the
     low-rank-z type-3 or the direct path, as the cost model picks; 8 times
     or more of 4096 sources or more run horizon-banded (``FFTVIS_BAND=0``
-    turns it off). Raises ``NotImplementedError`` for ``mesh`` (ROADMAP
-    item 10) and gridded arrays the exact type-1 transform does not take
-    (or under ``FFTVIS_TYPE1=es``) unless type-3 is forced or
-    ``FFTVIS_TYPE1=exact``.
+    turns it off). A gridded array runs the exact type-1 transform while its
+    mode grid holds at most 512^2 cells, else (and under
+    ``FFTVIS_TYPE1=es``) the ES type-1; ``FFTVIS_TYPE1=exact`` forces the
+    exact one. A float32 run (``precision=1``) forms its transform
+    coordinates in float64 on every path. Raises ``NotImplementedError`` for
+    ``mesh`` (ROADMAP item 10).
 
     Plans, device tables, device inputs and prepared beams are kept across
     calls under content keys (``cuda/engine.py``), so a sweep over one

@@ -345,26 +345,53 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("d", [1, 3])
-def test_cuda_nd_kernels_match_plain(cuda_device, d, dtype):
+@pytest.mark.parametrize("d,case", [(1, "uniform"), (3, "uniform"), (3, "clustered")])
+def test_cuda_nd_kernels_match_plain(cuda_device, d, case, dtype):
+    """Every d = 1 / 3 form against its plain version: at d = 3 the
+    wrapper's choice (the form the library picks at this size, the GM form
+    below ``kSmMinSources``), ``spread_gm_3d`` and
+    ``spread_sm_3d`` called directly, the device bin sort against
+    ``bin_sort_3d``, and ``interp_taps_nd`` (tables in target order) and
+    ``interp_sm_3d`` (plan-like tables in ``bin_order_3d``'s order); the
+    clustered case puts the sources in three boxes of 2 cells a side."""
+    from fftvis_tpu_torch._build import load_kernels
+
     rng = np.random.default_rng(d)
     nf = (1000,) if d == 1 else (40, 36, 24)
     w = 7 if dtype == torch.float32 else 14
     beta, n, C = 2.3 * w, 3000, 3
     u = [rng.uniform(0, m, n) for m in nf]
+    if case == "clustered":
+        u = [np.mod(rng.uniform(0, m, 3)[rng.integers(0, 3, n)] + rng.uniform(0, 2, n), m)
+             for m in nf]
     u[0][:2] = (nf[0], 0.0)
     wts = rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n))
     wts[:, ::3] = 0  # sources the kernel skips
     ut = [torch.tensor(a, dtype=dtype, device=cuda_device) for a in u]
     wt = torch.tensor(wts, dtype=CDT[dtype], device=cuda_device)
-    counter = f"launches_d{d}"
+    counter = "launches_d1"
+    if d == 3:
+        picks_sm = load_kernels().fftvis_spread_nd_bin_edge(int(dtype == torch.float64), w, n, *nf)
+        counter = "launches_d3_sm" if picks_sm else "launches_d3"
     before = getattr(spread_mod, counter)
-    got = spread_mod.spread_nd(ut, wt, torch.zeros((C,) + nf, dtype=CDT[dtype],
-                                                   device=cuda_device), w, beta)
-    want = spread_mod.spread_nd_plain(ut, wt, torch.zeros_like(got), w, beta)
+    zeros = torch.zeros((C,) + nf, dtype=CDT[dtype], device=cuda_device)
+    got = spread_mod.spread_nd(ut, wt, zeros.clone(), w, beta)
+    want = spread_mod.spread_nd_plain(ut, wt, zeros.clone(), w, beta)
     torch.cuda.synchronize()
     assert getattr(spread_mod, counter) == before + 1
-    assert (got - want).abs().max().item() <= KERNEL_TOL[dtype] * want.abs().max().item()
+    tol = KERNEL_TOL[dtype] * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    if d == 3:
+        edge = load_kernels().fftvis_spread_nd_bin_edge(int(dtype == torch.float64), w,
+                                                        int(np.prod(nf)), *nf)
+        perm, offsets, _ = spread_mod.device_bin_sort_3d(ut, nf, w, edge)
+        pperm, poffsets = spread_mod.bin_sort_3d(ut, nf, w, edge)
+        keys = spread_mod.bin_keys_3d(ut, nf, w, edge)
+        assert torch.equal(offsets, poffsets) and torch.equal(keys[perm], keys[pperm])
+        for form in (spread_mod._spread_gm_nd(ut, wt, zeros.clone(), w, beta),
+                     spread_mod._spread_sm_3d(ut, wt, zeros.clone(), w, beta, edge)):
+            torch.cuda.synchronize()
+            assert (form - want).abs().max().item() <= tol
 
     m = 2500
     idx = [torch.tensor(rng.integers(0, k, (m, w)), dtype=torch.int32, device=cuda_device)
@@ -373,12 +400,32 @@ def test_cuda_nd_kernels_match_plain(cuda_device, d, dtype):
            for _ in nf]
     G = torch.tensor(rng.normal(size=(C,) + nf) + 1j * rng.normal(size=(C,) + nf),
                      dtype=CDT[dtype], device=cuda_device)
+    counter = f"launches_d{d}"
     before = getattr(interp_mod, counter)
     got = interp_mod.interp_nd(G, idx, val)
     want = interp_mod.interp_nd_plain(G, idx, val)
     torch.cuda.synchronize()
     assert getattr(interp_mod, counter) == before + 1
     assert (got - want).abs().max().item() <= KERNEL_TOL[dtype] * want.abs().max().item()
+    if d == 3:
+        first = [np.floor(a[:m]).astype(np.int64) for a in u]
+        tabs = [np.mod(f[:, None] + np.arange(w), k).astype(np.int32) for f, k in zip(first, nf)]
+        vals = [rng.uniform(0, 1, (m, w)) for _ in nf]
+        perm, off = interp_mod.bin_order_3d(tabs, nf, 4 if dtype == torch.float32 else 8,
+                                            select=False)
+        dev = [torch.tensor(a, device=cuda_device) for a in tabs]
+        dvals = [torch.tensor(a, dtype=dtype, device=cuda_device) for a in vals]
+        want = interp_mod.interp_nd_plain(G, dev, dvals)
+        before = interp_mod.launches_d3_sm
+        got = interp_mod.interp_nd(G, [t[torch.tensor(perm, device=cuda_device).long()]
+                                       for t in dev],
+                                   [t[torch.tensor(perm, device=cuda_device).long()]
+                                    for t in dvals],
+                                   torch.tensor(perm, device=cuda_device),
+                                   torch.tensor(off, device=cuda_device))
+        torch.cuda.synchronize()
+        assert interp_mod.launches_d3_sm == before + 1
+        assert (got - want).abs().max().item() <= KERNEL_TOL[dtype] * want.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """Time the kernel wrappers of several checkouts, in turns.
 
-    python3 tools/kernel_ab.py [--beams] ROOT [ROOT ...]
+    python3 tools/kernel_ab.py [--beams | --p1] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each runs in a process of its
 own, in the order given (for an A/B, parent, change, change, parent), on
@@ -28,6 +28,14 @@ loop forms it: ``PreparedBeam.rows`` where the root has it, else
 A source block's line also gives ``kernels``, the device kernels one call
 launches, and ``device_us``, their device time a call. With ``--beams``
 first, only the beam cases run.
+
+With ``--p1`` first, each ROOT runs instead the precision-1
+``simulate_vis`` configurations of ``chip_smoke.py`` (this checkout's, for
+the inputs; the ROOT's package computes): the analytic slice, the north
+star, the ES gridded row under ``FFTVIS_TYPE1=es`` and the outrigger
+lattice. Each line gives one cold call's wall, ``P1_CALLS`` warm walls in
+seconds (each call returns host arrays, so it ends with the card idle),
+and ``kernels`` and ``device_us`` of one more warm call.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import inspect
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 from device_profile import device_kernels
@@ -44,6 +53,7 @@ FREQS = (1.0e8, 1.1e8)
 SOURCES = 4096
 TILE = 32
 REPS = 20
+P1_CALLS = 5
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -219,17 +229,58 @@ def child(root: str, beams_only: bool) -> None:
             torch.cuda.empty_cache()
 
 
+def p1_cases(root: str) -> None:
+    """The ``--p1`` mode of one ROOT."""
+    import importlib.util
+
+    sys.path[0] = root
+    import torch
+
+    from fftvis_tpu_torch import simulate_vis
+
+    # This checkout's chip_smoke.py (not the ROOT's) makes the inputs.
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    cfg = cs.slice_config()
+    cases = (("analytic slice", cs.run_kwargs(cfg, cs.RUNS[0]), None),
+             ("north star", cs.north_star_config(), None),
+             ("ES (a) gridded row", cs.es_row_config(cfg), "es"),
+             ("ES (b) outrigger lattice", cs.outrigger_config(cfg), None))
+    for label, kw, type1 in cases:
+        kw = dict(kw, precision=1)
+
+        def call():
+            simulate_vis(device="cuda", **kw)
+            torch.cuda.synchronize()
+
+        with cs.type1_env(type1):
+            walls = []
+            for _ in range(1 + P1_CALLS):
+                t0 = time.perf_counter()
+                call()
+                walls.append(time.perf_counter() - t0)
+            dev = device_kernels(call)
+        print(json.dumps({"root": root, "case": f"{label} precision=1", "cold_s": walls[0],
+                          "warm_s": walls[1:], **dev}), flush=True)
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
-        child(argv[1], argv[2:] == ["--beams"])
+        if argv[2:] == ["--p1"]:
+            p1_cases(argv[1])
+        else:
+            child(argv[1], argv[2:] == ["--beams"])
         return 0
-    beams = argv[:1] == ["--beams"]
-    roots = argv[1:] if beams else argv
+    flag = argv[:1] if argv[:1] in (["--beams"], ["--p1"]) else []
+    roots = argv[len(flag):]
     if not roots:
         raise SystemExit(__doc__)
     for root in roots:
-        subprocess.run([sys.executable, __file__, "--child", str(Path(root).resolve())]
-                       + ["--beams"] * beams, check=True)
+        subprocess.run([sys.executable, __file__, "--child", str(Path(root).resolve())] + flag,
+                       check=True)
     return 0
 
 
