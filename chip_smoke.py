@@ -80,26 +80,30 @@ Phases, one printed line each (any failure raises and exits non-zero):
      float64: spread_adjoint (the slice grids, C = 1 and 4, uniform and
      dense; the per-antenna run's C = 40), interp_adjoint (the slice
      executor's tables, C = 1 and 4; every pair's target subset of the
-     per-antenna executor) and beam_eval_adjoint ((91, 360, 296) order 1,
-     (91, 360, 8) order 3, (c)'s (91, 360, 32) order 1, the table's and the
-     coordinates' gradients; its tile kernel alone beside the atomic
-     form it replaced, bitwise repeatable); each against its plain adjoint and the
-     dot-product identity <A c, g> = <c, A^H g> with its forward kernel,
-     gates 1e-5 / 1e-12 of max|plain| (spread's and interp's adjoints add
-     with atomics in an order that changes from run to run), the kernel
+     per-antenna executor; the owned-tile kernel alone beside the first
+     form's copied times, bitwise repeatable, one call's device events the
+     tile kernel alone -- no fill of the grid --, both bounds: the whole
+     grid written once and the touched cells) and beam_eval_adjoint ((91,
+     360, 296) order 1, (91, 360, 8) order 3, (c)'s (91, 360, 32) order 1,
+     the table's and the coordinates' gradients; its tile kernel alone
+     beside the atomic form it replaced, bitwise repeatable); each against
+     its plain adjoint and the dot-product identity <A c, g> = <c, A^H g>
+     with its forward kernel, gates 1e-5 / 1e-12 of max|plain| (the
+     kernels sum in another order than the plain versions), the kernel
      alone, the bound (the output written once, what is gathered read
      once) and the yardstick: ``sparse.mm`` with the transposed ES or tap
      CSR, ``grid_sample``'s input backward at order 1;
    - pair_rows_adjoint (the rows' gradient in the evaluations) at the
      north star's K = 37 and P = 180, every epilogue, float32 and float64,
      at 4096 points all unmasked, about half masked and at the ragged last
-     block; at K = 331 (the global-memory form for Jones), at
+     block; at K = 331 (the global form for Jones), at
      auto-rank's K = 7, P = 49 and at run (c)'s K = 4 and pairs (Jones x
      I, a 4096 block and its ragged last one): against its plain version,
      the autograd of the plain rows (gates 1e-5 /
      1e-12 of max|plain|), bitwise repeatable, the dot-product identity
-     with pair_rows, the wrapper, the kernel alone, the plain version and
-     the bound; no yardstick;
+     with pair_rows, the wrapper, the kernel alone beside the beam-group
+     form's copied time, the plain version and the bound; no yardstick; and the
+     tile form at 16 and 32 points a block at the north star's block;
    - the backward of ``pair_rows`` at the north star's shapes: the
      evaluations' gradient (the pair_rows_adjoint kernel, beside the
      torch ops of the plain rows' derivative that it replaced) and the sky's (one rerun of
@@ -240,7 +244,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
    card's gradients against the port's on the CPU (1e-9), the adjoint
    kernels' launches (pair_rows_adjoint once a forward pair-row block in
    (a) and (c), pair_rows_plain never on the card), forward and backward
-   walls and one backward's device busy;
+   walls and one backward's device busy; for (c), no fill or add of a
+   tensor the grid's size in one backward (one interpolation node for
+   every pair, its gradient written once by the tile kernel);
 9. print the kernels' JSON line (the adjoints' launches those of one
    gradient step of (b), (c) and (a); the d = 1 / 3 entries' those of
    their dtype's public NUFFT pass), then the result line.
@@ -351,16 +357,17 @@ def slice_config():
 def kernel_us(fn, symbol: str, reps: int = 20, tries: int = 3):
     """Mean device time in us of the kernels whose name holds ``symbol``
     over ``reps`` calls of ``fn`` (torch.profiler), or None where the
-    profiler recorded no device event at all in ``tries`` sessions (it now
-    and then records none for a session): the callers print "not measured".
-    Raises where the profiler recorded device events but no kernel named
-    like ``symbol``: the call never launched it."""
+    profiler recorded no timed device event of it in ``tries`` sessions (it
+    now and then records none, or one of no duration, for a session): the
+    callers print "not measured". Raises where the profiler recorded device
+    events but none named like ``symbol``: the call never launched it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     others = set()
+    seen = False
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -374,9 +381,10 @@ def kernel_us(fn, symbol: str, reps: int = 20, tries: int = 3):
                 count += ev.count
             elif ev.device_type == torch.autograd.DeviceType.CUDA:
                 others.add(ev.key)
-        if count:
+        if count and total > 0:
             return total / count
-    if others:
+        seen = seen or count > 0
+    if others and not seen:
         raise AssertionError(f"the profiler saw no kernel named like {symbol!r} in {tries} "
                              f"sessions, but saw {sorted(others)[:8]}")
     print(f"[3] the profiler recorded no device event in {tries} sessions: {symbol} alone "
@@ -2893,17 +2901,51 @@ def check_spread_adjoint(name, rdt, cdt, grid, w: int, beta: float, C: int, case
     return adjoint_row(name, "spread_adjoint", err, scale, ident, ms, plain, bnd, lib_ms)
 
 
-def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, plain_tabs, C: int, rng,
-                         label: str = "") -> tuple:
+# The first form of the interp adjoint (interp_adjoint_runs: a warp a run,
+# atomics, after the wrapper's zero fill of the whole grid), by (dtype,
+# case): its kernel alone and its wrapper, copied from earlier chip runs of
+# that form (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6 row 6), not
+# measured by this script.
+RUNS_INTERP_ADJOINT = {("float32", "C=4"): ("46.89 us", "0.1756 ms"),
+                       ("float64", "C=4"): ("192.40 us", "0.4536 ms"),
+                       ("float32", "subset"): ("34.32 us", "not measured"),
+                       ("float64", "subset"): ("42.28 us", "not measured")}
+
+
+def call_events(fn, reps: int = 10) -> tuple:
+    """The device events of ``reps`` warm calls of ``fn`` (torch.profiler):
+    (the kernel names, kernels a call), or None where the profiler
+    recorded none in 3 sessions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            return [ev.key for ev in evs], sum(ev.count for ev in evs) / reps
+    return None
+
+
+def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, tiles, plain_tabs, C: int,
+                         rng, label: str = "", old_key: str = "") -> tuple:
     """One phase-3 interp_adjoint case on one set of the executor's tables
-    (rows in target order, the order and the runs; ``plain_tabs`` the same
-    taps in target order): the wrapper against its plain version for a
-    random (C, m) gradient, the identity <interp G, g> = <G, interp_adjoint
-    g> with the forward kernel, the kernel alone, the bound (the cells the
-    kernel writes -- the distinct tap cells of all C planes -- once, the tap
-    tables and the gradient read once; the wrapper's zeroing of the whole
-    (C, nfy, nfx) output is given beside it) and ``sparse.mm`` of the
-    transposed tap CSR."""
+    (rows in target order, the order, the runs and the owned-tile lists;
+    ``plain_tabs`` the same taps in target order): the wrapper against its
+    plain version for a random (C, m) gradient, bitwise equal to a second
+    call, the identity <interp G, g> = <G, interp_adjoint g> with the
+    forward kernel, a call's device events over ten calls (the tile kernel
+    alone: no fill of the grid), the kernel alone beside the first form's (copied),
+    both bounds -- the whole call's (the (C, nfy, nfx) gradient written
+    once, the tables and the gradient read once: the row's bound) and the
+    touched cells' (the cells under the taps written once) -- and
+    ``sparse.mm`` of the transposed tap CSR."""
     import torch
 
     from fftvis_tpu_torch.nufft import interp as interp_mod
@@ -2914,9 +2956,11 @@ def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, plain_tabs, C: i
                       torch.randn((C, m), dtype=rdt, device="cuda"))
 
     def call():
-        return interp_mod.interp_adjoint(g, *tabs, nf, order=order, runs=runs)
+        return interp_mod.interp_adjoint(g, *tabs, nf, order=order, runs=runs, tiles=tiles)
 
-    got = call()
+    got, again = call(), call()
+    repeat = torch.equal(got, again)
+    del again
     want = interp_mod.interp_adjoint_plain(g, *plain_tabs, nfy, nfx)
     err, scale = (got - want).abs().max().item(), want.abs().max().item()
     del want
@@ -2925,15 +2969,23 @@ def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, plain_tabs, C: i
     ident = identity_err(vdot(interp_mod.interp(G, *tabs, order=order, runs=runs), g),
                          vdot(G, got))
     del G, got
+    # Every device event is the tile kernel (the profiler now and then drops
+    # an event, so the count a call may read below 1, never above).
+    events = call_events(call)
+    if events is not None and (events[1] > 1 or any("interp_adjoint_tiles" not in e
+                                                    for e in events[0])):
+        raise AssertionError(f"interp_adjoint {name}{label}: a call launched {events[1]} "
+                             f"kernels, {events[0]}, not the tile kernel alone")
     ms = cuda_ms(call, 20)
     plain = cuda_ms(lambda: interp_mod.interp_adjoint_plain(g, *plain_tabs, nfy, nfx), 5)
-    alone = kernel_us(call, "interp_adjoint_runs")
+    alone = kernel_us(call, "interp_adjoint_tiles")
     rb = 4 if name == "float32" else 8
     iy, ix = (t.cpu().numpy() for t in plain_tabs[:2])
     cells = np.unique((iy.astype(np.int64)[:, :, None] * nfx + ix[:, None, :]).ravel()).size
-    bnd = bound(C * cells * 2 * rb + m * w * 2 * (4 + rb) + C * m * 2 * rb,
-                m * w * w * (1 + 4 * C), name)
-    zero_ms = C * nfy * nfx * 2 * rb / HBM_BYTES_PER_S * 1e3
+    reads = m * w * 2 * (4 + rb) + C * m * 2 * rb + tiles[0].numel() * 4 + tiles[1].numel() * 4
+    ops = m * w * w * (1 + 4 * C)
+    bnd = bound(C * nfy * nfx * 2 * rb + reads, ops, name)
+    touched = bound(C * cells * 2 * rb + reads, ops, name)
     lib_ms, lib_txt = None, ""
 
     def make():
@@ -2948,12 +3000,20 @@ def check_interp_adjoint(name, rdt, cdt, nf, tabs, order, runs, plain_tabs, C: i
     if lib is not None:
         lib_ms = cuda_ms(lib, 5)
         lib_txt = f"; sparse.mm {lib_ms:.4f} ms"
+    old = RUNS_INTERP_ADJOINT.get((name, old_key))
+    old_txt = ("not measured" if old is None else
+               f"{old[0]} alone, wrapper {old[1]} with its fill (copied from earlier runs)")
+    events_txt = "not measured" if events is None else "1 kernel, no fill"
     print(f"[3] interp_adjoint {name}{label}: grid ({nfy}, {nfx}) w={w} m={m} C={C}: "
-          f"max err {err:.3e} = {err / scale:.3e} of max|plain|, identity {ident:.3e}; "
-          f"kernel {ms:.4f} ms "
-          f"(alone {us_txt(alone)}), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms "
-          f"({bnd[1]}, {cells} cells written; the wrapper's zeroing of the grid "
-          f"{zero_ms:.4f} ms beside it){lib_txt}", flush=True)
+          f"max err {err:.3e} = {err / scale:.3e} of max|plain|, identity {ident:.3e}, "
+          f"bitwise repeat {repeat}, a call's device events {events_txt}; "
+          f"kernel {ms:.4f} ms (tile kernel alone {us_txt(alone)}, "
+          f"{bound_share(bnd[0], alone)} of the whole-call bound; the first form "
+          f"{old_txt}), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, the grid "
+          f"written once), the touched cells' {touched[0]:.4f} ms ({cells} cells)"
+          f"{lib_txt}", flush=True)
+    if not repeat:
+        raise AssertionError(f"interp_adjoint {name}{label}: a second call differs")
     del g, lib
     torch.cuda.empty_cache()
     return adjoint_row(name, "interp_adjoint", err, scale, ident, ms, plain, bnd, lib_ms)
@@ -3145,6 +3205,42 @@ PAIR_ADJ_OPS = {k: 2 * v for k, v in PAIR_OPS.items()}
 PAIR_CH = {"power": (1, 2), "jones-I": (2, 2, 2), "jones-iquv": (2, 2, 2)}
 
 
+# The beam-group form of the pair rows' adjoint that the tile form replaced
+# (a block a beam group, G read once a role), kernel alone in us by (dtype,
+# epilogue, case), copied from earlier chip runs of that form (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md section 6 row 4b), not measured by this
+# script.
+GROUP_PAIR_ADJOINT_US = {
+    ("float32", "jones-I", "north star"): "37.14", ("float64", "jones-I", "north star"): "68.52",
+    ("float32", "jones-iquv", "north star"): "37.83",
+    ("float64", "jones-iquv", "north star"): "75.57",
+    ("float32", "power", "north star"): "22.62", ("float64", "power", "north star"): "25.74",
+    ("float32", "jones-I", "half masked"): "30.89",
+    ("float64", "jones-I", "half masked"): "65.93",
+    ("float32", "jones-I", "ragged block"): "17.12",
+    ("float64", "jones-I", "ragged block"): "18.19",
+    ("float32", "jones-I", "wide"): "376.36", ("float64", "jones-I", "wide"): "448.41",
+    ("float32", "jones-I", "north-star auto-rank"): "10.58",
+    ("float64", "jones-I", "north-star auto-rank"): "11.24",
+    ("float32", "jones-I", "per-antenna (c)"): "4.08",
+    ("float64", "jones-I", "per-antenna (c)"): "4.65",
+    ("float32", "jones-I", "per-antenna (c) ragged block"): "3.72",
+    ("float64", "jones-I", "per-antenna (c) ragged block"): "4.14",
+}
+
+
+def pair_adjoint_form(K: int, chf: int, npairs: int, C: int, dt) -> str:
+    """The form pair_rows_adjoint takes for these shapes, as the launch
+    decides it: the tile (32 points a block) or the global form."""
+    import torch
+
+    from fftvis_tpu_torch._build import load_kernels
+
+    nbytes = load_kernels().fftvis_pair_rows_adjoint_smem(K, chf, npairs, K, C,
+                                                          int(dt == torch.float64))
+    return "global" if nbytes < 0 else f"tile ({nbytes / 1024:.1f} KiB shared)"
+
+
 def pair_adjoint_case(label, pairs, K, n, masked, epilogue, dt, rng):
     """One phase-3 pair_rows_adjoint case on random evaluations (positive
     for power) of K beams: the kernel against pair_rows_adjoint_plain for a
@@ -3215,21 +3311,23 @@ def pair_adjoint_case(label, pairs, K, n, masked, epilogue, dt, rng):
     ident = identity_err(lhs, rhs)
     del want, again
     ms = cuda_ms(call, 50)
-    alone = kernel_us(call, "pair_rows_adjoint_points")
+    alone = kernel_us(call, "pair_rows_adjoint")
     plain = cuda_ms(plain_call, 5)
     rb = evals.element_size()
     active = int(keep.sum())
     nbytes = (active * (npairs * C * 2 * rb + K * chf * rb + (8 if iquv else 1) * rb)
               + n * K * chf * rb + n * rb + 2 * npairs * 4)
     b_ms, b_by = bound(nbytes, active * npairs * PAIR_ADJ_OPS[epilogue], name)
-    staged = K * chf * (PAIR_TILE + 1) * rb
-    form = "shared" if staged <= PAIR_SMEM_MAX else "global"
+    form = pair_adjoint_form(K, chf, npairs, C, dt)
+    old = GROUP_PAIR_ADJOINT_US.get((name, epilogue, label))
+    old_txt = "not measured" if old is None else f"{old} us (copied from an earlier run)"
     print(f"[3] pair_rows_adjoint {name} {epilogue} {label}: K={K} ({K * chf} channels) "
-          f"P={npairs} n={n} ({active} unmasked), {form}-memory form: max err {err:.3e} = "
+          f"P={npairs} n={n} ({active} unmasked), {form} form: max err {err:.3e} = "
           f"{err / scale:.3e} of max|plain|, identity {ident:.3e}, bitwise repeat {repeat}; "
           f"kernel {ms:.4f} ms (alone {us_txt(alone)}, {bound_share(b_ms, alone)} of the "
-          f"bound), plain {plain:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.1f} MB); "
-          f"library call: none (no one PyTorch call forms the pair rows' adjoint)", flush=True)
+          f"bound; the beam-group form alone {old_txt}), plain {plain:.4f} ms; bound {b_ms:.5f} ms "
+          f"({b_by}, {nbytes / 1e6:.1f} MB); library call: none (no one PyTorch call forms "
+          "the pair rows' adjoint)", flush=True)
     if not (err <= TOL[name] * scale and ident <= TOL[name] and repeat):
         raise AssertionError(f"pair_rows_adjoint {name} {epilogue} {label}: err "
                              f"{err / scale:.3e}, identity {ident:.3e}, repeat {repeat}")
@@ -3336,8 +3434,8 @@ def check_adjoints(cfg, pa, ns) -> dict:
                  ((plan.tap_idx[0], torch.int32), (plan.tap_idx[1], torch.int32),
                   (plan.tap_val[0], rdt), (plan.tap_val[1], rdt))]
         for C in (1, 4):
-            row = check_interp_adjoint(name, rdt, cdt, nf, (*ti, *tv), order, runs, plain, C,
-                                       rng)
+            row = check_interp_adjoint(name, rdt, cdt, nf, (*ti, *tv), order, runs, ex._tiles(rdt),
+                                       plain, C, rng, old_key=f"C={C}")
             if C == 4:
                 out["interp_adjoint"][name] = row
         del ex, plain
@@ -3346,14 +3444,14 @@ def check_adjoints(cfg, pa, ns) -> dict:
             plain = [torch.tensor(a[sel], dtype=dt, device="cuda") for a, dt in
                      ((p.tap_idx[0], torch.int32), (p.tap_idx[1], torch.int32),
                       (p.tap_val[0], rdt), (p.tap_val[1], rdt))]
-            return (*ti, *tv), order, runs, plain
+            return (*ti, *tv), order, runs, pa_ex._tiles(rdt, sel), plain
 
         errs = []
         for sel in pp.bls_idxs:
-            tabs, order, runs, plain = subset(sel)
+            tabs, order, runs, tiles, plain = subset(sel)
             g = torch.complex(torch.randn((4, len(sel)), dtype=rdt, device="cuda"),
                               torch.randn((4, len(sel)), dtype=rdt, device="cuda"))
-            got = interp_mod.interp_adjoint(g, *tabs, p.nf, order=order, runs=runs)
+            got = interp_mod.interp_adjoint(g, *tabs, p.nf, order=order, runs=runs, tiles=tiles)
             want = interp_mod.interp_adjoint_plain(g, *plain, *p.nf)
             errs.append(((got - want).abs().max() / want.abs().max()).item())
             del got, want
@@ -3362,7 +3460,7 @@ def check_adjoints(cfg, pa, ns) -> dict:
         big = max(pp.bls_idxs, key=len)
         check_interp_adjoint(name, rdt, cdt, p.nf, *subset(big), 4, rng,
                              label=f" subset (the largest, m={len(big)}; all {len(errs)} "
-                             f"pairs' subsets max err {max(errs):.3e})")
+                             f"pairs' subsets max err {max(errs):.3e})", old_key="subset")
         # The north star's stack, the slice's order-3 table and (c)'s stack;
         # the north star's stack at its own first block's points. The row
         # is the stack of the run whose launches the kernels line gives:
@@ -3430,6 +3528,33 @@ def backward_busy_ms(loss, params) -> float:
             us = getattr(ev, "self_device_time_total", None)
             total += ev.self_cuda_time_total if us is None else us
     return total / 1e3
+
+
+GRID_FILL_ADD = ("aten::fill_", "aten::zero_", "aten::add_", "aten::add")
+
+
+def whole_grid_fills_adds(loss, params) -> tuple:
+    """The fills and adds of one backward (torch.profiler with input
+    shapes, its forward outside the window) on a tensor the size of the
+    backward's largest (the type-3 grid: the FFT's backward runs on it).
+    Returns (that size, {op: count})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    value = loss(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        torch.autograd.grad(value, list(params.values()))
+        torch.cuda.synchronize()
+    events = prof.key_averages(group_by_input_shape=True)
+    sizes = [(ev.key, ev.count, [int(np.prod(s)) for s in ev.input_shapes
+                                 if isinstance(s, (list, tuple)) and s]) for ev in events]
+    biggest = max((n for _, _, ns in sizes for n in ns), default=0)
+    found = {}
+    for key, count, ns in sizes:
+        if key in GRID_FILL_ADD and biggest in ns:
+            found[key] = found.get(key, 0) + count
+    return biggest, found
 
 
 def grad_setup(sim, params, seed: int):
@@ -3511,7 +3636,7 @@ def grad_step(label, sim, params, loss, counters, want_adjoints) -> tuple:
 
 
 def gradient_run(label, build, kw, want_vis, precision, counters, want_adjoints, seed,
-                 cpu_kw=None) -> dict:
+                 cpu_kw=None, one_grid_gradient=False) -> dict:
     """Phase 8, one configuration: the forward against simulate_vis, one
     timed gradient step with its launches, the directional derivatives,
     the device busy of one backward and, with ``cpu_kw``, the card's
@@ -3535,6 +3660,15 @@ def gradient_run(label, build, kw, want_vis, precision, counters, want_adjoints,
     grads, got, fwd, bwd = grad_step(label, sim, params, loss, counters, want_adjoints)
     fd = directional_checks(label, loss, params, grads, precision, seed)
     busy = backward_busy_ms(loss, params)
+    grid_txt = ""
+    if one_grid_gradient:
+        # One interpolation node for every pair: no zero gradient of the
+        # whole grid a pair and no sum of them.
+        biggest, found = whole_grid_fills_adds(loss, params)
+        grid_txt = (f"; fills and adds of one backward on the {biggest}-element grid: "
+                    f"{found or 'none'}")
+        if found:
+            raise AssertionError(f"{label}: the backward fills or adds the whole grid: {found}")
     cpu_txt = ""
     if cpu_kw is not None:
         sim_c, params_c = build(device="cuda", **cpu_kw)
@@ -3557,7 +3691,7 @@ def gradient_run(label, build, kw, want_vis, precision, counters, want_adjoints,
     print(f"[8] gradients {label}: params {shapes}; {fwd_txt}; directional derivative vs "
           f"central difference (gate {GRAD_FD_TOL[precision]:.0e}): {', '.join(fd)}{cpu_txt}; "
           f"launches of one step {got}; build {built:.3f} s, forward {fwd:.3f} s, backward "
-          f"{bwd:.3f} s, backward device busy {busy:.3f} ms", flush=True)
+          f"{bwd:.3f} s, backward device busy {busy:.3f} ms{grid_txt}", flush=True)
     del sim, params, grads
     torch.cuda.empty_cache()
     return got
@@ -3629,7 +3763,8 @@ def gradient_runs(cfg, ns, pa, counters) -> dict:
         functools.partial(build_differentiable_sim, differentiate_beam=True,
                           differentiate_gains=True, nufft_mode="type3"),
         pa, want, 1, counters,
-        ("spread_adjoint", "interp_adjoint", "beam_eval_adjoint", "pair_rows_adjoint"), seed=33)
+        ("spread_adjoint", "interp_adjoint", "beam_eval_adjoint", "pair_rows_adjoint"), seed=33,
+        one_grid_gradient=True)
     # (d) The direct front-end in the geometry; card against CPU.
     dkw = direct_config()
     launches["d"] = gradient_run(

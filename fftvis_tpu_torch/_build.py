@@ -144,12 +144,17 @@ def load_kernels():
         # d, G, i0, i1, i2, v0, v1, v2, out, C, n0, n1, n2, m, w, stream
         fn.argtypes = [I] + [P] * 8 + [I] * 6 + [P]
         fn.restype = I
-    for name in ("fftvis_interp_f32", "fftvis_interp_f64",
-                 "fftvis_interp_adjoint_f32", "fftvis_interp_adjoint_f64"):
+    for name in ("fftvis_interp_f32", "fftvis_interp_f64"):
         fn = getattr(lib, name)
         # G, iy, ix, vy, vx, runs, order, out, C, nfy, nfx, m, nruns, w,
-        # stream (the adjoint: g, ..., grid gradient, ...)
+        # stream
         fn.argtypes = [P] * 8 + [I] * 6 + [P]
+        fn.restype = I
+    for name in ("fftvis_interp_adjoint_f32", "fftvis_interp_adjoint_f64"):
+        fn = getattr(lib, name)
+        # g, vy, vx, order, tile offsets, tile entries, grid gradient, C,
+        # nfy, nfx, m, w, ntiles, nent, stream
+        fn.argtypes = [P] * 7 + [I] * 7 + [P]
         fn.restype = I
     for name in ("fftvis_beam_eval_f32", "fftvis_beam_eval_f64"):
         fn = getattr(lib, name)
@@ -177,11 +182,14 @@ def load_kernels():
         # complex, sky strides (3), stream
         fn.argtypes = [P] * 6 + [I] * 7 + [L] * 3 + [P]
         fn.restype = I
+    # K, chf, P, nidx, C, f64 -> the tile form's bytes, or -1
+    lib.fftvis_pair_rows_adjoint_smem.argtypes = [I] * 6
+    lib.fftvis_pair_rows_adjoint_smem.restype = L
     for name in ("fftvis_pair_rows_adjoint_f32", "fftvis_pair_rows_adjoint_f64"):
         fn = getattr(lib, name)
         # evals, pair_i, pair_j, index, sky, mask, g, out, n, K, chf, c0, P,
-        # nidx, epi, complex, sky strides (3), stream
-        fn.argtypes = [P] * 8 + [I] * 8 + [L] * 3 + [P]
+        # nidx, epi, complex, pairs a chunk, sky strides (3), stream
+        fn.argtypes = [P] * 8 + [I] * 9 + [L] * 3 + [P]
         fn.restype = I
     _LIB = lib
     return lib

@@ -63,13 +63,16 @@ gradient. The rows are linear in the sky, so their sky gradient reruns the
 forward kernel at unit skies (one for Stokes I, four for IQUV) and
 contracts with the incoming gradient, ``Re(conj(R) g)`` for a real sky.
 ``pair_rows``' gradient in its evaluations is a kernel too
-(:func:`pair_rows_adjoint`, the kernel ``pair_rows_adjoint_points``, or
-:func:`pair_rows_adjoint_plain`), where the JAX package lets XLA
-differentiate its ops; it walks a per-beam index of the pairs
-(:func:`pair_index`, built once with the engine's routing) and counts its
-launches in ``pair_adjoint_launches``. ``pair_plain_cuda_calls`` counts the
-calls of :func:`pair_rows_plain` on CUDA tensors, which the engine's path
-never makes.
+(:func:`pair_rows_adjoint`, or :func:`pair_rows_adjoint_plain`), where the
+JAX package lets XLA differentiate its ops: the kernel
+``pair_rows_adjoint_tile`` (a block a tile of 32 points and every beam,
+the pairs' gradient rows streamed once through shared memory), or
+``pair_rows_adjoint_points`` for a stack too wide for shared memory.
+Both walk a per-beam index of the pairs (:func:`pair_index`, built once
+with the engine's routing); ``pair_adjoint_launches`` counts their
+launches. ``pair_plain_cuda_calls`` counts the calls of
+:func:`pair_rows_plain` on CUDA tensors, which the engine's path never
+makes.
 """
 
 from __future__ import annotations
@@ -85,8 +88,12 @@ launches = 0  # beam_eval_points launches: the interpolation alone
 rows_launches = 0  # beam_rows_points launches: fused source blocks
 pair_launches = 0  # pair_rows_points launches: per-antenna pair rows
 adjoint_launches = 0  # beam_eval_adjoint_points launches
-pair_adjoint_launches = 0  # pair_rows_adjoint_points launches
+pair_adjoint_launches = 0  # pair_rows_adjoint launches (either form)
 pair_plain_cuda_calls = 0  # pair_rows_plain calls on CUDA tensors
+# Pairs a chunk of the gradient rows that pair_rows_adjoint_tile streams
+# (csrc/beam_eval.cu PA_PAIRS; :func:`pair_index` orders each beam's
+# entries by it, the kernel checks it).
+PAIR_ADJ_CHUNK = 16
 
 TWO_PI = 2.0 * math.pi
 COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -485,12 +492,21 @@ def pair_rows_plain(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, is_power:
 def pair_index(pair_i, pair_j, nbeams: int) -> torch.Tensor:
     """The per-beam index of a pair list that :func:`pair_rows_adjoint`
     walks: (nbeams + 1 + 2P,) int32 on the pairs' device, the CSR offsets
-    by beam, then each beam's entries in order -- entry e < P is pair e
-    with the beam first (i), e >= P pair e - P with it second (j). Indices
-    are clamped into [0, nbeams) as the kernels clamp them. Torch ops, no
-    host sync; the engine builds it once with its routing."""
+    by beam, then each beam's entries -- entry e < P is pair e with the
+    beam first (i), e >= P pair e - P with it second (j) -- first-role
+    entries first, each role in the tile kernel's chunk order: pair p in
+    chunk p % nch, slot p // nch (nch = ceil(P / PAIR_ADJ_CHUNK)), so that
+    an owner walks its entries chunk by chunk. Indices are clamped into
+    [0, nbeams) as the kernels clamp them. Torch ops, no host sync; the
+    engine builds it once with its routing."""
     keys = torch.cat([pair_i, pair_j]).long().clamp(0, max(nbeams - 1, 0))
-    entries = torch.sort(keys, stable=True).indices
+    npairs = pair_i.shape[0]
+    nch = max(1, -(-npairs // PAIR_ADJ_CHUNK))
+    e = torch.arange(2 * npairs, device=keys.device)
+    role = (e >= npairs).long()
+    p = e - role * npairs
+    order = ((keys * 2 + role) * nch + p % nch) * PAIR_ADJ_CHUNK + p // nch
+    entries = torch.sort(order).indices
     off = torch.zeros(nbeams + 1, dtype=torch.long, device=keys.device)
     off.index_add_(0, keys + 1, torch.ones_like(keys))
     return torch.cat([off.cumsum(0), entries]).to(torch.int32)
@@ -584,7 +600,8 @@ def pair_rows_adjoint(evals, pair_i, pair_j, sky, mask, g, ch_shape: tuple, is_p
     """The adjoint of :func:`pair_rows` in its evaluations: the (n, K *
     chf) gradient for the rows' (P * C, n) complex gradient ``g``, as
     :func:`pair_rows_adjoint_plain` gives it. A CPU tensor takes the plain
-    version; a CUDA tensor launches ``pair_rows_adjoint_points`` on the
+    version; a CUDA tensor launches ``pair_rows_adjoint_tile`` (or, for a
+    stack too wide for shared memory, ``pair_rows_adjoint_points``) on the
     pairs' :func:`pair_index` ``index`` (built when not given); any other
     device raises."""
     epi = POWER if is_power else (JONES_IQUV if polarized_sky else JONES_I)
@@ -790,7 +807,7 @@ def _pair_rows_adjoint_cuda(evals, pair_i, pair_j, index, sky, mask, g, ch_shape
         evals.data_ptr(), pair_i.data_ptr(), pair_j.data_ptr(), index.data_ptr(),
         sky.data_ptr(), mask.data_ptr(), g.data_ptr(), out.data_ptr(), n,
         evals.shape[1] // chf, chf, c0, pair_i.shape[0], nidx, epi, int(len(ch_shape) == 3),
-        sp, sa, sb, _stream(evals),
+        PAIR_ADJ_CHUNK, sp, sa, sb, _stream(evals),
     )
     if err != 0:
         raise RuntimeError(f"pair_rows_adjoint kernel launch failed: CUDA error {err}")

@@ -916,6 +916,86 @@ __global__ void __launch_bounds__(TP * PY) pair_rows_points(
   }
 }
 
+// One (pair, role) entry of a Jones beam's gradient at one point: the other
+// beam's Jones (xr, xi) and the pair's gradient rows G_fg (Gr, Gi) added
+// into the beam's complex gradient (gr, gi); cr, ci the IQUV coherency
+// (read for JONES_IQUV only). first: the beam is the pair's first (i).
+template <typename T, int EPI>
+__device__ __forceinline__ void pair_adjoint_jones(
+    bool first, const T (&xr)[2][2], const T (&xi)[2][2], const T (&Gr)[2][2],
+    const T (&Gi)[2][2], const T (&cr)[2][2], const T (&ci)[2][2], T (&gr)[2][2],
+    T (&gi)[2][2]) {
+  if constexpr (EPI == JONES_I) {
+    if (first) {
+      // gA[v][f] += sum_g conj(G_fg) e_j[v][g]
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            gr[v][f] += Gr[f][h] * xr[v][h] + Gi[f][h] * xi[v][h];
+            gi[v][f] += Gr[f][h] * xi[v][h] - Gi[f][h] * xr[v][h];
+          }
+        }
+      }
+    } else {
+      // gB[v][h] += sum_f G_fh e_i[v][f]
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            gr[v][h] += Gr[f][h] * xr[v][f] - Gi[f][h] * xi[v][f];
+            gi[v][h] += Gr[f][h] * xi[v][f] + Gi[f][h] * xr[v][f];
+          }
+        }
+      }
+    }
+  } else if (first) {
+    // cb[a][h] = sum_b coh[a][b] e_j[1-b][h]; gA[1-a][f] += sum_h
+    // conj(G_fh) cb[a][h].
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        T br = T(0), bi = T(0);
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          br += cr[a][bb] * xr[1 - bb][h] - ci[a][bb] * xi[1 - bb][h];
+          bi += cr[a][bb] * xi[1 - bb][h] + ci[a][bb] * xr[1 - bb][h];
+        }
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          gr[1 - a][f] += Gr[f][h] * br + Gi[f][h] * bi;
+          gi[1 - a][f] += Gr[f][h] * bi - Gi[f][h] * br;
+        }
+      }
+    }
+  } else {
+    // ca[bb][f] = sum_a e_i[1-a][f] conj(coh[a][bb]); gB[1-bb][h] +=
+    // sum_f G_fh ca[bb][f].
+#pragma unroll
+    for (int bb = 0; bb < 2; ++bb) {
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        T ar = T(0), ai = T(0);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          ar += xr[1 - a][f] * cr[a][bb] + xi[1 - a][f] * ci[a][bb];
+          ai += xi[1 - a][f] * cr[a][bb] - xr[1 - a][f] * ci[a][bb];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          gr[1 - bb][h] += Gr[f][h] * ar - Gi[f][h] * ai;
+          gi[1 - bb][h] += Gr[f][h] * ai + Gi[f][h] * ar;
+        }
+      }
+    }
+  }
+}
+
 // pair_rows_adjoint_points: the gradient of pair_rows_points' output with
 // respect to the (n, K * chf) real evaluations, given the (P * C, n)
 // complex gradient G of the rows (PyTorch's convention: dL/dRe + i dL/dIm
@@ -932,16 +1012,49 @@ __global__ void __launch_bounds__(TP * PY) pair_rows_points(
 // sqrt(e_i e_j) gives m * flux * Re(G) e_other / (2 sqrt(e_i e_j)), zero
 // where e_i e_j <= 0 (the forward's floor has no slope there).
 //
-// A block stages its tile of TP points' evaluations in shared memory as
-// the forward does (or reads them from global memory for a stack too wide
-// for it); thread x takes point x and a beam, and walks the beam's entries
-// of the per-beam index (a CSR of the 2P (pair, role) entries, built once
-// with the routing), so every gradient entry is written once, by one
-// thread, in a fixed order: no atomics, bitwise repeatable. Each entry
-// reads the pair's C gradient rows at the thread's point, consecutive
-// points at consecutive addresses. Bound: G read once, the evaluations read
-// once and their gradient written once.
-template <typename T, int EPI, bool CPLX, bool SMEM>
+// Two forms, each writing every gradient entry once, by one thread, in a
+// fixed order (no atomics, bitwise repeatable), and each walking the
+// per-beam index of the pairs (a CSR of the 2P (pair, role) entries by
+// beam, each beam's first-role entries then its second-role ones, each in
+// the tile form's chunk order; built once with the routing):
+//
+// - pair_rows_adjoint_tile, wherever a point tile fits shared memory and
+//   the beams fit PA_UNITS thread rows (every stack of the engine's
+//   paths). What held the first form back (68.5 us against a 19.9 us
+//   bound at the north star's block in float64, 29%): each of a tile's 3
+//   blocks (groups of 13 beams) staged the tile's whole K x chf
+//   evaluations, 78 KB at f64, which held residency to 2 blocks an SM;
+//   each pair's 4 gradient rows were read twice, once a role, by threads
+//   of different blocks; a thread walked its entries in a chain of
+//   dependent loads (entry -> pair -> 4 strided G loads) with few warps to
+//   hide it; and 13 beams over 8 thread rows left a tail. Here one block
+//   owns a tile of PA_POINTS points and every beam: the lanes of a warp
+//   are the tile's points and a thread row a beam (up to PA_UNITS beams a
+//   row), so a warp's lanes walk one beam's entries together, without
+//   divergence.
+//   The block stages the evaluations once and streams the pairs' gradient
+//   rows G[(p * C + c), tile] through shared memory in chunks of PA_PAIRS
+//   pairs, three chunks in flight by cp.async (the evaluations with the
+//   first) while one is summed, so each row leaves device memory once and
+//   serves both roles from shared memory. Chunk c holds the pairs p = c +
+//   nch * slot (nch chunks): a pair list in (i, j) order puts a run of
+//   pairs on one first beam, and a chunk of consecutive pairs would leave
+//   that beam's owner with the whole chunk while the others wait at the
+//   barrier. Each owner takes its entries of a chunk in list order and
+//   sums them in registers, one barrier a chunk; at the end the sums pass
+//   through shared memory and the tile is written out once, coalesced. The
+//   tile's PA_POINTS = 32 points were measured against 16, not guessed
+//   (PERF.md row 4b).
+// - pair_rows_adjoint_points, the global form, for a stack past that (K =
+//   331 with one beam an antenna): thread x takes point x and a beam,
+//   reads the evaluations from global memory and walks the beam's entries,
+//   reading the pair's C gradient rows at its point, consecutive points at
+//   consecutive addresses; the beam groups of a tile run side by side, so
+//   that a row read for one role is still in L2 for the other.
+//
+// Bound: G at the unmasked points read once, the evaluations read once and
+// their gradient written once.
+template <typename T, int EPI, bool CPLX>
 __global__ void __launch_bounds__(TP * PY) pair_rows_adjoint_points(
     const T* __restrict__ ev,      // (n, kc) evaluations
     const int* __restrict__ pi,    // (P,) first beam of each pair
@@ -954,31 +1067,14 @@ __global__ void __launch_bounds__(TP * PY) pair_rows_adjoint_points(
     int n, int K, int chf, int c0, int P, int nidx, int kpb,
     long long sky_sp, long long sky_sa, long long sky_sb) {
   using V2 = typename Vec2<T>::type;
-  extern __shared__ unsigned char smem_raw[];
-  T* sh = reinterpret_cast<T*>(smem_raw);
   const long long kc = static_cast<long long>(K) * chf;
   const int b0 = blockIdx.y * TP;
   const int npt = min(TP, n - b0);
   const int tx = threadIdx.x, ty = threadIdx.y;
-  if constexpr (SMEM) {
-    const T* src = ev + static_cast<long long>(b0) * kc;
-    const int total = npt * static_cast<int>(kc);
-    for (int i = ty * TP + tx; i < total; i += TP * PY) {
-      const int pt = i / static_cast<int>(kc);
-      const int c = i - pt * static_cast<int>(kc);
-      sh[c * (TP + 1) + pt] = src[i];
-    }
-    __syncthreads();
-  }
   if (tx >= npt) return;
   const int b = b0 + tx;
-  auto at = [&](long long c) -> T {
-    if constexpr (SMEM) {
-      return sh[c * (TP + 1) + tx];
-    } else {
-      return __ldg(ev + static_cast<long long>(b) * kc + c);
-    }
-  };
+  const T* evb = ev + static_cast<long long>(b) * kc;
+  auto at = [&](long long c) -> T { return __ldg(evb + c); };
   const T m = mask[b];
   const T* s = sky + sky_sp * b;
   T flux = T(0), cr[2][2], ci[2][2];
@@ -1044,75 +1140,7 @@ __global__ void __launch_bounds__(TP * PY) pair_rows_adjoint_points(
             Gi[v][f] = gg.y;
           }
         }
-        if constexpr (EPI == JONES_I) {
-          if (first) {
-            // gA[v][f] += sum_g conj(G_fg) e_j[v][g]
-#pragma unroll
-            for (int v = 0; v < 2; ++v) {
-#pragma unroll
-              for (int f = 0; f < 2; ++f) {
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                  gr[v][f] += Gr[f][h] * xr[v][h] + Gi[f][h] * xi[v][h];
-                  gi[v][f] += Gr[f][h] * xi[v][h] - Gi[f][h] * xr[v][h];
-                }
-              }
-            }
-          } else {
-            // gB[v][h] += sum_f G_fh e_i[v][f]
-#pragma unroll
-            for (int v = 0; v < 2; ++v) {
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-#pragma unroll
-                for (int f = 0; f < 2; ++f) {
-                  gr[v][h] += Gr[f][h] * xr[v][f] - Gi[f][h] * xi[v][f];
-                  gi[v][h] += Gr[f][h] * xi[v][f] + Gi[f][h] * xr[v][f];
-                }
-              }
-            }
-          }
-        } else if (first) {
-          // cb[a][h] = sum_b coh[a][b] e_j[1-b][h]; gA[1-a][f] += sum_h
-          // conj(G_fh) cb[a][h].
-#pragma unroll
-          for (int a = 0; a < 2; ++a) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              T br = T(0), bi = T(0);
-#pragma unroll
-              for (int bb = 0; bb < 2; ++bb) {
-                br += cr[a][bb] * xr[1 - bb][h] - ci[a][bb] * xi[1 - bb][h];
-                bi += cr[a][bb] * xi[1 - bb][h] + ci[a][bb] * xr[1 - bb][h];
-              }
-#pragma unroll
-              for (int f = 0; f < 2; ++f) {
-                gr[1 - a][f] += Gr[f][h] * br + Gi[f][h] * bi;
-                gi[1 - a][f] += Gr[f][h] * bi - Gi[f][h] * br;
-              }
-            }
-          }
-        } else {
-          // ca[bb][f] = sum_a e_i[1-a][f] conj(coh[a][bb]); gB[1-bb][h] +=
-          // sum_f G_fh ca[bb][f].
-#pragma unroll
-          for (int bb = 0; bb < 2; ++bb) {
-#pragma unroll
-            for (int f = 0; f < 2; ++f) {
-              T ar = T(0), ai = T(0);
-#pragma unroll
-              for (int a = 0; a < 2; ++a) {
-                ar += xr[1 - a][f] * cr[a][bb] + xi[1 - a][f] * ci[a][bb];
-                ai += xi[1 - a][f] * cr[a][bb] - xr[1 - a][f] * ci[a][bb];
-              }
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                gr[1 - bb][h] += Gr[f][h] * ar - Gi[f][h] * ai;
-                gi[1 - bb][h] += Gr[f][h] * ai + Gi[f][h] * ar;
-              }
-            }
-          }
-        }
+        pair_adjoint_jones<T, EPI>(first, xr, xi, Gr, Gi, cr, ci, gr, gi);
       }
       const T scale = EPI == JONES_I ? flux * m : m;
 #pragma unroll
@@ -1124,6 +1152,286 @@ __global__ void __launch_bounds__(TP * PY) pair_rows_adjoint_points(
         }
       }
     }
+  }
+}
+
+constexpr int PA_THREADS = 512;  // threads a block of pair_rows_adjoint_tile at most
+constexpr int PA_POINTS = 32;    // points a tile: a warp's lanes
+constexpr int PA_UNITS = 3;      // (point, beam) owners a thread at most, sums in registers
+constexpr int PA_PAIRS = 16;     // pairs a chunk of the gradient rows
+constexpr int PA_STAGES = 4;     // chunks in shared memory: one summed, three in flight
+constexpr int PA_SMEM_MAX = 224 * 1024;  // of the 227 KB a block may take
+constexpr int PA_MAX_CHUNKS = 1 << 12;  // the packed entry's 13 bits of chunk, sign bit clear
+static_assert(PA_UNITS * PA_THREADS < (1 << 14), "the packed entry's 14 bits of beam");
+
+__device__ __forceinline__ unsigned int smem_addr(const void* p) {
+  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
+}
+
+// One complex element, 8 or 16 bytes, from device to shared memory.
+__device__ __forceinline__ void cp_async(float2* dst, const float2* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async(double2* dst, const double2* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+// One real, 4 or 8 bytes.
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Byte offsets of pair_rows_adjoint_tile's shared memory, on the host and
+// the card alike: the tile's evaluations (kc x (PA_POINTS + 1) reals; its
+// gradient at the end), PA_STAGES chunks of gradient rows, the beam
+// offsets and packed entries of the index, and the points' scales.
+struct PaLayout {
+  long long ev, g, idx, scale, total;
+};
+
+__host__ __device__ inline long long pa_take(long long& at, long long bytes) {
+  const long long here = at;
+  at += (bytes + 15) / 16 * 16;
+  return here;
+}
+
+__host__ __device__ inline PaLayout pa_layout(long long kc, int P, int nidx, int C, int tsize) {
+  PaLayout L;
+  long long at = 0;
+  L.ev = pa_take(at, kc * (PA_POINTS + 1) * tsize);
+  L.g = pa_take(at, static_cast<long long>(PA_STAGES) * PA_PAIRS * C * PA_POINTS * 2 * tsize);
+  L.idx = pa_take(at, (static_cast<long long>(nidx) + 1 + 2LL * P) * 4);
+  L.scale = pa_take(at, static_cast<long long>(PA_POINTS) * tsize);
+  L.total = at;
+  return L;
+}
+
+// Chunk ``chunk``'s gradient rows into ``dst``, (PA_PAIRS * C, PA_POINTS)
+// complex, by cp.async: the C rows at the tile's npt points of its pairs p
+// = chunk + nch * slot, slot < PA_PAIRS.
+template <typename V2, int C>
+__device__ __forceinline__ void pa_load_chunk(V2* dst, const V2* __restrict__ g, int chunk,
+                                              int nch, int P, int n, int b0, int npt,
+                                              int tid, int nthreads) {
+  const int slots = (P - chunk + nch - 1) / nch;
+  for (int e = tid; e < slots * C * PA_POINTS; e += nthreads) {
+    const int r = e / PA_POINTS;  // slot * C + row
+    const int x = e - r * PA_POINTS;
+    const int slot = r / C;
+    const long long row = static_cast<long long>(chunk + nch * slot) * C + (r - slot * C);
+    if (x < npt) cp_async(dst + e, g + row * n + b0 + x);
+  }
+}
+
+template <typename T, int EPI, bool CPLX>
+__global__ void __launch_bounds__(PA_THREADS) pair_rows_adjoint_tile(
+    const T* __restrict__ ev,      // (n, kc) evaluations
+    const int* __restrict__ pi,    // (P,) first beam of each pair
+    const int* __restrict__ pj,    // (P,) second beam
+    const int* __restrict__ index,  // (nidx + 1,) offsets by beam, then (2P,) entries
+    const T* __restrict__ sky,     // real (n,) Stokes I, or complex (n, 2, 2) as reals
+    const T* __restrict__ mask,    // (n,)
+    const T* __restrict__ g,       // complex (P * C, n) as reals
+    T* __restrict__ gev,           // (n, kc), every entry written
+    int n, int K, int chf, int c0, int P, int nidx,
+    long long sky_sp, long long sky_sa, long long sky_sb) {
+  using V2 = typename Vec2<T>::type;
+  constexpr int C = EPI == POWER ? 1 : 4;
+  constexpr int NS = EPI == POWER ? 1 : 8;  // sums an owner keeps
+  constexpr int PAD = PA_POINTS + 1;
+  constexpr int SLAB = PA_PAIRS * C * PA_POINTS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kc = K * chf;  // the launcher keeps the tile within shared memory
+  const int nch = (P + PA_PAIRS - 1) / PA_PAIRS;
+  const PaLayout L = pa_layout(kc, P, nidx, C, sizeof(T));
+  T* ev_s = reinterpret_cast<T*>(smem_raw + L.ev);
+  V2* g_s = reinterpret_cast<V2*>(smem_raw + L.g);
+  int* off_s = reinterpret_cast<int*>(smem_raw + L.idx);  // (nidx + 1), then the entries
+  int* ent_s = off_s + nidx + 1;
+  T* scale_s = reinterpret_cast<T*>(smem_raw + L.scale);
+  const int b0 = blockIdx.x * PA_POINTS;
+  const int npt = min(PA_POINTS, n - b0);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int by = blockDim.y;  // owner rows: beam ty + by * u, u < PA_UNITS
+  const int nthreads = PA_POINTS * by;
+  const int tid = ty * PA_POINTS + tx;
+  const V2* gv = reinterpret_cast<const V2*>(g);
+
+  T m = T(0), flux = T(0), cr[2][2], ci[2][2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int bb = 0; bb < 2; ++bb) cr[a][bb] = ci[a][bb] = T(0);
+  }
+  if (tx < npt) {
+    const int b = b0 + tx;
+    m = mask[b];
+    const T* sk = sky + sky_sp * b;
+    if constexpr (EPI == JONES_IQUV) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          const T* q = sk + a * sky_sa + bb * sky_sb;
+          cr[a][bb] = q[0];
+          ci[a][bb] = q[1];
+        }
+      }
+    } else {
+      flux = sk[0];
+    }
+  }
+  const bool own = tx < npt && m != T(0);
+  // A tile with every point masked reads no gradient row.
+  const bool live = __syncthreads_or(own);
+  // The tile's evaluations, channel-major with a pad column, and the first
+  // chunks' rows: all in flight at once by cp.async (the evaluations in the
+  // first group), while the index stages.
+  const T* src = ev + static_cast<long long>(b0) * kc;
+  for (int i = tid; i < npt * kc; i += nthreads) {
+    const int pt = i / kc;
+    const int c = i - pt * kc;
+    cp_async(ev_s + c * PAD + pt, src + i);
+  }
+#pragma unroll
+  for (int st = 0; st < PA_STAGES - 1; ++st) {
+    if (live && st < nch) {
+      pa_load_chunk<V2, C>(g_s + st * SLAB, gv, st, nch, P, n, b0, npt, tid, nthreads);
+    }
+    cp_async_commit();
+  }
+  // The index, each entry packed as (other beam, slot in its chunk, role,
+  // chunk): pair p sits in chunk p % nch, slot p / nch, so a chunk's pairs
+  // spread over the list and over the beams.
+  for (int i = tid; i <= nidx; i += nthreads) off_s[i] = min(max(index[i], 0), 2 * P);
+  for (int q = tid; q < 2 * P; q += nthreads) {
+    const int en = min(max(index[nidx + 1 + q], 0), 2 * P - 1);
+    const int role = en >= P;
+    const int p = en - role * P;
+    // A malformed index reads a wrong beam, never out of bounds.
+    const int other = min(max(role ? pi[p] : pj[p], 0), K - 1);
+    ent_s[q] = other | (p / nch) << 14 | role << 18 | (p % nch) << 19;
+  }
+  if (ty == 0) scale_s[tx] = EPI == JONES_IQUV ? m : flux * m;
+  __syncthreads();
+  // Each owner's sums in registers, and its cursors: its beam's
+  // first-role entries [qi, si), then its second-role ones [qj, sj), each
+  // in chunk order (pair_index).
+  T sr[PA_UNITS][NS];
+  int qi[PA_UNITS], si[PA_UNITS], qj[PA_UNITS], sj[PA_UNITS];
+#pragma unroll
+  for (int u = 0; u < PA_UNITS; ++u) {
+#pragma unroll
+    for (int c = 0; c < NS; ++c) sr[u][c] = T(0);
+    const int k = ty + by * u;
+    const int q0 = k < K && k < nidx ? off_s[k] : 0;
+    const int q1 = k < K && k < nidx ? max(off_s[k + 1], q0) : q0;
+    int lo = q0, hi = q1;  // the first second-role entry
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((ent_s[mid] >> 18) & 1) hi = mid; else lo = mid + 1;
+    }
+    qi[u] = q0;
+    si[u] = lo;
+    qj[u] = lo;
+    sj[u] = q1;
+  }
+  if (live) {
+    for (int chunk = 0; chunk < nch; ++chunk) {
+      cp_async_wait<PA_STAGES - 2>();
+      // The chunk's rows are visible, and every thread is done with the
+      // previous chunk, whose buffer the next load takes.
+      __syncthreads();
+      const int ahead = chunk + PA_STAGES - 1;
+      if (ahead < nch) {
+        pa_load_chunk<V2, C>(g_s + (ahead % PA_STAGES) * SLAB, gv, ahead, nch, P, n, b0,
+                                  npt, tid, nthreads);
+      }
+      cp_async_commit();
+      if (!own) continue;
+      const V2* gs = g_s + (chunk % PA_STAGES) * SLAB + tx;
+#pragma unroll
+      for (int u = 0; u < PA_UNITS; ++u) {
+        const int k = ty + by * u;
+        if (k >= K) break;
+        // The owner's entries of this chunk, first role then second.
+#pragma unroll
+        for (int role = 0; role < 2; ++role) {
+          int q = role ? qj[u] : qi[u];
+          const int q1 = role ? sj[u] : si[u];
+          for (; q < q1; ++q) {
+            const int v = ent_s[q];
+            if ((v >> 19) != chunk) break;
+            const int eo = (v & 0x3fff) * chf;
+            if constexpr (EPI == POWER) {
+              const T e = ev_s[(k * chf + c0) * PAD + tx];
+              const T f = ev_s[(eo + c0) * PAD + tx];
+              const T prod = e * f;
+              if (prod > T(0)) {
+                sr[u][0] += gs[((v >> 14) & 15) * PA_POINTS].x * f / (T(2) * sqrt(prod));
+              }
+            } else {
+              const V2* gp = gs + ((v >> 14) & 15) * C * PA_POINTS;
+              T xr[2][2], xi[2][2], Gr[2][2], Gi[2][2], gr[2][2], gi[2][2];
+#pragma unroll
+              for (int vv = 0; vv < 2; ++vv) {
+#pragma unroll
+                for (int f = 0; f < 2; ++f) {
+                  xr[vv][f] = ev_s[(eo + vv * 2 + f) * PAD + tx];
+                  xi[vv][f] = CPLX ? ev_s[(eo + 4 + vv * 2 + f) * PAD + tx] : T(0);
+                  const V2 gg = gp[(vv * 2 + f) * PA_POINTS];
+                  Gr[vv][f] = gg.x;
+                  Gi[vv][f] = gg.y;
+                  gr[vv][f] = sr[u][vv * 2 + f];
+                  gi[vv][f] = sr[u][4 + vv * 2 + f];
+                }
+              }
+              pair_adjoint_jones<T, EPI>(role == 0, xr, xi, Gr, Gi, cr, ci, gr, gi);
+#pragma unroll
+              for (int vv = 0; vv < 2; ++vv) {
+#pragma unroll
+                for (int f = 0; f < 2; ++f) {
+                  sr[u][vv * 2 + f] = gr[vv][f];
+                  sr[u][4 + vv * 2 + f] = gi[vv][f];
+                }
+              }
+            }
+          }
+          if (role) qj[u] = q; else qi[u] = q;
+        }
+      }
+    }
+  }
+  // The owners' sums into the evaluations' place, then the tile's gradient
+  // out, every entry once, consecutive threads on consecutive addresses.
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = tid; i < kc * PAD; i += nthreads) ev_s[i] = T(0);
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < PA_UNITS; ++u) {
+    const int k = ty + by * u;
+    if (k >= K || tx >= npt) break;
+    if constexpr (EPI == POWER) {
+      ev_s[(k * chf + c0) * PAD + tx] = sr[u][0];
+    } else {
+#pragma unroll
+      for (int c = 0; c < (CPLX ? 8 : 4); ++c) ev_s[(k * chf + c) * PAD + tx] = sr[u][c];
+    }
+  }
+  __syncthreads();
+  T* out = gev + static_cast<long long>(b0) * kc;
+  for (int i = tid; i < npt * kc; i += nthreads) {
+    const int pt = i / kc;
+    const int c = i - pt * kc;
+    out[i] = ev_s[c * PAD + pt] * scale_s[pt];
   }
 }
 
@@ -1363,37 +1671,76 @@ int launch_pair_rows(const void* ev, const void* pi, const void* pj, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int EPI, bool CPLX, bool SMEM>
-void pair_rows_adjoint_instance(dim3 grid, size_t smem, cudaStream_t s, const T* ev,
-                                const int* pi, const int* pj, const int* index, const T* sky,
-                                const T* mask, const T* g, T* gev, int n, int K, int chf,
-                                int c0, int P, int nidx, int kpb, long long sp, long long sa,
-                                long long sb) {
-  if constexpr (SMEM) {
-    static bool opted_in = false;
-    if (!opted_in) {
-      cudaFuncSetAttribute(pair_rows_adjoint_points<T, EPI, CPLX, SMEM>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-      opted_in = true;
-    }
+// Whether pair_rows_adjoint takes the tile form: its shared memory fits,
+// a thread row a beam needs at most PA_UNITS beams a row, and the packed
+// entries hold the chunks.
+bool pa_tile_form(long long bytes, int K, int P) {
+  return bytes <= PA_SMEM_MAX && K <= PA_UNITS * (PA_THREADS / PA_POINTS) &&
+         (P + PA_PAIRS - 1) / PA_PAIRS <= PA_MAX_CHUNKS;
+}
+
+template <typename T, int EPI, bool CPLX>
+void pair_rows_adjoint_tile_instance(size_t smem, cudaStream_t s, const T* ev, const int* pi,
+                                     const int* pj, const int* index, const T* sky,
+                                     const T* mask, const T* g, T* gev, int n, int K, int chf,
+                                     int c0, int P, int nidx, long long sp, long long sa,
+                                     long long sb) {
+  // Above 48 KB a kernel must opt in to its dynamic shared memory.
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaFuncSetAttribute(pair_rows_adjoint_tile<T, EPI, CPLX>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, PA_SMEM_MAX);
+    opted_in = true;
   }
-  pair_rows_adjoint_points<T, EPI, CPLX, SMEM><<<grid, dim3(TP, PY), smem, s>>>(
-      ev, pi, pj, index, sky, mask, g, gev, n, K, chf, c0, P, nidx, kpb, sp, sa, sb);
+  // A thread row a beam, up to PA_UNITS beams a row.
+  const int by = min(K, PA_THREADS / PA_POINTS);
+  pair_rows_adjoint_tile<T, EPI, CPLX>
+      <<<(n + PA_POINTS - 1) / PA_POINTS, dim3(PA_POINTS, by), smem, s>>>(
+          ev, pi, pj, index, sky, mask, g, gev, n, K, chf, c0, P, nidx, sp, sa, sb);
 }
 
 template <typename T>
 int launch_pair_rows_adjoint(const void* ev, const void* pi, const void* pj,
                              const void* index, const void* sky, const void* mask,
                              const void* g, void* gev, int n, int K, int chf, int c0, int P,
-                             int nidx, int epi, int cplx, long long sp, long long sa,
-                             long long sb, void* stream) {
+                             int nidx, int epi, int cplx, int chunk, long long sp,
+                             long long sa, long long sb, void* stream) {
   const bool power = epi == POWER;
   if (K < 1 || chf < 1 || P < 0 || n < 0 || nidx < 0 || nidx > K ||
       (epi != POWER && epi != JONES_I && epi != JONES_IQUV) ||
-      (power && (c0 < 0 || c0 >= chf)) || (!power && chf != (cplx ? 8 : 4))) {
+      (power && (c0 < 0 || c0 >= chf)) || (!power && chf != (cplx ? 8 : 4)) ||
+      chunk != PA_PAIRS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* e = static_cast<const T*>(ev);
+  const int* ii = static_cast<const int*>(pi);
+  const int* jj = static_cast<const int*>(pj);
+  const int* ix = static_cast<const int*>(index);
+  const T* k = static_cast<const T*>(sky);
+  const T* m = static_cast<const T*>(mask);
+  const T* gg = static_cast<const T*>(g);
+  T* o = static_cast<T*>(gev);
+  const long long kc = static_cast<long long>(K) * chf;
+  const long long bytes =
+      pa_layout(kc, P, nidx, power ? 1 : 4, static_cast<int>(sizeof(T))).total;
+  if (pa_tile_form(bytes, K, P)) {
+    // The tile form: a block a tile of PA_POINTS points, every beam.
+#define FFTVIS_PA_TILE(EPI, CPLX)                                                       \
+  pair_rows_adjoint_tile_instance<T, EPI, CPLX>(bytes, s, e, ii, jj, ix, k, m, gg, o, n, K, \
+                                                chf, c0, P, nidx, sp, sa, sb)
+    if (power) {
+      FFTVIS_PA_TILE(POWER, false);
+    } else if (epi == JONES_I) {
+      if (cplx) { FFTVIS_PA_TILE(JONES_I, true); } else { FFTVIS_PA_TILE(JONES_I, false); }
+    } else {
+      if (cplx) { FFTVIS_PA_TILE(JONES_IQUV, true); } else { FFTVIS_PA_TILE(JONES_IQUV, false); }
+    }
+#undef FFTVIS_PA_TILE
+    return static_cast<int>(cudaGetLastError());
+  }
+  // The global form, for a stack too wide for the tile.
   const int tiles = (n + TP - 1) / TP;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   // Enough blocks for two a SM: split the beams of a tile over blocks.
@@ -1404,39 +1751,21 @@ int launch_pair_rows_adjoint(const void* ev, const void* pi, const void* pj,
   // The groups of a tile run side by side, so that the pair rows' gradient
   // read for one role of a pair is still in L2 for the other.
   const dim3 grid(groups, tiles);
-  const long long bytes = static_cast<long long>(K) * chf * (TP + 1) * sizeof(T);
-  const bool smem = bytes <= SMEM_MAX;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* e = static_cast<const T*>(ev);
-  const int* ii = static_cast<const int*>(pi);
-  const int* jj = static_cast<const int*>(pj);
-  const int* ix = static_cast<const int*>(index);
-  const T* k = static_cast<const T*>(sky);
-  const T* m = static_cast<const T*>(mask);
-  const T* gg = static_cast<const T*>(g);
-  T* o = static_cast<T*>(gev);
-#define FFTVIS_PAIRS_ADJ(EPI, CPLX)                                                       \
-  if (smem) {                                                                             \
-    pair_rows_adjoint_instance<T, EPI, CPLX, true>(grid, bytes, s, e, ii, jj, ix, k, m,   \
-                                                   gg, o, n, K, chf, c0, P, nidx, kpb,    \
-                                                   sp, sa, sb);                           \
-  } else {                                                                                \
-    pair_rows_adjoint_instance<T, EPI, CPLX, false>(grid, 0, s, e, ii, jj, ix, k, m, gg,  \
-                                                    o, n, K, chf, c0, P, nidx, kpb, sp,   \
-                                                    sa, sb);                              \
-  }
+#define FFTVIS_PA_GLOBAL(EPI, CPLX)                                                       \
+  pair_rows_adjoint_points<T, EPI, CPLX><<<grid, dim3(TP, PY), 0, s>>>(                   \
+      e, ii, jj, ix, k, m, gg, o, n, K, chf, c0, P, nidx, kpb, sp, sa, sb)
   if (power) {
-    FFTVIS_PAIRS_ADJ(POWER, false);
+    FFTVIS_PA_GLOBAL(POWER, false);
   } else if (epi == JONES_I) {
-    if (cplx) { FFTVIS_PAIRS_ADJ(JONES_I, true); } else { FFTVIS_PAIRS_ADJ(JONES_I, false); }
+    if (cplx) { FFTVIS_PA_GLOBAL(JONES_I, true); } else { FFTVIS_PA_GLOBAL(JONES_I, false); }
   } else {
     if (cplx) {
-      FFTVIS_PAIRS_ADJ(JONES_IQUV, true);
+      FFTVIS_PA_GLOBAL(JONES_IQUV, true);
     } else {
-      FFTVIS_PAIRS_ADJ(JONES_IQUV, false);
+      FFTVIS_PA_GLOBAL(JONES_IQUV, false);
     }
   }
-#undef FFTVIS_PAIRS_ADJ
+#undef FFTVIS_PA_GLOBAL
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1444,21 +1773,34 @@ int launch_pair_rows_adjoint(const void* ev, const void* pi, const void* pj,
 
 // The adjoint of pair_rows in its evaluations: g (P * C, n) complex ->
 // gev (n, K * chf); index the per-beam entries (nidx + 1 offsets, 2P
-// entries).
+// entries, each beam's in chunk order); chunk the pairs a chunk that
+// pair_index ordered by (PA_PAIRS).
 extern "C" int fftvis_pair_rows_adjoint_f32(
     const void* ev, const void* pi, const void* pj, const void* index, const void* sky,
     const void* mask, const void* g, void* gev, int n, int K, int chf, int c0, int P,
-    int nidx, int epi, int cplx, long long sp, long long sa, long long sb, void* stream) {
+    int nidx, int epi, int cplx, int chunk, long long sp, long long sa, long long sb,
+    void* stream) {
   return launch_pair_rows_adjoint<float>(ev, pi, pj, index, sky, mask, g, gev, n, K, chf, c0,
-                                         P, nidx, epi, cplx, sp, sa, sb, stream);
+                                         P, nidx, epi, cplx, chunk, sp, sa, sb, stream);
 }
 
 extern "C" int fftvis_pair_rows_adjoint_f64(
     const void* ev, const void* pi, const void* pj, const void* index, const void* sky,
     const void* mask, const void* g, void* gev, int n, int K, int chf, int c0, int P,
-    int nidx, int epi, int cplx, long long sp, long long sa, long long sb, void* stream) {
+    int nidx, int epi, int cplx, int chunk, long long sp, long long sa, long long sb,
+    void* stream) {
   return launch_pair_rows_adjoint<double>(ev, pi, pj, index, sky, mask, g, gev, n, K, chf,
-                                          c0, P, nidx, epi, cplx, sp, sa, sb, stream);
+                                          c0, P, nidx, epi, cplx, chunk, sp, sa, sb, stream);
+}
+
+// Shared memory pair_rows_adjoint_tile takes for these shapes (C rows a
+// pair: 1 power, 4 Jones), or -1 where the launch takes the global form
+// instead.
+extern "C" long long fftvis_pair_rows_adjoint_smem(int K, int chf, int P, int nidx, int C,
+                                                   int f64) {
+  const long long bytes =
+      pa_layout(static_cast<long long>(K) * chf, P, nidx, C, f64 ? 8 : 4).total;
+  return pa_tile_form(bytes, K, P) ? bytes : -1;
 }
 
 // Ints of scratch beam_eval_adjoint's table gradient needs.

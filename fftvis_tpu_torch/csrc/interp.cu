@@ -42,22 +42,40 @@
 // [0, m), so a malformed runs or order tensor gives wrong values, never an
 // access out of bounds.
 //
-// interp_adjoint_runs is the adjoint with respect to G, what a gradient
+// interp_adjoint_tiles is the adjoint with respect to G, what a gradient
 // through the interpolation needs (the JAX package lets XLA differentiate
 // its gather; no Pallas kernel has a backward):
 //
-//     gG[c, iy[t, a], ix[t, b]] += vy[t, a] vx[t, b] g[c, t]
+//     gG[c, iy[t, a], ix[t, b]] = sum over t of vy[t, a] vx[t, b] g[c, t]
 //
-// a scatter of each target's w x w taps onto the (zeroed) grid gradient,
-// on the same tables, runs and order. One warp a run, the lanes over the
-// taps as in the short-run form above (tap column b = lane % P, rows a =
-// lane / P + R * step): the rows of a run share their tap cells, so a lane
-// sums its taps' weights times the gradient over the run's rows in
-// registers and adds once a tap and channel, with the sm_90 float2 atomic
-// at complex64 and two fp64 atomics at complex128. Runs of different
-// footprints overlap on the grid, so the summation order of the atomics
-// varies from run to run. Bound: the (C, nfy, nfx) output written once, the
-// tap tables and the (C, m) gradient read once.
+// What held its first form (interp_adjoint_runs, a warp a run scattering
+// with atomics) back: the wrapper zero-filled the whole (C, nfy, nfx) grid
+// first, which at the slice took longer than the kernel (0.12 / 0.25 ms
+// of a 0.18 / 0.45 ms call, f32 / f64, C = 4); the channel loop sat outside
+// the row loop, so a run's taps and order were read C times in a chain of
+// dependent loads; and the fp64 atomics added in an order that changed
+// from run to run, so the gradient was not repeatable. Here the grid
+// gradient is owned, not scattered. The host lists, once a set of tables
+// (nufft/interp.py grid_tiles), for every 32 x 32 tile of the grid the
+// runs whose w x w footprint touches it, periodic wrap included, each as
+// a rectangle of the footprint within the tile, in run order. One block
+// owns a tile and adj_cg channels and:
+// - takes its list in chunks whose rectangles fit ADJ_CAP staged cells;
+// - stages each rectangle's cells, for all its channels: a thread a 2 x 2
+//   patch of cells (its entry from a byte map that the entries' warps mark
+//   first) sums the run's rows, vy vx g, with the channel loop inside the
+//   row loop: a row's order and gradient are read once for 4 cells and
+//   every channel, into shared memory;
+// - then each thread adds the staged cells that land on its own 4 cells,
+//   in list order: a fixed order, no atomic, a bitwise repeatable gradient;
+// - writes every cell of its tile once, zeros included, a warp a tile row
+//   (coalesced 8- or 16-byte stores). An empty tile (most of a redundant
+//   array's grid) takes only the stores.
+// So the wrapper allocates with torch.empty and launches no fill, and a
+// caller can hand it a channel slice of a larger gradient to write. Bound:
+// the (C, nfy, nfx) grid written once, the tables, order and the (C, m)
+// gradient read once: the grid's write dominates (0.127 ms at the slice's
+// p=1 grid in complex64, 0.261 ms at p=2 in complex128, C = 4).
 //
 // interp_taps_nd is the interpolation of a 1D (C, n0) or 3D (C, n0, n1, n2)
 // grid, for the public type-2 and type-3 transforms at d = 1 and d = 3
@@ -285,76 +303,230 @@ __global__ void __launch_bounds__(WARPS * 32, 4) interp_runs(
   }
 }
 
-__device__ __forceinline__ void add_cell(float2* cell, float re, float im) {
-  atomicAdd(cell, make_float2(re, im));
+// The owned-tile form of the adjoint (interp_adjoint_tiles): a block owns
+// a TILE x TILE tile of the grid and adj_cg channels of it.
+constexpr int ADJ_TILE = 32;                 // tile edge (nufft/interp.py TILE)
+constexpr int ADJ_THREADS = 256;             // a warp a tile row, 4 rows a thread
+constexpr int ADJ_ROWS = ADJ_TILE * ADJ_TILE / ADJ_THREADS;
+// Channels a block: 4 at complex64, 2 at complex128 (whose staged sums
+// hold twice the registers; the faster of 2 and 4 on the card, PERF.md
+// row 6).
+template <typename T>
+__host__ __device__ constexpr int adj_cg() { return sizeof(T) == 8 ? 2 : 4; }
+constexpr int ADJ_CAP = 2048;                // staged footprint cells a chunk (>= 16 x 16)
+// Blocks an SM the registers must allow: 2 at complex64; 1 at complex128,
+// whose accumulators then stay in registers (faster on the card than 2
+// blocks with spills).
+template <typename T>
+constexpr int adj_min_blocks() { return sizeof(T) == 8 ? 1 : 2; }
+static_assert(ADJ_THREADS <= 256, "an entry's index in a chunk is one byte");
+
+template <typename T>
+constexpr int adj_smem_bytes() {
+  constexpr int CG = adj_cg<T>();
+  return CG * ADJ_CAP * 2 * static_cast<int>(sizeof(T)) + ADJ_THREADS * 20 +
+         ADJ_THREADS / 32 * 4 + ADJ_CAP;
 }
 
-__device__ __forceinline__ void add_cell(double2* cell, double re, double im) {
-  atomicAdd(&cell->x, re);
-  atomicAdd(&cell->y, im);
-}
-
-template <typename T, int W>
-__global__ void __launch_bounds__(WARPS * 32) interp_adjoint_runs(
+template <typename T>
+__global__ void __launch_bounds__(ADJ_THREADS, adj_min_blocks<T>()) interp_adjoint_tiles(
     const T* __restrict__ g,          // (C, m, 2) gradient, target order
-    const int* __restrict__ iy,       // (m, W), row k in visiting order
-    const int* __restrict__ ix,       // (m, W)
-    const T* __restrict__ vy,         // (m, W)
-    const T* __restrict__ vx,         // (m, W)
-    const int* __restrict__ runs,     // (nruns + 1,) first row of each run
+    const T* __restrict__ vy,         // (m, w), row k in visiting order
+    const T* __restrict__ vx,         // (m, w)
     const int* __restrict__ order,    // (m,) target of row k, or null
-    T* __restrict__ grid,             // (C, nfy, nfx, 2) zeroed, accumulated
-    int C, int nfy, int nfx, int m, int nruns) {
+    const int* __restrict__ toff,     // (ntiles + 1,) each tile's first entry
+    const int4* __restrict__ tent,    // (nent,) {k0, k1, geometry, staged before}
+    T* __restrict__ grid,             // (C, nfy, nfx, 2), every cell written
+    int C, int nfy, int nfx, int m, int w, int ntx, int nent) {
   using V = typename Vec2<T>::type;
-  constexpr int P = pow2ceil(W);
-  constexpr int R = 32 / P;
-  constexpr int STEPS = (W + R - 1) / R;
-  const int run = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (run >= nruns) return;  // whole warps only
-  const int lane = threadIdx.x & 31;
-  const int k0 = min(max(runs[run], 0), m);
-  const int k1 = min(max(runs[run + 1], k0), m);
-  if (k0 == k1) return;
-  const long long plane = static_cast<long long>(nfy) * nfx;
-  const V* gv = reinterpret_cast<const V*>(g);
-  V* gridv = reinterpret_cast<V*>(grid);
-
-  // The run's footprint: row k0's tap cells, which every row shares.
-  const int b = lane % P;
-  const int r = lane / P;
-  const long long row0 = static_cast<long long>(k0) * W;
-  const int xcell = b < W ? ix[row0 + b] : 0;
-  int off[STEPS];
-  bool ok[STEPS];
+  constexpr int CG = adj_cg<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* staged = reinterpret_cast<V*>(smem_raw);                        // (CG, ADJ_CAP)
+  int4* ents = reinterpret_cast<int4*>(staged + CG * ADJ_CAP);   // (ADJ_THREADS,)
+  int* patch0 = reinterpret_cast<int*>(ents + ADJ_THREADS);          // (ADJ_THREADS,)
+  int* warp_sum = patch0 + ADJ_THREADS;                              // (ADJ_THREADS / 32,)
+  unsigned char* cell_ent = reinterpret_cast<unsigned char*>(warp_sum + ADJ_THREADS / 32);  // (ADJ_CAP,)
+  const int tile = blockIdx.x;
+  const int y0 = tile / ntx * ADJ_TILE;
+  const int x0 = tile % ntx * ADJ_TILE;
+  const int c0 = blockIdx.y * CG;
+  const int ncg = min(CG, C - c0);
+  const int lx = threadIdx.x % ADJ_TILE;
+  const int ly = threadIdx.x / ADJ_TILE;  // rows ly + i * ADJ_TILE / ADJ_ROWS
+  const V* gv = reinterpret_cast<const V*>(g) + static_cast<long long>(c0) * m;
+  T accr[ADJ_ROWS][CG], acci[ADJ_ROWS][CG];
 #pragma unroll
-  for (int s = 0; s < STEPS; ++s) {
-    const int a = s * R + r;
-    ok[s] = b < W && a < W;
-    off[s] = ok[s] ? iy[row0 + a] * nfx + xcell : 0;
+  for (int i = 0; i < ADJ_ROWS; ++i) {
+#pragma unroll
+    for (int c = 0; c < CG; ++c) accr[i][c] = acci[i][c] = T(0);
   }
-  for (int c = 0; c < C; ++c) {
-    T re[STEPS], im[STEPS];
+  const int e0 = min(max(toff[tile], 0), nent);
+  const int e1 = min(max(toff[tile + 1], e0), nent);
+  for (int eb = e0; eb < e1;) {
+    // A chunk: the list's next entries whose staged cells fit ADJ_CAP.
+    const int base = tent[eb].w;
+    const int q = eb + threadIdx.x;
+    bool fits = false;
+    if (q < e1) {
+      const int4 e = tent[q];
+      const int size = (((e.z >> 14) & 15) + 1) * (((e.z >> 22) & 15) + 1);
+      fits = e.w - base >= 0 && e.w - base + size <= ADJ_CAP;
+      ents[threadIdx.x] = e;
+    }
+    const int n = __syncthreads_count(fits);
+    if (n == 0) break;  // a malformed list: stop, the tile keeps what it has
+    const int4 last = ents[n - 1];
+    const int total = min(last.w - base + (((last.z >> 14) & 15) + 1) *
+                                              (((last.z >> 22) & 15) + 1), ADJ_CAP);
+    // The entries' 2 x 2 patches of cells: each entry's count and first
+    // patch (a block scan), then each patch's entry (a byte map that a warp
+    // an entry marks).
+    int pcount = 0;
+    if (threadIdx.x < n) {
+      const int4 e = ents[threadIdx.x];
+      pcount = ((((e.z >> 14) & 15) + 2) >> 1) * ((((e.z >> 22) & 15) + 2) >> 1);
+    }
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    int incl = pcount;
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) re[s] = im[s] = T(0);
-    for (int k = k0; k < k1; ++k) {
-      const long long t = order ? order[k] : k;
-      if (t < 0 || t >= m) continue;
-      const V gk = gv[c * static_cast<long long>(m) + t];
-      const long long row = static_cast<long long>(k) * W;
-      const T wx = b < W ? vx[row + b] : T(0);
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += y;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int v = lane < ADJ_THREADS / 32 ? warp_sum[lane] : 0;
 #pragma unroll
-      for (int s = 0; s < STEPS; ++s) {
-        if (ok[s]) {
-          const T wt = vy[row + s * R + r] * wx;
-          re[s] += wt * gk.x;
-          im[s] += wt * gk.y;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, v, d);
+        if (lane >= d) v += y;
+      }
+      if (lane < ADJ_THREADS / 32) warp_sum[lane] = v;
+    }
+    __syncthreads();
+    patch0[threadIdx.x] = incl - pcount + (warp > 0 ? warp_sum[warp - 1] : 0);
+    const int npatch = min(warp_sum[ADJ_THREADS / 32 - 1], ADJ_CAP);
+    __syncthreads();
+    for (int j = warp; j < n; j += ADJ_THREADS / 32) {
+      const int first = patch0[j];
+      const int4 e = ents[j];
+      const int cnt = ((((e.z >> 14) & 15) + 2) >> 1) * ((((e.z >> 22) & 15) + 2) >> 1);
+      for (int l = lane; l < cnt; l += 32) {
+        if (first + l < ADJ_CAP) cell_ent[first + l] = static_cast<unsigned char>(j);
+      }
+    }
+    __syncthreads();
+    // Stage: a thread a 2 x 2 patch of an entry's rectangle sums the run's
+    // rows, vy vx g, for all the block's channels: a row's order and
+    // gradient read once for 4 cells, the taps once for 2, four independent
+    // sums a channel.
+    for (int pt = threadIdx.x; pt < npatch; pt += ADJ_THREADS) {
+      const int j = cell_ent[pt];
+      const int4 e = ents[j];
+      const int na = ((e.z >> 14) & 15) + 1;
+      const int nb = ((e.z >> 22) & 15) + 1;
+      const int lp = pt - patch0[j];
+      const int npb = (nb + 1) >> 1;
+      const int la = 2 * (lp / npb);  // the patch's first cell in the rectangle
+      const int lb = 2 * (lp % npb);
+      const int a = ((e.z >> 10) & 15) + la;
+      const int b = ((e.z >> 18) & 15) + lb;
+      const bool a1 = la + 1 < na && a + 1 < w;  // the patch's second row and column
+      const bool b1 = lb + 1 < nb && b + 1 < w;
+      T re[4][CG], im[4][CG];
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+#pragma unroll
+        for (int c = 0; c < CG; ++c) re[q4][c] = im[q4][c] = T(0);
+      }
+      if (lp >= 0 && a < w && b < w) {
+        const int k1 = min(e.y, m);
+        for (int k = max(e.x, 0); k < k1; ++k) {
+          const long long row = static_cast<long long>(k) * w;
+          const int t0 = order ? order[k] : k;
+          const bool ok = t0 >= 0 && t0 < m;
+          const int t = ok ? t0 : 0;
+          const T y0v = ok ? vy[row + a] : T(0);
+          const T y1v = ok && a1 ? vy[row + a + 1] : T(0);
+          const T x0v = vx[row + b];
+          const T x1v = b1 ? vx[row + b + 1] : T(0);
+          const T wt[4] = {y0v * x0v, y0v * x1v, y1v * x0v, y1v * x1v};
+#pragma unroll
+          for (int c = 0; c < CG; ++c) {
+            if (c < ncg) {
+              const V gk = gv[static_cast<long long>(c) * m + t];
+#pragma unroll
+              for (int q4 = 0; q4 < 4; ++q4) {
+                re[q4][c] += wt[q4] * gk.x;
+                im[q4][c] += wt[q4] * gk.y;
+              }
+            }
+          }
+        }
+      }
+      const int off = e.w - base;
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        const int da = q4 >> 1;
+        const int db = q4 & 1;
+        const int sc = off + (la + da) * nb + lb + db;  // the cell's staged slot
+        if (la + da < na && lb + db < nb && sc >= 0 && sc < total) {
+#pragma unroll
+          for (int c = 0; c < CG; ++c) {
+            V o;
+            o.x = re[q4][c];
+            o.y = im[q4][c];
+            staged[c * ADJ_CAP + sc] = o;
+          }
         }
       }
     }
+    __syncthreads();
+    // Owners: each thread adds the staged cells on its own cells, in list
+    // order.
+    for (int j = 0; j < n; ++j) {
+      const int4 e = ents[j];
+      const int dj = lx - ((e.z >> 5) & 31);
+      const int nb = ((e.z >> 22) & 15) + 1;
+      if (dj < 0 || dj >= nb) continue;
+      const int na = ((e.z >> 14) & 15) + 1;
+      const int ly0 = e.z & 31;
+      const int off = e.w - base;
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      if (ok[s] && (re[s] != T(0) || im[s] != T(0))) {
-        add_cell(gridv + c * plane + off[s], re[s], im[s]);
+      for (int i = 0; i < ADJ_ROWS; ++i) {
+        const int di = ly + i * (ADJ_TILE / ADJ_ROWS) - ly0;
+        const int idx = off + di * nb + dj;
+        if (di >= 0 && di < na && idx >= 0 && idx < total) {
+#pragma unroll
+          for (int c = 0; c < CG; ++c) {
+            const V v = staged[c * ADJ_CAP + idx];
+            accr[i][c] += v.x;
+            acci[i][c] += v.y;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    eb += n;
+  }
+  // Every cell of the tile, zeros included: a warp writes a tile row.
+  const long long plane = static_cast<long long>(nfy) * nfx;
+  V* gridv = reinterpret_cast<V*>(grid) + c0 * plane;
+  const int x = x0 + lx;
+#pragma unroll
+  for (int i = 0; i < ADJ_ROWS; ++i) {
+    const int y = y0 + ly + i * (ADJ_TILE / ADJ_ROWS);
+    if (y < nfy && x < nfx) {
+#pragma unroll
+      for (int c = 0; c < CG; ++c) {
+        if (c < ncg) {
+          V o;
+          o.x = accr[i][c];
+          o.y = acci[i][c];
+          gridv[c * plane + static_cast<long long>(y) * nfx + x] = o;
+        }
       }
     }
   }
@@ -686,54 +858,54 @@ int launch_interp(const void* G, const void* iy, const void* ix,
 }
 
 template <typename T>
-int launch_interp_adjoint(const void* g, const void* iy, const void* ix,
-                          const void* vy, const void* vx, const void* runs,
-                          const void* order, void* grid, int C, int nfy,
-                          int nfx, int m, int nruns, int w, void* stream_ptr) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const unsigned int blocks = static_cast<unsigned int>((nruns + WARPS - 1) / WARPS);
-  switch (w) {
-#define FFTVIS_INTERP_ADJ_CASE(W)                                             \
-  case W:                                                                     \
-    interp_adjoint_runs<T, W><<<blocks, WARPS * 32, 0, stream>>>(             \
-        static_cast<const T*>(g), static_cast<const int*>(iy),                \
-        static_cast<const int*>(ix), static_cast<const T*>(vy),               \
-        static_cast<const T*>(vx), static_cast<const int*>(runs),             \
-        static_cast<const int*>(order), static_cast<T*>(grid), C, nfy, nfx,   \
-        m, nruns);                                                            \
-    break;
-    FFTVIS_INTERP_ADJ_CASE(2) FFTVIS_INTERP_ADJ_CASE(3) FFTVIS_INTERP_ADJ_CASE(4)
-    FFTVIS_INTERP_ADJ_CASE(5) FFTVIS_INTERP_ADJ_CASE(6) FFTVIS_INTERP_ADJ_CASE(7)
-    FFTVIS_INTERP_ADJ_CASE(8) FFTVIS_INTERP_ADJ_CASE(9) FFTVIS_INTERP_ADJ_CASE(10)
-    FFTVIS_INTERP_ADJ_CASE(11) FFTVIS_INTERP_ADJ_CASE(12) FFTVIS_INTERP_ADJ_CASE(13)
-    FFTVIS_INTERP_ADJ_CASE(14) FFTVIS_INTERP_ADJ_CASE(15) FFTVIS_INTERP_ADJ_CASE(16)
-#undef FFTVIS_INTERP_ADJ_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int launch_interp_adjoint(const void* g, const void* vy, const void* vx, const void* order,
+                          const void* toff, const void* tent, void* grid, int C, int nfy,
+                          int nfx, int m, int w, int ntiles, int nent, void* stream_ptr) {
+  const int nty = (nfy + ADJ_TILE - 1) / ADJ_TILE;
+  const int ntx = (nfx + ADJ_TILE - 1) / ADJ_TILE;
+  const int groups = (C + adj_cg<T>() - 1) / adj_cg<T>();
+  if (C < 1 || nfy < 1 || nfx < 1 || m < 0 || w < 2 || w > 16 || nent < 0 ||
+      static_cast<long long>(nty) * ntx != ntiles || groups > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  // Above 48 KB a kernel must opt in to its dynamic shared memory.
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        interp_adjoint_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        adj_smem_bytes<T>());
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    opted_in = true;
+  }
+  interp_adjoint_tiles<T><<<dim3(static_cast<unsigned int>(ntiles), groups), ADJ_THREADS,
+                            adj_smem_bytes<T>(), static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const T*>(g), static_cast<const T*>(vy), static_cast<const T*>(vx),
+      static_cast<const int*>(order), static_cast<const int*>(toff),
+      static_cast<const int4*>(tent), static_cast<T*>(grid), C, nfy, nfx, m, w, ntx, nent);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int fftvis_interp_adjoint_f32(const void* g, const void* iy,
-                                         const void* ix, const void* vy,
-                                         const void* vx, const void* runs,
-                                         const void* order, void* grid, int C,
-                                         int nfy, int nfx, int m, int nruns,
-                                         int w, void* stream) {
-  return launch_interp_adjoint<float>(g, iy, ix, vy, vx, runs, order, grid, C,
-                                      nfy, nfx, m, nruns, w, stream);
+// The adjoint with respect to the grid: every cell of the (C, nfy, nfx)
+// grid written once from the owned-tile lists (toff (ntiles + 1,), tent
+// (nent, 4) int32: nufft/interp.py grid_tiles of the tables, TILE 32).
+extern "C" int fftvis_interp_adjoint_f32(const void* g, const void* vy, const void* vx,
+                                         const void* order, const void* toff,
+                                         const void* tent, void* grid, int C, int nfy,
+                                         int nfx, int m, int w, int ntiles, int nent,
+                                         void* stream) {
+  return launch_interp_adjoint<float>(g, vy, vx, order, toff, tent, grid, C, nfy, nfx, m, w,
+                                      ntiles, nent, stream);
 }
 
-extern "C" int fftvis_interp_adjoint_f64(const void* g, const void* iy,
-                                         const void* ix, const void* vy,
-                                         const void* vx, const void* runs,
-                                         const void* order, void* grid, int C,
-                                         int nfy, int nfx, int m, int nruns,
-                                         int w, void* stream) {
-  return launch_interp_adjoint<double>(g, iy, ix, vy, vx, runs, order, grid, C,
-                                       nfy, nfx, m, nruns, w, stream);
+extern "C" int fftvis_interp_adjoint_f64(const void* g, const void* vy, const void* vx,
+                                         const void* order, const void* toff,
+                                         const void* tent, void* grid, int C, int nfy,
+                                         int nfx, int m, int w, int ntiles, int nent,
+                                         void* stream) {
+  return launch_interp_adjoint<double>(g, vy, vx, order, toff, tent, grid, C, nfy, nfx, m,
+                                       w, ntiles, nent, stream);
 }
 
 extern "C" int fftvis_interp_f32(const void* G, const void* iy, const void* ix,

@@ -304,9 +304,6 @@ def _assemble(cfg: ProgramConfig, acc, fi: int) -> torch.Tensor:
             return r.basis.contract(acc.reshape(r.npairs, nf, nf, cfg.nbl), cfg.coefs, fi)
         out = torch.where(r.flipped[None, :], torch.conj(acc), acc)
         return out.reshape(nf, nf, cfg.nbl).permute(2, 1, 0)
-    # Grid channels a weight channel: K z-modes (c*K + k) on a non-coplanar
-    # array's type-3.
-    cm = ex.channel_multiplier if plan.mode == "type3" else 1
     if r.pad and plan.mode != "type3":
         # Batched over the padded routing: (P, nf2, m_max).
         out = acc if plan.mode == "direct" else ex.gather_padded(ex.transform(acc), r.sel_pad)
@@ -315,10 +312,13 @@ def _assemble(cfg: ProgramConfig, acc, fi: int) -> torch.Tensor:
         return out.reshape(r.npairs * r.m_max, nf, nf)[r.src_pos]
     if plan.mode == "direct":
         pair_outs = acc
+    elif plan.mode == "type3":
+        # Each pair reads its own channels (K z-modes each on a non-coplanar
+        # array) of one grid: one interpolation node for all of them.
+        pair_outs = ex.interpolate_pairs(ex.transform(acc), r.pair_plan.bls_idxs)
     else:
         G = ex.transform(acc)
-        get = ex.interpolate if plan.mode == "type3" else ex.gather
-        pair_outs = [get(G[p * nf2 * cm:(p + 1) * nf2 * cm], sel)
+        pair_outs = [ex.gather(G[p * nf2:(p + 1) * nf2], sel)
                      for p, sel in enumerate(r.pair_plan.bls_idxs)]
     vps = []
     for p, vp in enumerate(pair_outs):

@@ -39,13 +39,15 @@ footprints.
 
 The interpolation is linear in G, and its adjoint with respect to G is a
 scatter onto the grid: :func:`interp_adjoint` adds each target's taps,
-weighted, of a (C, m) gradient into a zeroed (C, nfy, nfx) grid -- the
-CUDA kernel ``interp_adjoint_runs`` on the same tables, order and runs
-(one warp a run, the run's rows summed in registers, one atomic a tap and
-channel) or :func:`interp_adjoint_plain` on the CPU.
-:class:`InterpFunction` binds the two for autograd; :func:`interp` takes it
-when G requires a gradient. ``launches`` and ``adjoint_launches`` count
-the two kernels' launches.
+weighted, of a (C, m) gradient into a (C, nfy, nfx) grid -- on the card
+the kernel ``interp_adjoint_tiles``, which owns 32 x 32 grid tiles and
+writes every cell once from the plan-time lists of :func:`grid_tiles`
+(the footprint rectangles on each tile; no fill, no atomics), or
+:func:`interp_adjoint_plain` on the CPU. :func:`interp_pairs` interpolates
+the channel slices of one grid, one a beam pair, and under autograd is one
+node (:class:`InterpPairsFunction`) whose backward writes one gradient;
+:func:`interp` is its one-pair case. ``launches`` and ``adjoint_launches``
+count the two kernels' launches.
 
 :func:`interp_nd` interpolates a grid of any dimension d = 1, 2, 3 (the
 public type-2 and type-3 transforms): d = 2 is :func:`interp`; d = 1, and
@@ -147,6 +149,77 @@ def footprint_runs(iy: np.ndarray, ix: np.ndarray, cap: int = RUN_CAP) -> np.nda
     first = np.repeat(np.cumsum(pieces) - pieces, pieces)
     cut = np.repeat(starts, pieces) + (np.arange(pieces.sum()) - first) * cap
     return np.append(cut, m).astype(np.int32)
+
+
+def _axis_segments(F: np.ndarray, tile: int):
+    """The pieces of each run's footprint along one axis: ``F`` the (nruns,
+    w) tap cells of that axis, cut where a cell is not the previous one
+    plus 1 (the periodic wrap) or lies in another tile. Returns, by run
+    then tap, (run, first tap, taps, tile, first cell within the tile)."""
+    nr, w = F.shape
+    new = np.ones((nr, w), dtype=bool)
+    new[:, 1:] = (F[:, 1:] != F[:, :-1] + 1) | (F[:, 1:] // tile != F[:, :-1] // tile)
+    run, a0 = np.nonzero(new)
+    seg = np.cumsum(new.ravel()) - 1
+    length = np.bincount(seg, minlength=run.size)
+    first = F[run, a0]
+    return run, a0, length, first // tile, first % tile
+
+
+def grid_tiles(iy: np.ndarray, ix: np.ndarray, runs: np.ndarray, nf,
+               tile: int = TILE) -> tuple[np.ndarray, np.ndarray]:
+    """The owned-tile lists of ``interp_adjoint_tiles``: for every ``tile``
+    x ``tile`` tile of the (nfy, nfx) grid ``nf`` (row-major over
+    ceil(nfy / tile) x ceil(nfx / tile) tiles), the runs whose w x w
+    footprint touches it, periodic wrap included, in run order.
+
+    ``iy``, ``ix`` are the (m, w) host tap tables in visiting order and
+    ``runs`` their :func:`footprint_runs`; a run's footprint is its first
+    row's cells. Each entry is one rectangle of a run's footprint inside one
+    tile: taps a0 .. a0 + na - 1 of the run's rows land on consecutive tile
+    rows from ly0, taps b0 .. b0 + nb - 1 on consecutive tile columns from
+    lx0 (a footprint of plan tables gives at most two pieces an axis; any
+    table decomposes so). Returns (offsets int32 (ntiles + 1,), entries
+    int32 (nent, 4)): entry = (first row k0, end row k1, geometry, staged
+    cells before it), geometry = ly0 | lx0 << 5 | a0 << 10 | (na - 1) << 14
+    | b0 << 18 | (nb - 1) << 22, staged cells the running sum of na * nb
+    over the entries in list order."""
+    nfy, nfx = (int(n) for n in nf)
+    if tile > 32:
+        raise ValueError(f"grid_tiles: tile {tile} > 32 (5 bits a local cell)")
+    iy, ix = np.asarray(iy, dtype=np.int64), np.asarray(ix, dtype=np.int64)
+    runs = np.asarray(runs, dtype=np.int64)
+    m, w = iy.shape
+    if w > 16:
+        raise ValueError(f"grid_tiles: kernel width {w} > 16")
+    ntx = -(-nfx // tile)
+    ntiles = -(-nfy // tile) * ntx
+    nonempty = np.flatnonzero(runs[:-1] < runs[1:])
+    heads = runs[nonempty]  # the runs' first rows
+    ys = _axis_segments(iy[heads], tile)
+    xs = _axis_segments(ix[heads], tile)
+    ny_run = np.bincount(ys[0], minlength=heads.size)
+    nx_run = np.bincount(xs[0], minlength=heads.size)
+    x_first = np.cumsum(nx_run) - nx_run
+    # Every (y piece, x piece) pair of a run, by run, then y piece, then x.
+    reps = nx_run[ys[0]]
+    ysel = np.repeat(np.arange(ys[0].size), reps)
+    xsel = x_first[ys[0][ysel]] + np.arange(reps.sum()) - np.repeat(np.cumsum(reps) - reps,
+                                                                      reps)
+    run = ys[0][ysel]
+    tid = ys[3][ysel] * ntx + xs[3][xsel]
+    geom = (ys[4][ysel] | xs[4][xsel] << 5 | ys[1][ysel] << 10 | (ys[2][ysel] - 1) << 14
+            | xs[1][xsel] << 18 | (xs[2][xsel] - 1) << 22)
+    size = ys[2][ysel] * xs[2][xsel]
+    by_tile = np.argsort(tid, kind="stable")
+    size = size[by_tile]
+    cum = np.cumsum(size) - size
+    if size.sum() >= 2**31:
+        raise ValueError("grid_tiles: the staged cells exceed the int32 range")
+    run = nonempty[run[by_tile]]
+    entries = np.stack([runs[run], runs[run + 1], geom[by_tile], cum], axis=1).astype(np.int32)
+    offsets = np.searchsorted(tid[by_tile], np.arange(ntiles + 1)).astype(np.int32)
+    return offsets, entries
 
 
 def bin_edge_3d(w: int, itemsize: int) -> int:
@@ -287,7 +360,7 @@ def _check(G, iy, ix, vy, vx, order, runs) -> None:
             raise ValueError(f"interp: {name} must be contiguous")
 
 
-def interp(G, iy, ix, vy, vx, order=None, runs=None) -> torch.Tensor:
+def interp(G, iy, ix, vy, vx, order=None, runs=None, tiles=None) -> torch.Tensor:
     """Interpolate G (C, nfy, nfx) complex at m targets with (m, w) taps.
 
     With ``order`` (m,) int32, row k of the tap tables is target
@@ -296,14 +369,42 @@ def interp(G, iy, ix, vy, vx, order=None, runs=None) -> torch.Tensor:
     the grid's device. The CUDA kernel needs it and the plain version
     ignores it. The kernel clamps every run to the table's rows, so a
     malformed ``runs`` gives wrong values, never an access out of bounds.
+    ``tiles`` (:func:`tile_tensors`) is what a gradient of G on the card
+    needs (:func:`interp_pairs`).
 
     A CPU tensor takes :func:`interp_plain`; a CUDA tensor launches the
     CUDA kernel; any other device raises.
     """
-    _check(G, iy, ix, vy, vx, order, runs)
+    return interp_pairs(G, [(0, G.shape[0], (iy, ix, vy, vx, order, runs, tiles))])[0]
+
+
+def interp_pairs(G, pairs) -> list:
+    """Interpolate disjoint channel slices of one grid G (C, nfy, nfx), each
+    at its own targets: ``pairs`` a list of (c0, c1, tables), tables =
+    (iy, ix, vy, vx, order, runs, tiles) as :func:`interp` takes them.
+    Returns the (c1 - c0, m_p) outputs in that order, each slice
+    interpolated as :func:`interp` does (one launch a pair on the card).
+
+    When G requires a gradient, one autograd node covers every pair
+    (:class:`InterpPairsFunction`): its backward writes one (C, nfy, nfx)
+    gradient, each pair's adjoint its own channels, with no slice backward,
+    no zero gradient of the whole grid and no sum. On the card that needs
+    every pair's ``tiles``."""
+    C = G.shape[0]
+    end = 0
+    for c0, c1 in sorted((c0, c1) for c0, c1, _ in pairs):
+        if not end <= c0 <= c1 <= C:
+            raise ValueError(f"interp: channel slices must be disjoint within [0, {C}), "
+                             f"got [{c0}, {c1})")
+        end = c1
+    for c0, c1, tabs in pairs:
+        _check(G[c0:c1], *tabs[:6])
     if torch.is_grad_enabled() and G.requires_grad:
-        return InterpFunction.apply(G, iy, ix, vy, vx, order, runs)
-    return _interp(G, iy, ix, vy, vx, order, runs)
+        if G.is_cuda and any(tabs[6] is None for _, _, tabs in pairs):
+            raise ValueError("interp: a gradient of the grid on the card needs every pair's "
+                             "tiles (grid_tiles of its tables)")
+        return list(InterpPairsFunction.apply(G, pairs))
+    return [_interp(G[c0:c1], *tabs[:6]) for c0, c1, tabs in pairs]
 
 
 def _interp(G, iy, ix, vy, vx, order, runs) -> torch.Tensor:
@@ -348,14 +449,25 @@ def _interp_cuda(G, iy, ix, vy, vx, order, runs) -> torch.Tensor:
     return out
 
 
-def interp_adjoint(g, iy, ix, vy, vx, nf, order=None, runs=None) -> torch.Tensor:
+def tile_tensors(iy, ix, runs, nf, device) -> tuple:
+    """:func:`grid_tiles` of host tables as the int32 (offsets, entries)
+    tensors ``interp_adjoint_tiles`` takes, on ``device``."""
+    offsets, entries = grid_tiles(iy, ix, runs, nf)
+    return (torch.tensor(offsets, dtype=torch.int32, device=device),
+            torch.tensor(entries, dtype=torch.int32, device=device))
+
+
+def interp_adjoint(g, iy, ix, vy, vx, nf, order=None, runs=None, tiles=None,
+                   out=None) -> torch.Tensor:
     """The adjoint of :func:`interp` with respect to G: the (C, m) complex
     gradient ``g`` (target order) scattered through the same tap tables,
-    ``order`` and ``runs`` onto a new (C, nfy, nfx) grid, ``nf`` = (nfy,
-    nfx).
+    ``order`` and ``runs`` onto a (C, nfy, nfx) grid, ``nf`` = (nfy, nfx):
+    a new one, or ``out`` (a contiguous (C, nfy, nfx) tensor, e.g. a
+    channel slice of a larger gradient), every cell of which is written.
 
     A CPU tensor takes :func:`interp_adjoint_plain`; a CUDA tensor launches
-    ``interp_adjoint_runs``, which needs ``runs``; any other device raises.
+    ``interp_adjoint_tiles``, which needs ``tiles`` (:func:`tile_tensors`
+    of the tables); any other device raises.
     """
     nfy, nfx = (int(v) for v in nf)
     g = g.contiguous()
@@ -364,39 +476,47 @@ def interp_adjoint(g, iy, ix, vy, vx, nf, order=None, runs=None) -> torch.Tensor
     if g.shape[1] != iy.shape[0]:
         raise ValueError(f"interp_adjoint: gradient has {m} targets, the tables "
                          f"{iy.shape[0]}")
+    if out is not None and (out.shape != (C, nfy, nfx) or out.dtype != g.dtype
+                            or out.device != g.device or not out.is_contiguous()):
+        raise ValueError(f"interp_adjoint: out must be a contiguous ({C}, {nfy}, {nfx}) "
+                         f"{g.dtype} tensor on {g.device}")
     if g.device.type == "cpu":
         if order is not None:
             g = g[:, order.long()]  # row k of the tables is target order[k]
-        return interp_adjoint_plain(g, iy, ix, vy, vx, nfy, nfx)
+        grid = interp_adjoint_plain(g, iy, ix, vy, vx, nfy, nfx)
+        return grid if out is None else out.copy_(grid)
     if g.device.type != "cuda":
         raise ValueError(f"interp_adjoint: unsupported device {g.device}")
-    if runs is None:
-        raise ValueError("interp_adjoint: a CUDA call needs runs (footprint_runs of the tables)")
-    return _interp_adjoint_cuda(g, iy, ix, vy, vx, nfy, nfx, order, runs)
+    if tiles is None:
+        raise ValueError("interp_adjoint: a CUDA call needs tiles (tile_tensors of the tables)")
+    toff, tent = tiles
+    ntiles = -(-nfy // TILE) * -(-nfx // TILE)
+    for name, t, shape in (("tile offsets", toff, (ntiles + 1,)),
+                           ("tile entries", tent, (tent.shape[0], 4))):
+        if (t.dtype != torch.int32 or t.device != g.device or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"interp_adjoint: {name} must be a contiguous int32 {shape} "
+                             f"tensor on {g.device}, got {tuple(t.shape)} {t.dtype}")
+    return _interp_adjoint_cuda(g, vy, vx, nfy, nfx, order, toff, tent, out)
 
 
-def _interp_adjoint_cuda(g, iy, ix, vy, vx, nfy: int, nfx: int, order, runs) -> torch.Tensor:
+def _interp_adjoint_cuda(g, vy, vx, nfy: int, nfx: int, order, toff, tent, out) -> torch.Tensor:
     global adjoint_launches
     from .._build import load_kernels
 
     lib = load_kernels()
     C, m = g.shape
-    w = iy.shape[1]
-    out = torch.zeros((C, nfy, nfx), dtype=g.dtype, device=g.device)
-    if m == 0 or C == 0:
+    # The kernel writes every cell: no zero pass.
+    if out is None:
+        out = torch.empty((C, nfy, nfx), dtype=g.dtype, device=g.device)
+    if C == 0:
         return out
     fn = (lib.fftvis_interp_adjoint_f32 if g.dtype == torch.complex64
           else lib.fftvis_interp_adjoint_f64)
     err = fn(
-        ctypes.c_void_p(g.data_ptr()),
-        ctypes.c_void_p(iy.data_ptr()),
-        ctypes.c_void_p(ix.data_ptr()),
-        ctypes.c_void_p(vy.data_ptr()),
-        ctypes.c_void_p(vx.data_ptr()),
-        ctypes.c_void_p(runs.data_ptr()),
-        ctypes.c_void_p(None if order is None else order.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        C, nfy, nfx, m, runs.shape[0] - 1, w,
+        *[ctypes.c_void_p(None if t is None else t.data_ptr())
+          for t in (g, vy, vx, order, toff, tent, out)],
+        C, nfy, nfx, m, vy.shape[1], toff.shape[0] - 1, tent.shape[0],
         ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream),
     )
     if err != 0:
@@ -405,22 +525,32 @@ def _interp_adjoint_cuda(g, iy, ix, vy, vx, nfy: int, nfx: int, order, runs) -> 
     return out
 
 
-class InterpFunction(torch.autograd.Function):
-    """:func:`interp` for autograd: ``apply(G, iy, ix, vy, vx, order,
-    runs)`` -> (C, m). The gradient of G is :func:`interp_adjoint` of the
-    output's gradient on the same tables; the tables get none."""
+class InterpPairsFunction(torch.autograd.Function):
+    """:func:`interp_pairs` for autograd: ``apply(G, pairs)`` -> the pairs'
+    (c1 - c0, m_p) outputs. The gradient of G is one (C, nfy, nfx) tensor,
+    each pair's :func:`interp_adjoint` writing its own channel slice of it
+    (channels no pair reads get zeros); the tables get none."""
 
     @staticmethod
-    def forward(ctx, G, iy, ix, vy, vx, order, runs):
-        ctx.save_for_backward(iy, ix, vy, vx, order, runs)
-        ctx.nf = tuple(G.shape[1:])
-        return _interp(G, iy, ix, vy, vx, order, runs)
+    def forward(ctx, G, pairs):
+        ctx.pairs = pairs
+        ctx.shape = tuple(G.shape)
+        return tuple(_interp(G[c0:c1], *tabs[:6]) for c0, c1, tabs in pairs)
 
     @staticmethod
-    def backward(ctx, g):
-        iy, ix, vy, vx, order, runs = ctx.saved_tensors
-        gG = interp_adjoint(g, iy, ix, vy, vx, ctx.nf, order, runs)
-        return gG, None, None, None, None, None, None
+    def backward(ctx, *grads):
+        C, nfy, nfx = ctx.shape
+        gG = torch.empty(ctx.shape, dtype=grads[0].dtype, device=grads[0].device)
+        end = 0
+        for (c0, c1, tabs), g in sorted(zip(ctx.pairs, grads), key=lambda pg: pg[0][0]):
+            if c0 > end:
+                gG[end:c0].zero_()  # channels no pair reads (none on the engine's path)
+            iy, ix, vy, vx, order, runs, tiles = tabs
+            interp_adjoint(g, iy, ix, vy, vx, (nfy, nfx), order, runs, tiles, out=gG[c0:c1])
+            end = c1
+        if end < C:
+            gG[end:].zero_()
+        return gG, None
 
 
 def interp_nd(G, idx, val, order=None, runs=None) -> torch.Tensor:

@@ -394,10 +394,16 @@ def device_bin_sort_3d(u, nf, w: int, edge: int):
     (``bin_count``, ``bin_scan``, ``bin_scatter``), which also gives each
     bin's first subproblem of SUBPROBLEM sources: (perm, offsets, sub),
     int64. Within a bin the order follows the sort's atomics. Counted by
-    ``sort_launches``."""
+    ``sort_launches``. Raises ``ValueError`` on an edge below 1 and on
+    coordinates that are not CUDA tensors, before the library loads."""
     global sort_launches
     from .._build import load_kernels
 
+    if int(edge) < 1:
+        raise ValueError(f"device_bin_sort_3d: bin edge {edge} < 1")
+    if len(u) != 3 or any(t.device.type != "cuda" for t in u):
+        raise ValueError("device_bin_sort_3d: the 3 coordinate vectors must be CUDA tensors, "
+                         f"got {[str(t.device) for t in u]}")
     n = u[0].shape[0]
     nbins = int(np.prod([-(-int(m) // edge) for m in nf]))
     dev = u[0].device

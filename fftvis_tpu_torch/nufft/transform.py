@@ -36,7 +36,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .interp import bin_order_3d, footprint_runs, interp_nd, target_order
+from .interp import (bin_order_3d, footprint_runs, interp_nd, interp_pairs, target_order,
+                     tile_tensors)
 from .kernels import (
     ESKernel,
     es_kernel_ft,
@@ -633,12 +634,51 @@ class Type3Executor:
             G.mul_(deconv[axis].reshape(s))
         return G
 
+    def _tiles(self, rdtype: torch.dtype, sel: np.ndarray | None = None):
+        """The owned-tile lists of the interpolation's adjoint on the card
+        (:func:`~.interp.tile_tensors`) of the d = 2 tables and runs that
+        :meth:`_taps` gives the kernels for ``rdtype`` and every target, or
+        ``sel``: built on the host once per (dtype, subset) from those very
+        tensors, so that the lists and the tables' row order come from one
+        decision, and kept beside them."""
+        key = ("tiles", rdtype, None if sel is None else np.asarray(sel).tobytes())
+        tiles = self._tables.get(key)
+        if tiles is None:
+            (iy, ix), _, _, runs = self._taps(rdtype, sel)
+            tiles = self._tables[key] = tile_tensors(
+                iy.cpu().numpy(), ix.cpu().numpy(), runs.cpu().numpy(), self.plan.nf,
+                self.device)
+        return tiles
+
     def interpolate(self, G: torch.Tensor, sel: np.ndarray | None = None) -> torch.Tensor:
         """Evaluate every planned target, or the subset ``sel`` (one beam
         pair's baselines), from G: (C, m) complex in target (subset)
         order."""
-        ti, tv, order, runs = self._taps(G.real.dtype, sel)
-        return interp_nd(G.contiguous(), ti, tv, order=order, runs=runs)
+        return self.interpolate_pairs(G, [sel])[0]
+
+    def interpolate_pairs(self, G: torch.Tensor, sels) -> list:
+        """Evaluate each beam pair's targets ``sels[p]`` (None: every
+        target) from its channels of G, the p-th of ``len(sels)`` equal
+        slices: a list of (C / len(sels), m_p) complex in subset order. At
+        d = 2 one :func:`~.interp.interp_pairs` call covers every pair, so
+        a gradient of G is one node that writes one gradient (on the card
+        through the owned-tile lists of :meth:`_tiles`, built only then)."""
+        G = G.contiguous()
+        cp = G.shape[0] // len(sels)
+        rdt = G.real.dtype
+        if self.plan.d != 2:
+            outs = []
+            for p, sel in enumerate(sels):
+                ti, tv, order, runs = self._taps(rdt, sel)
+                outs.append(interp_nd(G[p * cp:(p + 1) * cp], ti, tv, order=order, runs=runs))
+            return outs
+        grad = torch.is_grad_enabled() and G.requires_grad and G.is_cuda
+        pairs = []
+        for p, sel in enumerate(sels):
+            ti, tv, order, runs = self._taps(rdt, sel)
+            tiles = self._tiles(rdt, sel) if grad else None
+            pairs.append((p * cp, (p + 1) * cp, (*ti, *tv, order, runs, tiles)))
+        return interp_pairs(G, pairs)
 
 
 class Type3LowrankZExecutor(Type3Executor):
@@ -695,13 +735,13 @@ class Type3LowrankZExecutor(Type3Executor):
             g = self._tables[key] = torch.tensor(g_host, dtype=cdtype, device=self.device)
         return g
 
-    def interpolate(self, G: torch.Tensor, sel: np.ndarray | None = None) -> torch.Tensor:
-        """(C*K, nfy, nfx) -> (C, m[sel]): the 2D taps of all C*K channels,
-        then the z-mode contraction."""
-        o = super().interpolate(G, sel)  # (C*K, m)
+    def interpolate_pairs(self, G: torch.Tensor, sels) -> list:
+        """(C*K, nfy, nfx) -> each pair's (C / len(sels), m[sel]): the 2D
+        taps of its C*K / len(sels) channels, then the z-mode contraction."""
         K = self.zplan.K
-        o = o.reshape(o.shape[0] // K, K, o.shape[1])
-        return torch.einsum("ckm,mk->cm", o, self._g(G.dtype, sel))
+        return [torch.einsum("ckm,mk->cm", o.reshape(o.shape[0] // K, K, o.shape[1]),
+                             self._g(G.dtype, sel))
+                for o, sel in zip(super().interpolate_pairs(G, sels), sels)]
 
 
 def make_type3_lowrank_z_fn(zplan: Type3LowrankZPlan, device="cuda"):

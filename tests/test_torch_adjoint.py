@@ -3,12 +3,13 @@
 Each plain adjoint is held to the dot-product identity with its plain
 forward, <A c, g> = <c, A^H g> (1e-12 relative in float64), and to
 ``torch.autograd`` of that forward; ``torch.autograd.gradcheck`` runs every
-Function (``SpreadFunction``, ``InterpFunction``, ``BeamEvalFunction``,
+Function (``SpreadFunction``, ``InterpPairsFunction``, ``BeamEvalFunction``,
 ``BeamRowsFunction``, ``PairRowsFunction``) in float64 at tiny sizes, where
 on the CPU its backward calls the plain adjoints. On a CUDA card (marked
 ``cuda``; skipped without one) each adjoint kernel is held to its plain
 version: 1e-5 / 1e-12 of max|plain| in float32 / float64, because the
-kernels add with atomics in an order that changes from run to run.
+kernels sum in another order than the plain versions (the interp
+adjoint's owned tiles in list order, the table's in point order).
 """
 
 import numpy as np
@@ -284,11 +285,13 @@ def test_cuda_spread_adjoint_matches_plain(cuda_device, w, dtype):
 def test_cuda_interp_adjoint_matches_plain(cuda_device, repeat, dtype):
     rng, rows, order, runs, plain, nf, C = _interp_case(12, m=2000, nf=(64, 48), C=3, w=8,
                                                         dtype=dtype, repeat=repeat)
+    tiles = interp_mod.tile_tensors(rows[0].numpy(), rows[1].numpy(), runs.numpy(), nf,
+                                    cuda_device)
     rows = [t.to(cuda_device) for t in rows]
     g = _crandn(rng, (C, order.shape[0]), CDT[dtype]).to(cuda_device)
     before = interp_mod.adjoint_launches
     got = interp_mod.interp_adjoint(g, *rows, nf, order=order.to(cuda_device),
-                                    runs=runs.to(cuda_device))
+                                    runs=runs.to(cuda_device), tiles=tiles)
     assert interp_mod.adjoint_launches == before + 1
     want = interp_mod.interp_adjoint_plain(g, *[t.to(cuda_device) for t in plain], *nf)
     assert _rel(got, want) <= TOL[dtype]

@@ -52,6 +52,7 @@ from fftvis_tpu_torch.nufft import interp as interp_mod
 from fftvis_tpu_torch.nufft import spread as spread_mod
 
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+SORT_EDGE = 4  # the bin edge of the device bin sort's check
 CDT = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 
@@ -318,6 +319,18 @@ def test_nd_gradients_raise(d):
         run(torch.tensor(x), torch.tensor(c).requires_grad_())
 
 
+@pytest.mark.parametrize("edge", [0, -3])
+def test_device_bin_sort_refuses_bad_edge_and_cpu_tensors(edge):
+    """``device_bin_sort_3d`` refuses an edge below 1 and coordinates off the
+    card with ``ValueError``, before it loads the library (which this
+    machine may not be able to build)."""
+    u = [torch.zeros(5, dtype=torch.float64) for _ in range(3)]
+    with pytest.raises(ValueError, match="edge"):
+        spread_mod.device_bin_sort_3d(u, (16, 16, 16), 4, edge)
+    with pytest.raises(ValueError, match="CUDA"):
+        spread_mod.device_bin_sort_3d(u, (16, 16, 16), 4, SORT_EDGE)
+
+
 def test_torch_direct_oracles_match_numpy():
     rng = np.random.default_rng(2)
     x = rng.uniform(-np.pi, np.pi, (3, 70))
@@ -382,12 +395,13 @@ def test_cuda_nd_kernels_match_plain(cuda_device, d, case, dtype):
     tol = KERNEL_TOL[dtype] * want.abs().max().item()
     assert (got - want).abs().max().item() <= tol
     if d == 3:
-        edge = load_kernels().fftvis_spread_nd_bin_edge(int(dtype == torch.float64), w,
-                                                        int(np.prod(nf)), *nf)
-        perm, offsets, _ = spread_mod.device_bin_sort_3d(ut, nf, w, edge)
-        pperm, poffsets = spread_mod.bin_sort_3d(ut, nf, w, edge)
-        keys = spread_mod.bin_keys_3d(ut, nf, w, edge)
+        # The sort at a fixed edge; the SM form at its own (bins.cuh's) edge,
+        # which the library answers only where it picks that form.
+        perm, offsets, _ = spread_mod.device_bin_sort_3d(ut, nf, w, SORT_EDGE)
+        pperm, poffsets = spread_mod.bin_sort_3d(ut, nf, w, SORT_EDGE)
+        keys = spread_mod.bin_keys_3d(ut, nf, w, SORT_EDGE)
         assert torch.equal(offsets, poffsets) and torch.equal(keys[perm], keys[pperm])
+        edge = interp_mod.bin_edge_3d(w, torch.finfo(dtype).bits // 8)
         for form in (spread_mod._spread_gm_nd(ut, wt, zeros.clone(), w, beta),
                      spread_mod._spread_sm_3d(ut, wt, zeros.clone(), w, beta, edge)):
             torch.cuda.synchronize()

@@ -18,9 +18,9 @@ divergence. Tolerances relative to max|grad|: 1e-12 (float64), 1e-5
 forward-mode derivative (``torch.func.jvp``) of ``pair_rows_plain``, and
 ``PairRowsFunction`` on the CPU is it.
 
-On a CUDA card (marked ``cuda``; skipped without one):
-``pair_rows_adjoint_points`` against the plain version, in both its shared-
-and global-memory forms (K = 37 and 331), bitwise repeatable; the Function
+On a CUDA card (marked ``cuda``; skipped without one): the adjoint
+kernel against the plain version, in both its forms (the tile form at K =
+37, the global form at 331), bitwise repeatable; the Function
 launches it once and never calls ``pair_rows_plain`` on the card; the
 redesigned ``beam_eval_adjoint_points`` writes every table cell (the cells
 no point touches are exactly 0 after the caching allocator was filled with
@@ -170,19 +170,30 @@ def test_pair_rows_function_backward_is_the_adjoint(case):
     assert (gsky - want).abs().max() <= 1e-12 * want.abs().max()
 
 
-@pytest.mark.parametrize("pairs", list(PAIR_LISTS))
+# More pairs than one chunk of the tile kernel: 3 chunks, strided.
+LONG_PAIRS = [(i % K5, (3 * i + 1) % K5) for i in range(37)]
+
+
+@pytest.mark.parametrize("pairs", list(PAIR_LISTS) + ["long"])
 def test_pair_index_lists_every_role(pairs):
     """Beam k's entries are the pairs where it is first (e < P) and then
-    where it is second (e >= P), each in pair order; a beam past the last
-    index has none."""
-    p = np.asarray(PAIR_LISTS[pairs])
+    where it is second (e >= P), each in the tile kernel's chunk order (pair
+    q in chunk q % nch, slot q // nch); a beam past the last index has
+    none."""
+    p = np.asarray(LONG_PAIRS if pairs == "long" else PAIR_LISTS[pairs])
     P, nbeams = len(p), K5 + 2
     idx = eval_mod.pair_index(torch.tensor(p[:, 0], dtype=torch.int32),
                               torch.tensor(p[:, 1], dtype=torch.int32), nbeams)
     assert idx.dtype == torch.int32 and idx.shape == (nbeams + 1 + 2 * P,)
     off, ent = idx[:nbeams + 1].tolist(), idx[nbeams + 1:].tolist()
+    nch = -(-P // eval_mod.PAIR_ADJ_CHUNK)
+
+    def chunk_order(qs):
+        return sorted(qs, key=lambda q: (q % nch, q // nch))
+
     for k in range(nbeams):
-        want = [q for q in range(P) if p[q, 0] == k] + [P + q for q in range(P) if p[q, 1] == k]
+        want = (chunk_order([q for q in range(P) if p[q, 0] == k])
+                + [P + q for q in chunk_order([q for q in range(P) if p[q, 1] == k])])
         assert ent[off[k]:off[k + 1]] == want
 
 
@@ -223,7 +234,8 @@ def test_adjoint_refuses_a_wrong_gradient():
         eval_mod.pair_rows_adjoint(*args[:5], args[5].to(torch.complex64), (2, 2, 2), False)
 
 
-@pytest.mark.parametrize("kernel", ["beam_eval_adjoint_points", "pair_rows_adjoint_points"])
+@pytest.mark.parametrize("kernel", ["beam_eval_adjoint_points", "pair_rows_adjoint_points",
+                                    "pair_rows_adjoint_tile"])
 def test_adjoint_kernels_own_their_outputs(kernel):
     """Neither adjoint kernel adds into its output with an atomic: the table
     gradient's tiles and the evaluations' gradient are each written once,
@@ -255,9 +267,10 @@ def _north_star_pairs(K, P, rng):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", list(CASES))
 def test_cuda_pair_rows_adjoint_matches_plain(cuda_device, case, dtype, shape):
-    """K = 37 stages the tile's evaluations in shared memory; K = 331 (a
-    beam an antenna of HERA-331) takes the global-memory form for a Jones
-    stack. The ragged 4000-point block ends on a partial tile."""
+    """K = 37 takes the tile form (the evaluations and the gradient rows
+    in shared memory); K = 331 (a beam an antenna of HERA-331) takes the
+    global form for a Jones stack. The ragged 4000-point block ends on a
+    partial tile."""
     K, n, masked = {"K37-n4096": (37, 4096, False), "K37-n4000-half": (37, 4000, True),
                     "K331-n4096-half": (331, 4096, True)}[shape]
     ch_shape, is_power, iquv = CASES[case]

@@ -22,18 +22,21 @@ device time (device-side events only, copies and fills left out), and the
 synchronizing CUDA calls of one more warm call (``sync_count``).
 
 With ``--grad`` first, each ROOT runs instead ``chip_smoke.py``'s gradient
-step (a) (the root's): the north star at precision 2 with its fluxes,
-stacked beam table and gains as parameters, the loss sum |sim - data|^2
-against the forward at a seeded perturbation. After one warm step,
-``GRAD_STEPS`` steps are timed on the host clock, forward and backward
-each ending in a synchronize; then one backward of a recorded forward
-runs under torch.profiler (``device_kernels``: its device kernels, busy,
-host op time and largest entries). Then the table adjoint alone, on
-random (91, 360, ch) tables at 4096 points, order 1, float32 and float64,
-at (a)'s ch = 296 and (c)'s 32: ``beam_eval_adjoint_points`` alone and
-every device event of a call (the parent's zero fill, the change's tile
-sort). Each line also gives the adjoint launches a step that the root
-counts.
+steps (a), (b) and (c) (the root's), a line each: (a) the north star at
+precision 2 with its fluxes, stacked beam table and gains as parameters;
+(b) the polarized slice, forced type-3, at precision 1, 2 frequencies x 3
+times (one beam pair), with its fluxes and gains; (c) per-antenna type-3
+on the slice at precision 1 (4 beams, 10 pairs) with (a)'s parameters;
+the loss sum |sim - data|^2 against the forward at a seeded
+perturbation. After one warm step, ``GRAD_STEPS`` steps are
+timed on the host clock, forward and backward each ending in a
+synchronize; then one backward of a recorded forward runs under
+torch.profiler (``device_kernels``: its device kernels, busy, host op
+time and largest entries). After (a), the table adjoint alone, on random
+(91, 360, ch) tables at 4096 points, order 1, float32 and float64, at
+(a)'s ch = 296 and (c)'s 32: ``beam_eval_adjoint_points`` alone and every
+device event of a call. Each line also gives the adjoint launches a step
+that the root counts.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from device_profile import device_kernels
 FREQS = (1.0e8, 1.1e8)
 CALLS = 10
 GRAD_STEPS = 8
-TOP = 12
+TOP = 16
 PROFILED = ("simulate_vis", "plan_transform", "prepare_beam", "run_program",
             "_device_tables", "_taps", "target_order", "footprint_runs", "beam_rows", "eval_grid",
             "apparent_coherency_rows", "prepare_beam_list", "prepare_beams", "stack_prepared",
@@ -126,31 +129,63 @@ def grad_child(root: str) -> None:
     import chip_smoke as cs
     from fftvis_tpu_torch import build_differentiable_sim
     from fftvis_tpu_torch.beams import eval as eval_mod
+    from fftvis_tpu_torch.nufft import interp as interp_mod
+    from fftvis_tpu_torch.nufft import spread as spread_mod
 
-    sim, params = build_differentiable_sim(
-        differentiate_beam=True, differentiate_gains=True, device="cuda",
-        **dict(cs.north_star_config(), precision=2))
-    loss = cs.grad_setup(sim, params, 31)
-    plist = list(params.values())
+    counted = [(eval_mod, k) for k in ("pair_adjoint_launches", "adjoint_launches",
+                                       "pair_plain_cuda_calls")]
+    counted += [(interp_mod, "adjoint_launches"), (spread_mod, "adjoint_launches")]
+    counted = [(mod, k) for mod, k in counted if hasattr(mod, k)]
+    cfg = cs.slice_config()
+    table = {"differentiate_beam": True}
+    runs = (("a", dict(cs.north_star_config(), precision=2), table, 31),
+            ("b", dict(cs.run_kwargs(cfg, cs.RUNS[2]), precision=1, fluxes=cfg["fluxes"][:, :2],
+                       freqs=cfg["freqs"][:2], times=cfg["times"][:3]), {}, 32),
+            ("c", cs.per_antenna_config(cfg), dict(table, nufft_mode="type3"), 33))
+    for run, kw, extra, seed in runs:
+        sim, params = build_differentiable_sim(differentiate_gains=True, device="cuda", **extra,
+                                               **kw)
+        loss = cs.grad_setup(sim, params, seed)
+        plist = list(params.values())
 
-    def step():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        def step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = loss(params)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.autograd.grad(value, plist)
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1
+
+        step()
+        before = {(mod.__name__, k): getattr(mod, k) for mod, k in counted}
+        fwd, bwd = zip(*(step() for _ in range(GRAD_STEPS)))
+        counts = {f"{name.rsplit('.', 1)[-1]}.{k}": (getattr(mod, k) - before[(name, k)])
+                  / GRAD_STEPS for mod, k in counted for name in [mod.__name__]}
         value = loss(params)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        torch.autograd.grad(value, plist)
-        torch.cuda.synchronize()
-        return t1 - t0, time.perf_counter() - t1
+        dev = device_kernels(lambda: torch.autograd.grad(value, plist, retain_graph=True),
+                             top=TOP)
+        line = {"root": root, "run": run, "forward_s": list(fwd), "backward_s": list(bwd),
+                "backward_busy_ms": dev["busy_us"] / 1e3,
+                "backward_device_kernels": dev["kernels"],
+                "backward_host_op_ms": dev["host_us"] / 1e3,
+                "host_top": dev["host_top"], "device_top": dev["device_top"],
+                "launches_a_step": counts, "card": cs.card_line()}
+        del sim, params, loss, plist, value
+        torch.cuda.empty_cache()
+        if run == "a":
+            line["table_adjoint"] = table_adjoint(cs, eval_mod)
+        print(json.dumps(line), flush=True)
 
-    step()
-    names = [k for k in ("pair_adjoint_launches", "adjoint_launches", "pair_plain_cuda_calls")
-             if hasattr(eval_mod, k)]
-    before = {k: getattr(eval_mod, k) for k in names}
-    fwd, bwd = zip(*(step() for _ in range(GRAD_STEPS)))
-    counts = {k: (getattr(eval_mod, k) - v) / GRAD_STEPS for k, v in before.items()}
-    value = loss(params)
-    dev = device_kernels(lambda: torch.autograd.grad(value, plist, retain_graph=True), top=TOP)
+
+def table_adjoint(cs, eval_mod) -> dict:
+    """``beam_eval_adjoint_points`` alone and every device event of a call,
+    on random (91, 360, ch) tables at 4096 points, order 1, at (a)'s ch =
+    296 and (c)'s 32, float32 and float64."""
+    import numpy as np
+    import torch
+
     table = {}
     rng = np.random.default_rng(7)
     for dt in (torch.float32, torch.float64):
@@ -163,13 +198,7 @@ def grad_child(root: str) -> None:
                                "beam_eval_adjoint_points")
             table[f"{str(dt)[6:]} ({ch})"] = {"kernel_us": d["device_us"],
                                                "call_busy_us": d["busy_us"]}
-    print(json.dumps({"root": root, "forward_s": list(fwd), "backward_s": list(bwd),
-                      "backward_busy_ms": dev["busy_us"] / 1e3,
-                      "backward_device_kernels": dev["kernels"],
-                      "backward_host_op_ms": dev["host_us"] / 1e3,
-                      "host_top": dev["host_top"], "device_top": dev["device_top"],
-                      "launches_a_step": counts, "table_adjoint": table,
-                      "card": cs.card_line()}), flush=True)
+    return table
 
 
 def sync_count(fn) -> int:
