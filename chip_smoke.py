@@ -77,8 +77,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
      14,365 targets; gates 1e-5 / 1e-12 of max|plain|, the kernel alone,
      the bound and the sparse yardsticks beside each;
    - the adjoint kernels at their forward kernels' shapes, float32 and
-     float64: spread_adjoint (the slice grids, C = 1 and 4, uniform and
-     dense; the per-antenna run's C = 40), interp_adjoint (the slice
+     float64: spread_adjoint (the slice grids, C = 1, 3 and 4, and the
+     per-antenna run's grid, C = 33 and 40, uniform sources, each timed;
+     dense sources, sources on the wrap and a ragged n = 4095 at C = 1, 3
+     and 40; two calls equal bit for bit), interp_adjoint (the slice
      executor's tables, C = 1 and 4; every pair's target subset of the
      per-antenna executor; the owned-tile kernel alone beside the first
      form's copied times, bitwise repeatable, one call's device events the
@@ -114,7 +116,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
      type-2 plan of 100,000 non-redundant points on (a)'s grid (one-row
      footprint runs); the d = 1 entries (``spread_gm_1d``,
      ``interp_taps_nd``) at 100,000 uniform points on a 10^6-cell line, C
-     = 1; both d = 3 forms of each (``spread_gm_3d`` and ``spread_sm_3d``
+     = 1 (the spread at C = 4 too, beside its first form's copied times,
+     and at C = 1 and 4 with half the weights zero, sources on the wrap
+     and a ragged n, untimed); both d = 3 forms of each (``spread_gm_3d`` and ``spread_sm_3d``
      with its device bin sort, ``interp_taps_nd`` and ``interp_sm_3d``) on
      cases (i)-(iv) (ND3_CASES), C = 1 and 4; float32 (w = 8) and float64
      (w = 14): gates 1e-5 / 1e-12 of max|plain|, the wrapper, the kernel
@@ -520,13 +524,17 @@ def interp_library(G, iy, ix, vy, vx):
     return lambda: torch.sparse.mm(T, Gt)
 
 
-def spread_sources(case: str, nfy: int, nfx: int, C: int, rng):
+def spread_sources(case: str, nfy: int, nfx: int, C: int, rng, n: int = SPREAD_SOURCES):
     """(uy, ux, weights) of one phase-3 source set, as numpy arrays."""
-    n = SPREAD_SOURCES
     if case == "dense":
         y0, x0 = rng.uniform(0, nfy), rng.uniform(0, nfx)
         uy = np.mod(y0 + rng.uniform(0, DENSE_PATCH, n), nfy)
         ux = np.mod(x0 + rng.uniform(0, DENSE_PATCH, n), nfx)
+    elif case == "wrap":
+        # Within 8 cells of the grid's edges, and two exactly on nf: every
+        # footprint crosses the wrap.
+        uy, ux = (np.mod(rng.uniform(-8, 8, n), m) for m in (nfy, nfx))
+        uy[:2], ux[:2] = nfy, (nfx, 0.0)
     else:
         uy, ux = rng.uniform(0, nfy, n), rng.uniform(0, nfx, n)
     wts = rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n))
@@ -2179,11 +2187,24 @@ def nd_taps(u, nf, w: int, beta: float):
     return idx, val
 
 
-def check_spread_nd(d: int, rdt, cdt, rng) -> tuple:
+# The first form of spread_gm_1d (a warp a source, lane k < w adding tap k)
+# at ND_POINTS uniform sources on ND_GRIDS[1], by (dtype, C): its kernel
+# alone, copied from the parent runs of tools/kernel_ab.py --spread (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 6 row 1b), not measured by this
+# script.
+GM_SPREAD_D1_US = {("float32", 1): "22.13-22.15 us", ("float32", 4): "27.65-27.66 us",
+                   ("float64", 1): "29.56-29.63 us", ("float64", 4): "105.57-105.63 us"}
+
+
+def check_spread_nd(d: int, rdt, cdt, rng, C: int = 1, case: str = "uniform",
+                    timed: bool = True) -> tuple:
     """The d = 1 spread entry against its plain version on ND_POINTS
-    uniform sources on ND_GRIDS[d], C = 1: the wrapper, the kernel alone,
-    the plain version, the bound and ``sparse.addmm`` with the (cells, n)
-    CSR of the ES weights. Returns the kernels-line row."""
+    sources on ND_GRIDS[d] (``case``: uniform; half-zero, every other
+    source's weights zero; wrap, within 8 cells of the ends and two on
+    them; ragged, ND_POINTS - 37 uniform sources), C channels; with
+    ``timed``, the wrapper, the kernel alone beside the first form's copied
+    time, the plain version, the bound and ``sparse.addmm`` with the
+    (cells, n) CSR of the ES weights. Returns the kernels-line row."""
     import torch
 
     from fftvis_tpu_torch.nufft import spread as spread_mod
@@ -2191,16 +2212,30 @@ def check_spread_nd(d: int, rdt, cdt, rng) -> tuple:
 
     name = str(rdt).split(".")[-1]
     k = ESKernel.from_eps(EPS[1 if name == "float32" else 2])
-    w, beta, nf, n = k.w, k.beta, ND_GRIDS[d], ND_POINTS
-    u = [torch.tensor(rng.uniform(0, m, n), dtype=rdt, device="cuda") for m in nf]
-    wts = torch.tensor(rng.normal(size=(1, n)) + 1j * rng.normal(size=(1, n)), dtype=cdt,
-                       device="cuda")
-    got = spread_mod.spread_nd(u, wts, torch.zeros((1,) + nf, dtype=cdt, device="cuda"), w,
+    w, beta, nf = k.w, k.beta, ND_GRIDS[d]
+    n = ND_POINTS - 37 if case == "ragged" else ND_POINTS
+    u_np = [rng.uniform(0, m, n) for m in nf]
+    if case == "wrap":
+        u_np = [np.mod(rng.uniform(-8, 8, n), m) for m in nf]
+        u_np[0][:2] = (nf[0], 0.0)
+    w_np = rng.normal(size=(C, n)) + 1j * rng.normal(size=(C, n))
+    if case == "half-zero":
+        w_np[:, ::2] = 0
+    u = [torch.tensor(a, dtype=rdt, device="cuda") for a in u_np]
+    wts = torch.tensor(w_np, dtype=cdt, device="cuda")
+    got = spread_mod.spread_nd(u, wts, torch.zeros((C,) + nf, dtype=cdt, device="cuda"), w,
                                beta)
     want = spread_mod.spread_nd_plain(u, wts, torch.zeros_like(got), w, beta)
     torch.cuda.synchronize()
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
+    head = (f"[3] spread_d{d} {name} {case}: grid {nf} w={w} n={n} C={C}: max err {err:.3e} = "
+            f"{err / scale:.3e} of max|plain|")
+    if not err <= TOL[name] * scale:
+        raise AssertionError(f"{head}: spread_d{d} {name} disagrees with its plain version")
+    if not timed:
+        print(head, flush=True)
+        return err, None, None, None, None
     acc = torch.zeros_like(got)
     ms = cuda_ms(lambda: spread_mod.spread_nd(u, wts, acc, w, beta), 20)
     plain = cuda_ms(lambda: spread_mod.spread_nd_plain(u, wts, acc, w, beta), 3)
@@ -2209,15 +2244,15 @@ def check_spread_nd(d: int, rdt, cdt, rng) -> tuple:
     flat_idx, vals = spread_mod.spread_taps_nd(u, nf, w, beta)
     rb = 4 if name == "float32" else 8
     cells = torch.unique(flat_idx).numel()
-    nbytes = 2 * cells * 2 * rb + d * n * rb + n * 2 * rb
-    (b_ms, b_by) = bound(nbytes, n * (8 * d * w + 3 * w**d), name)
+    nbytes = 2 * cells * C * 2 * rb + d * n * rb + C * n * 2 * rb
+    (b_ms, b_by) = bound(nbytes, n * (8 * d * w + (2 * C + 1) * w**d), name)
     lib_ms, lib_txt = None, ""
     src = torch.arange(n, device="cuda").repeat_interleave(w**d)
 
     def make():
         S = torch.sparse_coo_tensor(torch.stack([flat_idx, src]), vals.reshape(-1).to(cdt),
                                     (int(np.prod(nf)), n)).coalesce().to_sparse_csr()
-        Wt, Gt = wts.T.contiguous(), torch.zeros((int(np.prod(nf)), 1), dtype=cdt,
+        Wt, Gt = wts.T.contiguous(), torch.zeros((int(np.prod(nf)), C), dtype=cdt,
                                                  device="cuda")
         return lambda: torch.sparse.addmm(Gt, S, Wt)
 
@@ -2225,11 +2260,10 @@ def check_spread_nd(d: int, rdt, cdt, rng) -> tuple:
     if lib is not None:
         lib_ms = cuda_ms(lib, 3)
         lib_txt = f"; sparse.addmm {lib_ms:.4f} ms"
-    print(f"[3] spread_d{d} {name}: grid {nf} w={w} n={n} C=1: max err {err:.3e} = "
-          f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone {us_txt(alone)}), plain "
-          f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells){lib_txt}", flush=True)
-    if not err <= TOL[name] * scale:
-        raise AssertionError(f"spread_d{d} {name} disagrees with its plain version")
+    old = GM_SPREAD_D1_US.get((name, C), "not measured")
+    print(f"{head}; kernel {ms:.4f} ms (alone {us_txt(alone)}, {bound_share(b_ms, alone)} of the "
+          f"bound; the first form alone {old}), plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}, {cells} cells){lib_txt}", flush=True)
     del flat_idx, vals, src, lib
     torch.cuda.empty_cache()
     return err, ms, plain, (b_ms, b_by), lib_ms
@@ -2648,6 +2682,10 @@ def check_es_kernels(es_a, es_b) -> dict:
     for rdt, cdt in ((torch.float32, torch.complex64), (torch.float64, torch.complex128)):
         name = str(rdt).split(".")[-1]
         rows[f"spread_d1_{name}"] = check_spread_nd(1, rdt, cdt, rng)
+        check_spread_nd(1, rdt, cdt, rng, C=4)
+        for case in ("half-zero", "wrap", "ragged"):
+            for C in (1, 4):
+                check_spread_nd(1, rdt, cdt, rng, C=C, case=case, timed=False)
         rows[f"interp_d1_{name}"] = check_interp_nd(1, rdt, cdt, rng)
     return rows
 
@@ -2848,34 +2886,46 @@ def csr(rows, cols, vals, shape):
 
 
 def check_spread_adjoint(name, rdt, cdt, grid, w: int, beta: float, C: int, case: str, rng,
-                         label: str = "") -> tuple:
+                         label: str = "", n: int = SPREAD_SOURCES, timed: bool = True) -> tuple:
     """One phase-3 spread_adjoint case: the wrapper against its plain
-    version for a random (C, nfy, nfx) grid gradient, the identity <spread
-    c, g> = <c, spread_adjoint g> with the forward kernel, the kernel alone,
-    the bound (the touched cells of the C planes read once, coordinates,
-    the (C, n) output written once) and ``sparse.mm`` of the transposed ES
-    CSR."""
+    version for a random (C, nfy, nfx) grid gradient, two calls equal bit
+    for bit, and the identity <spread c, g> = <c, spread_adjoint g> with
+    the forward kernel; with ``timed``, the wrapper, the plain version, the
+    kernel alone, the bound (the touched cells of the C planes read once,
+    coordinates, the (C, n) output written once) and ``sparse.mm`` of the
+    transposed ES CSR."""
     import torch
 
     from fftvis_tpu_torch.nufft import spread as spread_mod
 
     nfy, nfx = grid
-    uy_np, ux_np, c_np = spread_sources(case, nfy, nfx, C, rng)
+    uy_np, ux_np, c_np = spread_sources(case, nfy, nfx, C, rng, n)
     uy, ux = (torch.tensor(a, dtype=rdt, device="cuda") for a in (uy_np, ux_np))
     c = torch.tensor(c_np, dtype=cdt, device="cuda")
     g = torch.complex(torch.randn((C, nfy, nfx), dtype=rdt, device="cuda"),
                       torch.randn((C, nfy, nfx), dtype=rdt, device="cuda"))
     got = spread_mod.spread_adjoint(uy, ux, g, w, beta)
+    again = spread_mod.spread_adjoint(uy, ux, g, w, beta)
     want = spread_mod.spread_adjoint_plain(uy, ux, g, w, beta)
     err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    repeat = torch.equal(torch.view_as_real(got), torch.view_as_real(again))
     Ac = spread_mod.spread(uy, ux, c, torch.zeros_like(g), w, beta)
     ident = identity_err(vdot(Ac, g), vdot(c, got))
-    del Ac, want
+    del Ac, want, again
+    head = (f"[3] spread_adjoint {name} {case}{label}: grid ({nfy}, {nfx}) w={w} n={n} C={C}: "
+            f"max err {err:.3e} = {err / scale:.3e} of max|plain|, identity {ident:.3e}, "
+            f"bitwise repeat {repeat}")
+    if not repeat:
+        raise AssertionError(f"spread_adjoint {name}: two calls differ")
+    if not timed:
+        print(head, flush=True)
+        del g, got
+        torch.cuda.empty_cache()
+        return adjoint_row(name, "spread_adjoint", err, scale, ident, None, None, None, None)
     ms = cuda_ms(lambda: spread_mod.spread_adjoint(uy, ux, g, w, beta), 20)
     plain = cuda_ms(lambda: spread_mod.spread_adjoint_plain(uy, ux, g, w, beta), 5)
-    alone = kernel_us(lambda: spread_mod.spread_adjoint(uy, ux, g, w, beta), "spread_adjoint_gm")
+    alone = kernel_us(lambda: spread_mod.spread_adjoint(uy, ux, g, w, beta), "spread_adjoint")
     flat_idx, vals = spread_mod.spread_taps(uy, ux, nfy, nfx, w, beta)
-    n = uy.shape[0]
     rb = 4 if name == "float32" else 8
     cells = torch_unique_count(flat_idx)
     bnd = bound(cells * C * 2 * rb + 2 * n * rb + C * n * 2 * rb,
@@ -2891,11 +2941,9 @@ def check_spread_adjoint(name, rdt, cdt, grid, w: int, beta: float, C: int, case
         if lib is not None:
             lib_ms = cuda_ms(lib, 5)
             lib_txt = f"; sparse.mm {lib_ms:.4f} ms"
-    print(f"[3] spread_adjoint {name} {case}{label}: grid ({nfy}, {nfx}) w={w} n={n} C={C}: "
-          f"max err {err:.3e} = {err / scale:.3e} of max|plain|, identity {ident:.3e}; "
-          f"kernel {ms:.4f} ms "
-          f"(alone {us_txt(alone)}), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, "
-          f"{cells} cells){lib_txt}", flush=True)
+    print(f"{head}; kernel {ms:.4f} ms (alone {us_txt(alone)}, {bound_share(bnd[0], alone)} of "
+          f"the bound), plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, {cells} cells)"
+          f"{lib_txt}", flush=True)
     del g, got
     torch.cuda.empty_cache()
     return adjoint_row(name, "spread_adjoint", err, scale, ident, ms, plain, bnd, lib_ms)
@@ -3420,14 +3468,25 @@ def check_adjoints(cfg, pa, ns) -> dict:
         name = str(rdt).split(".")[-1]
         plan = plan_type3(targets, x_extent=x_ext, eps=eps)
         w, beta, nf = plan.kernel.w, plan.kernel.beta, plan.nf
-        for C in (1, 4):
-            for case in ("uniform", "dense"):
-                row = check_spread_adjoint(name, rdt, cdt, nf, w, beta, C, case, rng)
-                if (C, case) == (4, "uniform"):
-                    out["spread_adjoint"][name] = row
+        # The slice grids at C = 1, 3, 4 and (c)'s grid at C = 33 and 40 (its
+        # 4 x 10 pairs' channels), each uniform and timed; dense sources,
+        # sources on the wrap and a ragged n = 4095 checked at C = 1, 3 and
+        # 40.
         p = pa_ex.plan
-        check_spread_adjoint(name, rdt, cdt, p.nf, p.kernel.w, p.kernel.beta, 4 * pp.npairs,
-                             "uniform", rng, label=f" per-antenna ({pp.npairs} pairs)")
+        for grid, gw, gbeta, Cs, C_more, label in (
+                (nf, w, beta, (1, 3, 4), (1, 3), ""),
+                (p.nf, p.kernel.w, p.kernel.beta, (33, 4 * pp.npairs), (4 * pp.npairs,),
+                 f" per-antenna ({pp.npairs} pairs)")):
+            for C in Cs:
+                row = check_spread_adjoint(name, rdt, cdt, grid, gw, gbeta, C, "uniform", rng,
+                                           label=label)
+                if C == 4:
+                    out["spread_adjoint"][name] = row
+            for C in C_more:
+                for case, n in (("dense", SPREAD_SOURCES), ("wrap", SPREAD_SOURCES),
+                                ("uniform", SPREAD_SOURCES - 1)):
+                    check_spread_adjoint(name, rdt, cdt, grid, gw, gbeta, C, case, rng,
+                                         label=label, n=n, timed=False)
         ex = Type3Executor(plan, device="cuda")
         ti, tv, order, runs = ex._taps(rdt)
         plain = [torch.tensor(a, dtype=dt, device="cuda") for a, dt in

@@ -50,18 +50,34 @@
 // source evaluates its 2w ES values once, as spread_gm does; the lanes then
 // take the w^2 taps (lane t, t + 32, ...), read each tap's cell of every
 // channel, and a __shfl_xor_sync reduction sums a channel. Outputs are
-// disjoint: no atomics, and the result does not depend on the run. Bound:
-// the touched cells of the C planes read once, the coordinates, and the
-// (C, n) output written once.
+// disjoint: no atomics, every output written once, a fixed order of
+// summation, so two runs agree bit for bit. Bound: the touched cells of the
+// C planes read once, the coordinates, and the (C, n) output written once.
+// What holds it to 39% of that at C = 40 in float32: on a 4.25 GB gradient
+// every (channel, tap row) of a source is its own scattered device-memory
+// segment of w cells, 7 in 8 of them across a 64-byte boundary at w = 8,
+// and the time follows the count of those segments whatever the lanes do:
+// rows aligned to 64 bytes take 28% less (tools/kernel_ab.py --spread).
+// Other shapes of the lanes (a lane group over a tap row's columns, or a
+// lane group a channel) were no faster at C = 40 and are not kept (PERF.md
+// row 5). A layout with the channels last would make a source's channels
+// of a row one segment.
 //
-// spread_gm_1d and spread_gm_3d are the same GM method on a 1D (C, n0) and
-// a 3D (C, n0, n1, n2) periodic grid, for the public type-1 and type-3
+// spread_gm_1d and spread_gm_3d are the GM method on a 1D (C, n0) and a 3D
+// (C, n0, n1, n2) periodic grid, for the public type-1 and type-3
 // transforms at d = 1 and d = 3 (the JAX package spreads those with XLA:
 // _spread_scatter, and on the TPU _spread_3d_ztaps, a scan of 2D spreads
-// over the planes of the last axis). One warp a source, its ES values
-// evaluated once, every tap added with an atomic, zero-weight sources
-// skipped, w a template parameter (2..16):
-// - D = 1: lane k < w holds psi(k) and adds tap k of every channel;
+// over the planes of the last axis). Their ES values are evaluated once a
+// source, every tap is added with an atomic, zero-weight sources are
+// skipped, w is a template parameter (2..16):
+// - D = 1: a block takes 128 sources. A thread a source evaluates its w ES
+//   values into shared memory (unless its C weights are all zero), the
+//   weights of 8 channels at a time follow, and the block's 256 threads
+//   then take (source, tap[, re/im]) items in order: consecutive lanes add
+//   a source's consecutive cells, so every lane carries work and a warp's
+//   atomics cover whole tap rows (the first form, a warp a source, left 24
+//   of 32 lanes idle at w = 8). What bounds it is the atomics' rate in L2
+//   (PERF.md row 1b);
 // - D = 3: the lanes cover the (axis-1, axis-2) taps exactly as spread_gm
 //   covers (y, x) -- a group of lanes a contiguous tap row of the last
 //   axis, so a warp's atomics hit whole rows -- and a loop over the w
@@ -304,28 +320,78 @@ __device__ __forceinline__ bool any_weight(const T* __restrict__ wts, long long 
   return __any_sync(kFull, nonzero);
 }
 
+// spread_gm_1d: a block of kD1Sources sources and kD1Threads threads.
+constexpr int kD1Sources = 128;
+constexpr int kD1Threads = 256;
+constexpr int kD1Chunk = 8;  // channels' weights in shared memory at a time
+
 template <typename T, int W>
-__global__ void spread_gm_1d(
+__global__ void __launch_bounds__(kD1Threads) spread_gm_1d(
     const T* __restrict__ u0,
     const T* __restrict__ wts,      // (C, n, 2) interleaved re/im
     T* __restrict__ grid,           // (C, n0, 2) interleaved re/im
     int n, int C, int n0, T beta) {
-  const long long j = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (j >= n) return;  // whole warps only: blockDim.x is a multiple of 32
-  const int lane = threadIdx.x & 31;
-  if (!any_weight(wts, j, n, C, lane) || lane >= W) return;
-
-  const T u = u0[j];
-  const T cell = floor(u);
-  const T frac = u - cell;
-  const long long i0 = static_cast<long long>(ceil(u - T(W) / T(2)));
-  const T psi = es_kernel((cell - T(i0 + lane)) + frac, W, beta);
-  if (psi == T(0)) return;
-  const long long off = static_cast<long long>(wrap(i0 + lane, n0)) * 2;
-  for (int c = 0; c < C; ++c) {
-    const T* wc = wts + (static_cast<long long>(c) * n + j) * 2;
-    if (wc[0] == T(0) && wc[1] == T(0)) continue;
-    add_complex(grid + static_cast<long long>(c) * n0 * 2 + off, psi * wc[0], psi * wc[1]);
+  constexpr int PER_TAP = sizeof(T) == 4 ? 1 : 2;
+  constexpr int L = W * PER_TAP;  // items a source: (tap[, re/im])
+  using V = typename Vec2<T>::type;
+  __shared__ T psi_s[kD1Sources][W];
+  __shared__ int first_s[kD1Sources];  // first tap cell mod n0, or -1: skip
+  __shared__ V w_s[kD1Chunk][kD1Sources];
+  const long long j0 = static_cast<long long>(blockIdx.x) * kD1Sources;
+  const int ns = static_cast<int>(min(static_cast<long long>(kD1Sources), n - j0));
+  const V* wv = reinterpret_cast<const V*>(wts);
+  // A thread a source: its W ES values, unless its C weights are all zero.
+  if (threadIdx.x < kD1Sources) {
+    const int s = threadIdx.x;
+    bool nonzero = false;
+    for (int c = 0; c < C && s < ns && !nonzero; ++c) {
+      const V wc = wv[static_cast<long long>(c) * n + j0 + s];
+      nonzero = wc.x != T(0) || wc.y != T(0);
+    }
+    first_s[s] = -1;
+    if (nonzero) {
+      const T u = u0[j0 + s];
+      const T cell = floor(u);
+      const T frac = u - cell;
+      const long long i0 = static_cast<long long>(ceil(u - T(W) / T(2)));
+#pragma unroll
+      for (int k = 0; k < W; ++k) psi_s[s][k] = es_kernel((cell - T(i0 + k)) + frac, W, beta);
+      first_s[s] = wrap(i0, n0);
+    }
+  }
+  for (int c0 = 0; c0 < C; c0 += kD1Chunk) {
+    const int cn = min(kD1Chunk, C - c0);
+    __syncthreads();  // the ES values are in; the last chunk's weights read
+    for (int t = threadIdx.x; t < cn * kD1Sources; t += kD1Threads) {
+      const int s = t % kD1Sources;
+      const int c = t / kD1Sources;
+      if (s < ns) w_s[c][s] = wv[static_cast<long long>(c0 + c) * n + j0 + s];
+    }
+    __syncthreads();
+    // Item t: source t / L, tap (t % L) / PER_TAP; consecutive lanes take a
+    // source's consecutive cells, so a warp's atomics cover whole tap rows.
+    for (int t = threadIdx.x; t < ns * L; t += kD1Threads) {
+      const int s = t / L;
+      const int g0 = first_s[s];
+      if (g0 < 0) continue;
+      const int r = t % L;
+      const int k = r / PER_TAP;
+      const T psi = psi_s[s][k];
+      if (psi == T(0)) continue;
+      int g = g0 + k;
+      while (g >= n0) g -= n0;
+      T* cell = grid + (static_cast<long long>(c0) * n0 + g) * 2 + r % PER_TAP;
+      for (int c = 0; c < cn; ++c) {
+        const V wc = w_s[c][s];
+        if (wc.x == T(0) && wc.y == T(0)) continue;
+        T* cc = cell + static_cast<long long>(c) * n0 * 2;
+        if constexpr (PER_TAP == 1) {
+          add_complex(cc, psi * wc.x, psi * wc.y);
+        } else {
+          atomicAdd(cc, psi * (r % PER_TAP ? wc.y : wc.x));
+        }
+      }
+    }
   }
 }
 
@@ -718,15 +784,16 @@ template <typename T, int W>
 void launch_nd_w(int d, const void* u0, const void* u1, const void* u2,
                  const void* wts, void* grid, int n, int C, int n0, int n1,
                  int n2, double beta, cudaStream_t stream) {
-  const int threads = 256;  // 8 sources a block
-  const unsigned int blocks =
-      static_cast<unsigned int>((static_cast<long long>(n) * 32 + threads - 1) / threads);
   if (d == 1) {
-    spread_gm_1d<T, W><<<blocks, threads, 0, stream>>>(
+    spread_gm_1d<T, W><<<static_cast<unsigned int>((n + kD1Sources - 1) / kD1Sources),
+                         kD1Threads, 0, stream>>>(
         static_cast<const T*>(u0), static_cast<const T*>(wts), static_cast<T*>(grid),
         n, C, n0, static_cast<T>(beta));
     return;
   }
+  const int threads = 256;  // 8 sources a block
+  const unsigned int blocks =
+      static_cast<unsigned int>((static_cast<long long>(n) * 32 + threads - 1) / threads);
   spread_gm_3d<T, W><<<blocks, threads, 0, stream>>>(
       static_cast<const T*>(u0), static_cast<const T*>(u1), static_cast<const T*>(u2),
       static_cast<const T*>(wts), static_cast<T*>(grid), n, C, n0, n1, n2,

@@ -33,7 +33,7 @@ The spread is linear in the weights, and its adjoint with respect to them
 is a gather: :func:`spread_adjoint` reads each source's w x w taps of a
 (C, nfy, nfx) grid gradient, giving (C, n) -- the CUDA kernel
 ``spread_adjoint_gm`` (one warp a source, the 2w ES values evaluated once,
-no atomics) or :func:`spread_adjoint_plain` on the CPU.
+no atomics, bitwise repeatable) or :func:`spread_adjoint_plain` on the CPU.
 :class:`SpreadFunction` binds the two for autograd; :func:`spread` takes it
 when the weights or the grid require a gradient, and accumulates in place
 either way. The coordinates are planning inputs and get no gradient.
@@ -41,8 +41,9 @@ either way. The coordinates are planning inputs and get no gradient.
 
 :func:`spread_nd` spreads onto a grid of any dimension d = 1, 2, 3 (the
 public type-1 and type-3 transforms): d = 2 is :func:`spread`, and d = 1
-launches ``spread_gm_1d`` (the same GM method: one warp a source, its ES
-values once, atomics), counted by ``launches_d1``. At d = 3 the library
+launches ``spread_gm_1d`` (the GM method: a block of 128 sources, their ES
+values once into shared memory, then every lane an item (source, tap[,
+re/im]) with an atomic), counted by ``launches_d1``. At d = 3 the library
 picks the form by size and shape (``fftvis_spread_nd_bin_edge``): on a dense grid
 ``spread_sm_3d``, after cuFINUFFT's SM method -- a counting sort on the
 card orders the sources by the 3D bin of their first tap cell
@@ -159,28 +160,38 @@ def spread_adjoint_plain(uy, ux, grid, w: int, beta: float) -> torch.Tensor:
     return (taps * vals[None, :, :]).sum(dim=2)
 
 
-def _check(uy, ux, wts, grid, w: int) -> None:
-    if not (uy.device == ux.device == wts.device == grid.device):
-        raise ValueError("spread: all tensors must be on one device")
+def _check_coords_grid(uy, ux, grid, w: int, what: str) -> None:
+    """The checks :func:`spread` and :func:`spread_adjoint` share: the
+    coordinates' and the grid's device, dtypes and shapes, and w."""
+    if not (uy.device == ux.device == grid.device):
+        raise ValueError(f"{what}: all tensors must be on one device")
     rdt = uy.dtype
     if rdt not in (torch.float32, torch.float64):
-        raise TypeError(f"spread: coordinates must be float32/float64, got {rdt}")
+        raise TypeError(f"{what}: coordinates must be float32/float64, got {rdt}")
     cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
-    if ux.dtype != rdt or wts.dtype != cdt or grid.dtype != cdt:
-        raise TypeError(
-            f"spread: expected {rdt} coordinates and {cdt} weights/grid, got "
-            f"{ux.dtype}, {wts.dtype}, {grid.dtype}"
-        )
+    if ux.dtype != rdt or grid.dtype != cdt:
+        raise TypeError(f"{what}: expected {rdt} coordinates and a {cdt} grid, got "
+                        f"{ux.dtype}, {grid.dtype}")
     if uy.dim() != 1 or ux.shape != uy.shape:
-        raise ValueError("spread: uy and ux must be matching (n,) vectors")
+        raise ValueError(f"{what}: uy and ux must be matching (n,) vectors")
+    if grid.dim() != 3:
+        raise ValueError(f"{what}: grid must be (C, nfy, nfx), got {tuple(grid.shape)}")
+    if not 2 <= w <= 16:
+        raise ValueError(f"{what}: kernel width {w} outside [2, 16]")
+
+
+def _check(uy, ux, wts, grid, w: int) -> None:
+    _check_coords_grid(uy, ux, grid, w, "spread")
+    if wts.device != grid.device:
+        raise ValueError("spread: all tensors must be on one device")
+    if wts.dtype != grid.dtype:
+        raise TypeError(f"spread: expected {grid.dtype} weights, got {wts.dtype}")
     if wts.dim() != 2 or wts.shape[1] != uy.shape[0]:
         raise ValueError(f"spread: weights must be (C, n), got {tuple(wts.shape)}")
-    if grid.dim() != 3 or grid.shape[0] != wts.shape[0]:
+    if grid.shape[0] != wts.shape[0]:
         raise ValueError(f"spread: grid must be (C, nfy, nfx), got {tuple(grid.shape)}")
     if not grid.is_contiguous():
         raise ValueError("spread: grid must be contiguous")
-    if not 2 <= w <= 16:
-        raise ValueError(f"spread: kernel width {w} outside [2, 16]")
 
 
 def spread(uy, ux, wts, grid, w: int, beta: float) -> torch.Tensor:
@@ -239,9 +250,8 @@ def spread_adjoint(uy, ux, grid, w: int, beta: float) -> torch.Tensor:
     A CPU tensor takes :func:`spread_adjoint_plain`; a CUDA tensor launches
     ``spread_adjoint_gm``; any other device raises.
     """
-    C, n = grid.shape[0], uy.shape[0]
+    _check_coords_grid(uy, ux, grid, w, "spread_adjoint")
     grid = grid.contiguous()
-    _check(uy, ux, grid.new_empty((C, n)), grid, w)
     if grid.device.type == "cpu":
         return spread_adjoint_plain(uy, ux, grid, w, beta)
     if grid.device.type != "cuda":
@@ -266,8 +276,7 @@ def _spread_adjoint_cuda(uy, ux, grid, w: int, beta: float) -> torch.Tensor:
         ctypes.c_void_p(ux.data_ptr()),
         ctypes.c_void_p(grid.data_ptr()),
         ctypes.c_void_p(out.data_ptr()),
-        n, C, nfy, nfx, w, float(beta),
-        ctypes.c_void_p(torch.cuda.current_stream(grid.device).cuda_stream),
+        n, C, nfy, nfx, w, float(beta), _stream(grid),
     )
     if err != 0:
         raise RuntimeError(f"spread_adjoint kernel launch failed: CUDA error {err}")

@@ -277,6 +277,29 @@ def test_cuda_spread_adjoint_matches_plain(cuda_device, w, dtype):
     assert spread_mod.adjoint_launches == before + 1
     want = spread_mod.spread_adjoint_plain(uy, ux, g, w, beta)
     assert _rel(got, want) <= TOL[dtype]
+    # No atomics and a fixed order of summation: two calls agree bit for bit.
+    again = spread_mod.spread_adjoint(uy, ux, g, w, beta)
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("w", [4, 7, 14, 16])
+@pytest.mark.parametrize("C,n", [(40, 4096), (40, 4095), (4, 4095), (1, 4095)])
+def test_cuda_spread_adjoint_channels_ragged_wrap(cuda_device, C, n, w, dtype):
+    """``spread_adjoint_gm`` at few and many channels, a ragged last block
+    and widths that leave lanes idle (w^2 not a multiple of 32), with
+    sources on the wrap; bitwise repeatable."""
+    rng, uy, ux, nf, C, _, beta = _spread_case(13, n=n, nf=(200, 168), C=C, w=w, dtype=dtype)
+    uy[:3] = torch.tensor([float(nf[0]), 0.25, nf[0] - 0.5], dtype=dtype)
+    ux[:3] = torch.tensor([0.0, nf[1] - 0.25, 0.5], dtype=dtype)
+    uy, ux = uy.to(cuda_device), ux.to(cuda_device)
+    g = _crandn(rng, (C,) + nf, CDT[dtype]).to(cuda_device)
+    want = spread_mod.spread_adjoint_plain(uy, ux, g, w, beta)
+    got = spread_mod.spread_adjoint(uy, ux, g, w, beta)
+    assert _rel(got, want) <= TOL[dtype]
+    again = spread_mod.spread_adjoint(uy, ux, g, w, beta)
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
 
 
 @pytest.mark.cuda

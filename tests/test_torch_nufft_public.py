@@ -358,7 +358,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("d,case", [(1, "uniform"), (3, "uniform"), (3, "clustered")])
+@pytest.mark.parametrize("d,case", [(1, "uniform"), (1, "uniform C=4"), (3, "uniform"),
+                                    (3, "clustered")])
 def test_cuda_nd_kernels_match_plain(cuda_device, d, case, dtype):
     """Every d = 1 / 3 form against its plain version: at d = 3 the
     wrapper's choice (the form the library picks at this size, the GM form
@@ -372,7 +373,7 @@ def test_cuda_nd_kernels_match_plain(cuda_device, d, case, dtype):
     rng = np.random.default_rng(d)
     nf = (1000,) if d == 1 else (40, 36, 24)
     w = 7 if dtype == torch.float32 else 14
-    beta, n, C = 2.3 * w, 3000, 3
+    beta, n, C = 2.3 * w, 3000, 4 if case.endswith("C=4") else 3
     u = [rng.uniform(0, m, n) for m in nf]
     if case == "clustered":
         u = [np.mod(rng.uniform(0, m, 3)[rng.integers(0, 3, n)] + rng.uniform(0, 2, n), m)

@@ -1,6 +1,6 @@
 """Time the kernel wrappers of several checkouts, in turns.
 
-    python3 tools/kernel_ab.py [--beams | --p1] ROOT [ROOT ...]
+    python3 tools/kernel_ab.py [--beams | --p1 | --spread] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each runs in a process of its
 own, in the order given (for an A/B, parent, change, change, parent), on
@@ -36,6 +36,19 @@ star, the ES gridded row under ``FFTVIS_TYPE1=es`` and the outrigger
 lattice. Each line gives one cold call's wall, ``P1_CALLS`` warm walls in
 seconds (each call returns host arrays, so it ends with the card idle),
 and ``kernels`` and ``device_us`` of one more warm call.
+
+With ``--spread`` first, each ROOT times instead the spread's adjoint and
+its d = 1 entry, the wrapper and ``kernel_us`` (every kernel named
+``spread_adjoint`` or ``spread_gm_1d``, whatever the root's form): the
+adjoint at 4096 uniform sources on the slice's grids (w = 8 float32, w =
+14 float64) at C = 1, 3 and 4 and on the per-antenna run's (4608, 2880)
+grid (w = 8, both dtypes) at C = 33 and 40, and there at C = 40 once
+more with every source's first tap column a multiple of 8 cells (each
+float32 tap row one aligned 64-byte segment: what the rows cost when no
+row straddles a 64-byte boundary); ``spread_gm_1d`` at 100,000 uniform
+points on a 10^6-cell line, C = 1 and 4; and, once a root, the device
+time of ``sum`` over 1 GiB of float32 (the card's streaming rate in the
+same process).
 """
 
 from __future__ import annotations
@@ -54,6 +67,12 @@ SOURCES = 4096
 TILE = 32
 REPS = 20
 P1_CALLS = 5
+# The slice's fine grids (float32 w = 8, float64 w = 14) and the
+# per-antenna type-3 run's (chip_smoke.py phase 3); the d = 1 case.
+SLICE_GRIDS = ((4320, 3000), (4320, 3072))
+PA_GRID = (4608, 2880)
+D1_POINTS = 100_000
+D1_CELLS = 1_000_000
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -229,6 +248,56 @@ def child(root: str, beams_only: bool) -> None:
             torch.cuda.empty_cache()
 
 
+def spread_cases(root: str) -> None:
+    """The ``--spread`` mode of one ROOT."""
+    sys.path[0] = root
+    import numpy as np
+    import torch
+
+    from fftvis_tpu_torch.nufft import spread as spread_mod
+    from fftvis_tpu_torch.nufft.kernels import ESKernel
+
+    def emit(**kw):
+        print(json.dumps({"root": root, **kw}), flush=True)
+
+    x = torch.ones(2**28, device="cuda")
+    d = device_kernels(lambda: x.sum(), REPS)
+    emit(kernel="sum 1 GiB float32", device_us=d["device_us"] / d["kernels"])
+    del x
+    gen = torch.Generator(device="cuda")
+    k8, k14 = ESKernel.from_eps(5e-7), ESKernel.from_eps(1e-13)
+    cases = [(torch.float32, torch.complex64, SLICE_GRIDS[0], k8, C, False) for C in (1, 3, 4)]
+    cases += [(torch.float64, torch.complex128, SLICE_GRIDS[1], k14, C, False) for C in (1, 3, 4)]
+    cases += [(rdt, cdt, PA_GRID, k8, C, False) for rdt, cdt in (
+        (torch.float32, torch.complex64), (torch.float64, torch.complex128)) for C in (33, 40)]
+    cases += [(rdt, cdt, PA_GRID, k8, 40, True) for rdt, cdt in (
+        (torch.float32, torch.complex64), (torch.float64, torch.complex128))]
+    for rdt, cdt, (nfy, nfx), k, C, aligned in cases:
+        gen.manual_seed(0)
+        w, beta = k.w, k.beta
+        u = torch.rand((2, SOURCES), generator=gen, dtype=rdt, device="cuda")
+        uy, ux = nfy * u[0], nfx * u[1]
+        if aligned:
+            # ceil(ux - w/2) = 8 m: ux in (8 m + w/2 - 1, 8 m + w/2).
+            ux = 8 * torch.floor(ux / 8) + (w / 2 - 1) + 0.5
+        g = torch.randn((C, nfy, nfx), generator=gen, dtype=cdt, device="cuda")
+        emit(kernel="spread_adjoint", dtype=str(rdt).split(".")[-1], grid=[nfy, nfx], w=w, C=C,
+             case="aligned rows" if aligned else "uniform",
+             **timed(lambda: spread_mod.spread_adjoint(uy, ux, g, w, beta), "spread_adjoint"))
+        del g
+        torch.cuda.empty_cache()
+    for rdt, cdt, k in ((torch.float32, torch.complex64, k8),
+                        (torch.float64, torch.complex128, k14)):
+        gen.manual_seed(0)
+        w, beta = k.w, k.beta
+        u = [D1_CELLS * torch.rand(D1_POINTS, generator=gen, dtype=rdt, device="cuda")]
+        for C in (1, 4):
+            wts = torch.randn((C, D1_POINTS), generator=gen, dtype=cdt, device="cuda")
+            grid = torch.zeros((C, D1_CELLS), dtype=cdt, device="cuda")
+            emit(kernel="spread_d1", dtype=str(rdt).split(".")[-1], w=w, C=C, n=D1_POINTS,
+                 **timed(lambda: spread_mod.spread_nd(u, wts, grid, w, beta), "spread_gm_1d"))
+
+
 def p1_cases(root: str) -> None:
     """The ``--p1`` mode of one ROOT."""
     import importlib.util
@@ -271,10 +340,12 @@ def main(argv) -> int:
     if argv[:1] == ["--child"]:
         if argv[2:] == ["--p1"]:
             p1_cases(argv[1])
+        elif argv[2:] == ["--spread"]:
+            spread_cases(argv[1])
         else:
             child(argv[1], argv[2:] == ["--beams"])
         return 0
-    flag = argv[:1] if argv[:1] in (["--beams"], ["--p1"]) else []
+    flag = argv[:1] if argv[:1] in (["--beams"], ["--p1"], ["--spread"]) else []
     roots = argv[len(flag):]
     if not roots:
         raise SystemExit(__doc__)

@@ -1,6 +1,6 @@
 """Time warm ``simulate_vis`` calls of several checkouts, in turns.
 
-    python3 tools/wall_ab.py [--north-star | --grad] ROOT [ROOT ...]
+    python3 tools/wall_ab.py [--north-star | --grad[=RUNS]] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each runs in a process of its
 own, in the order given (for an A/B, parent, change, change, parent), the
@@ -22,17 +22,19 @@ device time (device-side events only, copies and fills left out), and the
 synchronizing CUDA calls of one more warm call (``sync_count``).
 
 With ``--grad`` first, each ROOT runs instead ``chip_smoke.py``'s gradient
-steps (a), (b) and (c) (the root's), a line each: (a) the north star at
-precision 2 with its fluxes, stacked beam table and gains as parameters;
-(b) the polarized slice, forced type-3, at precision 1, 2 frequencies x 3
-times (one beam pair), with its fluxes and gains; (c) per-antenna type-3
-on the slice at precision 1 (4 beams, 10 pairs) with (a)'s parameters;
-the loss sum |sim - data|^2 against the forward at a seeded
-perturbation. After one warm step, ``GRAD_STEPS`` steps are
-timed on the host clock, forward and backward each ending in a
-synchronize; then one backward of a recorded forward runs under
-torch.profiler (``device_kernels``: its device kernels, busy, host op
-time and largest entries). After (a), the table adjoint alone, on random
+steps (a), (b) and (c) (the root's), a line each, or with ``--grad=RUNS``
+the steps named by the letters of RUNS (``--grad=e``, ``--grad=abce``): (a)
+the north star at precision 2 with its fluxes, stacked beam table and gains
+as parameters; (b) the polarized slice, forced type-3, at precision 1, 2
+frequencies x 3 times (one beam pair), with its fluxes and gains; (c)
+per-antenna type-3 on the slice at precision 1 (4 beams, 10 pairs) with
+(a)'s parameters; (e) the gridded row under ``FFTVIS_TYPE1=es`` at
+precision 2 with its fluxes and gains; the loss sum |sim - data|^2
+against the forward at a seeded perturbation. After one warm step,
+``GRAD_STEPS`` steps are timed on the host clock, forward and backward
+each ending in a synchronize; then one backward of a recorded forward runs
+under torch.profiler (``device_kernels``: its device kernels, busy, host
+op time and largest entries). After (a), the table adjoint alone, on random
 (91, 360, ch) tables at 4096 points, order 1, float32 and float64, at
 (a)'s ch = 296 and (c)'s 32: ``beam_eval_adjoint_points`` alone and every
 device event of a call. Each line also gives the adjoint launches a step
@@ -120,14 +122,10 @@ def child(root: str, north_star: bool) -> None:
               flush=True)
 
 
-def grad_child(root: str) -> None:
+def grad_child(root: str, which: str) -> None:
     # The root's package and chip_smoke.py, not this file's directory, first.
     sys.path[0] = root
-    import numpy as np
-    import torch
-
     import chip_smoke as cs
-    from fftvis_tpu_torch import build_differentiable_sim
     from fftvis_tpu_torch.beams import eval as eval_mod
     from fftvis_tpu_torch.nufft import interp as interp_mod
     from fftvis_tpu_torch.nufft import spread as spread_mod
@@ -141,42 +139,55 @@ def grad_child(root: str) -> None:
     runs = (("a", dict(cs.north_star_config(), precision=2), table, 31),
             ("b", dict(cs.run_kwargs(cfg, cs.RUNS[2]), precision=1, fluxes=cfg["fluxes"][:, :2],
                        freqs=cfg["freqs"][:2], times=cfg["times"][:3]), {}, 32),
-            ("c", cs.per_antenna_config(cfg), dict(table, nufft_mode="type3"), 33))
+            ("c", cs.per_antenna_config(cfg), dict(table, nufft_mode="type3"), 33),
+            ("e", dict(cs.es_row_config(cfg), precision=2), {}, 35))
     for run, kw, extra, seed in runs:
-        sim, params = build_differentiable_sim(differentiate_gains=True, device="cuda", **extra,
-                                               **kw)
-        loss = cs.grad_setup(sim, params, seed)
-        plist = list(params.values())
+        if run not in which:
+            continue
+        with cs.type1_env("es" if run == "e" else None):
+            grad_run(cs, run, kw, extra, seed, root, counted, eval_mod)
 
-        def step():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            value = loss(params)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            torch.autograd.grad(value, plist)
-            torch.cuda.synchronize()
-            return t1 - t0, time.perf_counter() - t1
 
-        step()
-        before = {(mod.__name__, k): getattr(mod, k) for mod, k in counted}
-        fwd, bwd = zip(*(step() for _ in range(GRAD_STEPS)))
-        counts = {f"{name.rsplit('.', 1)[-1]}.{k}": (getattr(mod, k) - before[(name, k)])
-                  / GRAD_STEPS for mod, k in counted for name in [mod.__name__]}
+def grad_run(cs, run, kw, extra, seed, root, counted, eval_mod) -> None:
+    """One gradient step's line: warm steps timed, one backward profiled."""
+    import torch
+
+    from fftvis_tpu_torch import build_differentiable_sim
+
+    sim, params = build_differentiable_sim(differentiate_gains=True, device="cuda", **extra,
+                                           **kw)
+    loss = cs.grad_setup(sim, params, seed)
+    plist = list(params.values())
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         value = loss(params)
-        dev = device_kernels(lambda: torch.autograd.grad(value, plist, retain_graph=True),
-                             top=TOP)
-        line = {"root": root, "run": run, "forward_s": list(fwd), "backward_s": list(bwd),
-                "backward_busy_ms": dev["busy_us"] / 1e3,
-                "backward_device_kernels": dev["kernels"],
-                "backward_host_op_ms": dev["host_us"] / 1e3,
-                "host_top": dev["host_top"], "device_top": dev["device_top"],
-                "launches_a_step": counts, "card": cs.card_line()}
-        del sim, params, loss, plist, value
-        torch.cuda.empty_cache()
-        if run == "a":
-            line["table_adjoint"] = table_adjoint(cs, eval_mod)
-        print(json.dumps(line), flush=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(value, plist)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    step()
+    before = {(mod.__name__, k): getattr(mod, k) for mod, k in counted}
+    fwd, bwd = zip(*(step() for _ in range(GRAD_STEPS)))
+    counts = {f"{name.rsplit('.', 1)[-1]}.{k}": (getattr(mod, k) - before[(name, k)])
+              / GRAD_STEPS for mod, k in counted for name in [mod.__name__]}
+    value = loss(params)
+    dev = device_kernels(lambda: torch.autograd.grad(value, plist, retain_graph=True),
+                         top=TOP)
+    line = {"root": root, "run": run, "forward_s": list(fwd), "backward_s": list(bwd),
+            "backward_busy_ms": dev["busy_us"] / 1e3,
+            "backward_device_kernels": dev["kernels"],
+            "backward_host_op_ms": dev["host_us"] / 1e3,
+            "host_top": dev["host_top"], "device_top": dev["device_top"],
+            "launches_a_step": counts, "card": cs.card_line()}
+    del sim, params, loss, plist, value
+    torch.cuda.empty_cache()
+    if run == "a":
+        line["table_adjoint"] = table_adjoint(cs, eval_mod)
+    print(json.dumps(line), flush=True)
 
 
 def table_adjoint(cs, eval_mod) -> dict:
@@ -221,12 +232,12 @@ def sync_count(fn) -> int:
 
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
-        if argv[2:] == ["--grad"]:
-            grad_child(argv[1])
+        if argv[2:3] and argv[2].startswith("--grad"):
+            grad_child(argv[1], argv[2].partition("=")[2] or "abc")
         else:
             child(argv[1], argv[2:] == ["--north-star"])
         return 0
-    flags = [a for a in argv if a in ("--north-star", "--grad")]
+    flags = [a for a in argv if a == "--north-star" or a.split("=")[0] == "--grad"]
     roots = [a for a in argv if a not in flags]
     if not roots:
         raise SystemExit(__doc__)
