@@ -54,8 +54,11 @@ Phases, one printed line each (any failure raises and exits non-zero):
      last block, half masked; gate 2e-6 / 1e-12 of max|plain|; the kernel
      alone and its share of the bound; no yardstick (no one PyTorch call
      forms them); and with one beam per antenna of the north star's array
-     (K = 331, random evaluations at 4096 points), where the Jones stacks
-     take the kernel's global-memory form, alone and against its bound;
+     (K = 331, P = 631): random evaluations at 4096 points about half
+     masked, every epilogue, in the form the host picks and, for the Jones
+     stacks, both wide forms side by side; and run (f)'s first source
+     block, its real table's evaluations at the block's points, unmasked;
+     alone and against its bound;
    - pair_rows at the eigenbeam basis path's shapes, on stacked eigenbeam
      evaluations at 4096 unmasked points: the eigen row's K = 6 complex
      eigenbeams (P = 21, the k <= l list), auto-rank's K = 7 complex
@@ -98,7 +101,8 @@ Phases, one printed line each (any failure raises and exits non-zero):
    - pair_rows_adjoint (the rows' gradient in the evaluations) at the
      north star's K = 37 and P = 180, every epilogue, float32 and float64,
      at 4096 points all unmasked, about half masked and at the ragged last
-     block; at K = 331 (the global form for Jones), at
+     block; at K = 331 (the wide form; half masked on random evaluations,
+     and for Jones x I run (f)'s first source block, unmasked), at
      auto-rank's K = 7, P = 49 and at run (c)'s K = 4 and pairs (Jones x
      I, a 4096 block and its ragged last one): against its plain version,
      the autograd of the plain rows (gates 1e-5 /
@@ -161,6 +165,11 @@ Phases, one printed line each (any failure raises and exits non-zero):
      nside=64 sky, 1 frequency x 4 times, precision 2, the exact type-1
      path: beam_eval and pair_rows once a source block, spread, interp and
      beam_rows never;
+   - (f) the north star with one perturbed variant of the beam for every
+     antenna (``beam_idx = arange(331)``: K = 331, a (91, 360, 2648)
+     stacked table, the pair rows' wide forms) at precision 2: beam_eval
+     and pair_rows once a source block, spread, interp and beam_rows
+     never;
    - per-antenna type-3 at reduced depth: the slice array, 4 variants
      (``beam_idx = arange(355) % 4``, 10 pairs, 40 channels), polarized,
      precision 1, 1 frequency x 1 time, type-3 forced through
@@ -198,7 +207,8 @@ Phases, one printed line each (any failure raises and exits non-zero):
    the 24h row on every 128th, unbanded; gates 1e-4 at precision 1, 1e-5
    at precision 2, relative to max|V|), and the banded 24h run against its
    unbanded run on the card (1e-11 of max|V|); the ES runs (a)-(c) on
-   every 32nd baseline too;
+   every 32nd baseline too, and run (f) on every 32nd baseline with only
+   the antennas on them and their beams;
 6. with ``--profile`` only: torch.profiler over one warm call of the
    analytic p=1, polarized p=1 and p=2, unpolarized tabulated, north
    star p=2 and p=1, 3D row p=1, 24h row banded and unbanded, and ES
@@ -208,8 +218,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
    time, launches and share of busy; the top device ops of each run go to
    ``build/profile/profile_<i>.txt``;
 7. the host layer:
-   - warm calls: the north star at precision 2 and 1 and the polarized
-     tabulated slice at precision 1, from empty caches one cold call and
+   - warm calls: the north star at precision 2 and 1, the polarized
+     tabulated slice at precision 1 and run (f), from empty caches one
+     cold call and
      five warm ones: each wall, the caches' hits and misses, the host
      seconds of prepare_beams, stack_prepared and plan_transform, and of
      the cache keys (hash_parts), in a warm call (cProfile); every warm
@@ -241,7 +252,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    (703 baselines), the nside=32 sky after the cull, GaussianBeam(14),
    precision 2, in ra, dec, antpos, fluxes and gains; (e) ES type-1 on the
    gridded row (a) at precision 2, in fluxes and gains, card against CPU
-   on every 8th baseline. Each: the forward
+   on every 8th baseline; (f) (a) with run (f)'s 331 beams, its 694 MB
+   table differentiated, beam_eval_adjoint and pair_rows_adjoint once a
+   source block, and the time of the backward's elementwise adds (the
+   sums of the blocks' table gradients). Each: the forward
    against ``simulate_vis`` (1e-12 / 1e-6 of max|V|), the derivative along
    a seeded direction in each parameter against extrapolated central
    differences (1e-6 / 1e-3), for (a) on every 8th baseline and (d) the
@@ -402,27 +416,34 @@ def us_txt(us) -> str:
 
 
 def bound_share(b_ms: float, us) -> str:
-    """The bound's share of a kernel_us time, or "not measured"."""
-    return "not measured" if us is None else f"{b_ms * 1e3 / us:.0%}"
+    """The bound's share of a kernel_us time, or "not measured" (None, or
+    a profiler session that recorded no device time)."""
+    return "not measured" if not us else f"{b_ms * 1e3 / us:.0%}"
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, tries: int = 3) -> float:
     """Mean device time in ms of one call of ``fn``: every device-side
-    event (kernels, copies, fills) over ``reps`` calls (torch.profiler)."""
+    event (kernels, copies, fills) over ``reps`` calls (torch.profiler); a
+    session that recorded no device time (as one now and then does, see
+    kernel_us) is run again, up to ``tries`` sessions, and 0.0 is left
+    where none recorded any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     total = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(ev, "self_device_time_total", None)
-            total += ev.self_cuda_time_total if us is None else us
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                total += ev.self_cuda_time_total if us is None else us
+        if total > 0:
+            break
     return total / reps / 1e3
 
 
@@ -974,6 +995,19 @@ def north_star_config():
     )
 
 
+def wide_config(ns):
+    """Run (f): the north star with one perturbed variant of the committed
+    beamfits for every antenna (``beam_idx = arange(331)``): K = 331 beams,
+    a (91, 360, 2648) stacked table, the 631 representatives' P = 631
+    pairs (C = 2524 channels); polarized, 1 frequency x 2 times, the exact
+    type-1 path."""
+    from fftvis_tpu_torch.beams import perturbed_variants, read_beamfits
+
+    K = len(ns["ants"])
+    return dict(ns, beam=perturbed_variants(read_beamfits(str(ASSET)), K),
+                beam_idx=np.arange(K))
+
+
 def eigen_row_config():
     """The JAX bench's eigenbeam row (bench.py:545-598) at its full size:
     hex_array(4) (37 antennas) with its redundant representatives, one
@@ -1138,38 +1172,46 @@ def check_pair_rows(ns) -> dict:
     return results
 
 
-# pair_rows stages a tile of PAIR_TILE points' K * chf evaluations in shared
-# memory up to PAIR_SMEM_MAX bytes and reads a wider stack from global
-# memory (csrc/beam_eval.cu TP and SMEM_MAX).
-PAIR_TILE, PAIR_SMEM_MAX = 32, 200 * 1024
-# One beam per antenna on HERA-331: a stack that takes the global form.
+# One beam per antenna on HERA-331: the stack past the tile forms.
 WIDE_BEAMS = 331
 
 
-def check_pair_rows_wide(ns) -> dict:
+def check_pair_rows_wide(ns, wide) -> dict:
     """Phase 3: pair_rows against pair_rows_plain with one beam per antenna
-    of the north star's array (K = 331, its pairs over the 631 baselines),
-    4096 points about half masked, on random evaluations: the Jones stacks
-    take the global-memory form, power the shared one. Returns {dtype: max
-    err}."""
+    of the north star's array (K = 331, its pairs over the 631 baselines):
+    at 4096 points about half masked on random evaluations, every epilogue,
+    the form the host picks (pair_rows_form: the Jones stacks take a wide
+    form, power the 32-point tile) and, for the Jones stacks, both wide
+    forms side by side (rows staged in shared memory, or read from device
+    memory); and run (f)'s first source block, its real table's
+    evaluations at the block's points, unmasked as on the north star,
+    Jones x I, with the plain version's time. Returns ({dtype: max err},
+    {"float64": (max err, ms, plain_ms, bound, None)} of pair_rows_wide at
+    (f)'s first block)."""
     import torch
 
     from fftvis_tpu_torch.beams import eval as eval_mod
     from fftvis_tpu_torch.core.coherency import build_coherency
 
-    pi, pj, pp = pair_arrays(dict(ns, beam_idx=np.arange(len(ns["ants"])) % WIDE_BEAMS))
+    pi, pj, pp = pair_arrays(wide)
     K, n, npairs = WIDE_BEAMS, 4096, pp.npairs
     rng = np.random.default_rng(7)
-    errs = {}
+    errs, first_block = {}, {}
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
-        for epilogue in ("power", "jones-I", "jones-iquv"):
+        cases = [(e, "half masked") for e in ("power", "jones-I", "jones-iquv")]
+        cases.append(("jones-I", "(f) first block"))
+        for epilogue, label in cases:
             power, iquv = epilogue == "power", epilogue == "jones-iquv"
             ch_shape = (1, 2) if power else (2, 2, 2)
             chf = int(np.prod(ch_shape))
-            ev = rng.normal(size=(n, K * chf))
-            evals = torch.tensor(np.abs(ev) if power else ev, dtype=dt, device="cuda")
-            mask = torch.tensor(rng.uniform(size=n) < 0.5, dtype=dt, device="cuda")
+            if label == "half masked":
+                ev = rng.normal(size=(n, K * chf))
+                evals = torch.tensor(np.abs(ev) if power else ev, dtype=dt, device="cuda")
+                mask = torch.tensor(rng.uniform(size=n) < 0.5, dtype=dt, device="cuda")
+            else:
+                evals = wide_block_evals(wide, dt)
+                mask = torch.ones(n, dtype=dt, device="cuda")
             stokes = rng.uniform(0.1, 1.0, (n, 1))
             if iquv:
                 coh = build_coherency(np.stack([stokes, *rng.uniform(-0.05, 0.05, (3, n, 1))],
@@ -1178,30 +1220,54 @@ def check_pair_rows_wide(ns) -> dict:
             else:
                 sky = torch.tensor(stokes, dtype=dt, device="cuda")[:, 0]
             args = (evals, pi, pj, sky, mask, ch_shape, power, iquv, 1)
-            got = eval_mod.pair_rows(*args)
-            want = eval_mod.pair_rows_plain(*args)
+            epi = (eval_mod.POWER if power else eval_mod.JONES_IQUV if iquv
+                   else eval_mod.JONES_I)
+
+            def plain_call():
+                return eval_mod.pair_rows_plain(*args)
+
+            want = plain_call()
             torch.cuda.synchronize()
             scale = want.abs().max().item()
-            err = (got - want).abs().max().item()
-            ms = cuda_ms(lambda: eval_mod.pair_rows(*args), 20)
-            alone = kernel_us(lambda: eval_mod.pair_rows(*args), "pair_rows_points")
-            (b_ms, b_by), nbytes, active = pair_bound(evals, mask, npairs, got.shape[0],
-                                                      epilogue, name)
-            staged = K * chf * (PAIR_TILE + 1) * evals.element_size()
-            form = "shared" if staged <= PAIR_SMEM_MAX else "global"
-            print(f"[3] pair_rows {name} {epilogue} wide: K={K} ({K * chf} channels) "
-                  f"P={npairs} n={n} ({active} unmasked), {form}-memory form "
-                  f"({staged / 1024:.0f} KiB a tile): max err {err:.3e} = {err / scale:.3e} "
-                  f"of max|plain|; kernel {ms:.4f} ms (alone {us_txt(alone)}, "
-                  f"{bound_share(b_ms, alone)} of the bound); bound {b_ms:.5f} ms ({b_by}, "
-                  f"{nbytes / 1e6:.1f} MB)", flush=True)
-            if not err <= BEAM_TOL[name] * scale:
-                raise AssertionError(f"pair_rows {name} {epilogue} K={K} disagrees with its "
-                                     "plain version")
-            errs[name] = max(errs.get(name, 0.0), err)
-            del got, want, evals
+            smem = eval_mod.pair_rows_smem(False, K, chf, npairs, K, 1 if power else 4, dt)
+            picked = eval_mod.pair_rows_form(smem)
+            forms = [picked] + ([f for f in ("wide", "wide-global") if f != picked]
+                                if not power and label == "half masked" else [])
+            (b_ms, b_by), nbytes, active = pair_bound(evals, mask, npairs,
+                                                      npairs * (1 if power else 4), epilogue,
+                                                      name)
+            for form in forms:
+                if form == picked:
+                    def call():
+                        return eval_mod.pair_rows(*args)
+                else:
+                    # The other wide form, asked for through the private launch.
+                    def call():
+                        return eval_mod._pair_rows_cuda(evals, pi, pj, sky, mask, ch_shape, epi,
+                                                        1, form)
+
+                got = call()
+                err = (got - want).abs().max().item()
+                ms = cuda_ms(call, 20)
+                alone = kernel_us(call, "pair_rows")
+                plain = cuda_ms(plain_call, 5) if label == "(f) first block" else None
+                plain_txt = "" if plain is None else f", plain {plain:.4f} ms"
+                print(f"[3] pair_rows {name} {epilogue} wide {label}: K={K} ({K * chf} "
+                      f"channels) P={npairs} n={n} ({active} unmasked), {form} form"
+                      f"{' (picked)' if form == picked else ''}: max err {err:.3e} = "
+                      f"{err / scale:.3e} of max|plain|; kernel {ms:.4f} ms (alone "
+                      f"{us_txt(alone)}, {bound_share(b_ms, alone)} of the bound){plain_txt}; "
+                      f"bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
+                if not err <= BEAM_TOL[name] * scale:
+                    raise AssertionError(f"pair_rows {name} {epilogue} K={K} {form} disagrees "
+                                         "with its plain version")
+                errs[name] = max(errs.get(name, 0.0), err)
+                if plain is not None and name == "float64":
+                    first_block[name] = (err, ms, plain, (b_ms, b_by), None)
+                del got
+            del want, evals
             torch.cuda.empty_cache()
-    return errs
+    return errs, first_block
 
 
 # The north star's eps at precision 1: the default 6e-8 floored at float32's
@@ -1461,6 +1527,53 @@ def direct_oracle(kw):
     ekw = {k: v for k, v in kw.items() if k not in ("beam", "beam_idx", "force_use_type3")}
     return CUDASimulationEngine(nufft_mode="direct", device="cpu").simulate(
         beam_list=beams, beam_idx=beam_idx, **ekw)
+
+
+def antenna_subset(kw, baselines):
+    """``kw`` on ``baselines`` alone, with only the antennas on them, each
+    keeping its own beam (``beam_idx`` renumbered): what the direct oracle
+    needs of a per-antenna run, without preparing every antenna's beam."""
+    keys = list(kw["ants"])
+    used = sorted({a for bl in baselines for a in bl}, key=keys.index)
+    idx = np.asarray(kw["beam_idx"])
+    return dict(kw, ants={a: kw["ants"][a] for a in used}, baselines=list(baselines),
+                beam=[kw["beam"][idx[keys.index(a)]] for a in used],
+                beam_idx=np.arange(len(used)))
+
+
+def run_wide(wide, blocks, counters) -> tuple:
+    """Phase 4, run (f) at precision 2: the stacked beam_eval and the pair
+    rows' wide form (pair_rows_wide) once a source block, and the tile form,
+    spread, interp and beam_rows never. Returns (launches, visibilities)."""
+    import torch
+
+    from fftvis_tpu_torch import simulate_vis
+
+    kw = dict(wide, precision=2)
+    reset(counters)
+    t0 = time.perf_counter()
+    out = simulate_vis(device="cuda", **kw)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    got = read(counters)
+    nbl, K = len(wide["baselines"]), len(wide["beam"])
+    want_shape = (1, 2, 2, 2, nbl)
+    if out.shape != want_shape or not np.all(np.isfinite(out)):
+        raise AssertionError(f"(f): shape {out.shape} (want {want_shape}), "
+                             f"finite={bool(np.all(np.isfinite(out)))}")
+    if (got["beam_eval"] != blocks or got["pair_rows_wide"] != blocks or got["pair_rows"]
+            or got["spread"] or got["interp"] or got["beam_rows"]):
+        raise AssertionError(f"(f): kernel launches {got} ({blocks} source blocks)")
+    t0 = time.perf_counter()
+    simulate_vis(device="cuda", **kw)
+    torch.cuda.synchronize()
+    second = time.perf_counter() - t0
+    npairs = pair_arrays(wide)[2].npairs
+    print(f"[4] simulate_vis (f) hera-{len(wide['ants'])} one beam an antenna ({K} beams, "
+          f"stacked table (91, 360, {8 * K}), P={npairs} pairs, {4 * npairs} channels) "
+          f"precision=2: {out.shape} {out.dtype}, finite; {nbl} baselines, {blocks} source "
+          f"blocks; launches {got}; wall first {first:.3f} s, second {second:.3f} s", flush=True)
+    return got, out
 
 
 PROFILE_RUNS = (0, 2, 3, 4)  # RUNS indices: analytic p=1 and the tabulated runs
@@ -2389,11 +2502,18 @@ def check_spread_3d(case: str, rdt, cdt, C: int, rng) -> dict:
                              "bin_sort_3d")
     sort_ms = cuda_ms(lambda: spread_mod.device_bin_sort_3d(u, nf, w, edge), 5)
     sort_plain = cuda_ms(lambda: spread_mod.bin_sort_3d(u, nf, w, edge), 5)
+    # The sort's kernels alone (bin_count, bin_scan, bin_scatter), and one
+    # PyTorch call that orders the sources by bin: a stable argsort of the
+    # keys (its kernels alone too).
+    sort_kernels, sort_alone = device_launches(
+        lambda: spread_mod.device_bin_sort_3d(u, nf, w, edge))
+    argsort_ms = cuda_ms(lambda: torch.argsort(keys, stable=True), 5)
+    argsort_kernels, argsort_alone = device_launches(lambda: torch.argsort(keys, stable=True))
     # Its bound: the coordinates read, the permutation and both offset
     # vectors written once.
     rb = 4 if name == "float32" else 8
     sort_bound = bound(3 * n * rb + 8 * n + 16 * offsets.numel(), 0, name)
-    del perm, offsets, sub, pperm, poffsets, keys, psub
+    del perm, offsets, sub, pperm, poffsets, psub
     want = spread_mod.spread_nd_plain(u, wts, torch.zeros_like(acc), w, beta)
     wrapper = spread_mod.spread_nd(u, wts, torch.zeros_like(acc), w, beta)
     got = {f: fn(torch.zeros_like(acc)) for f, fn in forms.items()}
@@ -2428,15 +2548,17 @@ def check_spread_3d(case: str, rdt, cdt, C: int, rng) -> dict:
           f"{errs['spread_gm_3d'] / scale:.3e}, sm {errs['spread_sm_3d'] / scale:.3e}; gm "
           f"{ms['spread_gm_3d']:.4f} ms (alone {us_txt(alone['spread_gm_3d'])}), sm with its "
           f"sort {ms['spread_sm_3d']:.4f} ms (alone {us_txt(alone['spread_sm_3d'])}; the sort "
-          f"{sort_ms:.4f} ms, equal to the plain bin_sort_3d's, which takes {sort_plain:.4f} "
-          f"ms; its bound {sort_bound[0]:.4f} ms), plain "
+          f"{sort_ms:.4f} ms, its {sort_kernels:.0f} kernels alone {sort_alone:.2f} us, equal "
+          f"to the plain bin_sort_3d's, which takes {sort_plain:.4f} ms; its bound "
+          f"{sort_bound[0]:.4f} ms; torch.argsort(keys, stable=True) {argsort_ms:.4f} ms, its "
+          f"{argsort_kernels:.0f} kernels alone {argsort_alone:.2f} us), plain "
           f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {cells} cells){lib_txt}", flush=True)
     if not max(errs.values()) <= TOL[name] * scale:
         raise AssertionError(f"spread_d3 {name} {case} C={C} disagrees with its plain version")
-    del flat_idx, vals, src, yard, acc
+    del flat_idx, vals, src, yard, acc, keys
     torch.cuda.empty_cache()
     rows = {f: (errs[f], ms[f], plain, (b_ms, b_by), lib_ms) for f in forms}
-    rows["bin_sort_3d"] = (0.0, sort_ms, sort_plain, sort_bound, None)
+    rows["bin_sort_3d"] = (0.0, sort_ms, sort_plain, sort_bound, argsort_ms)
     return rows
 
 
@@ -3086,17 +3208,44 @@ def north_star_block_points(ns, n: int = SPREAD_SOURCES):
 
     from fftvis_tpu_torch.beams.eval import grid_cells
     from fftvis_tpu_torch.beams.interface import prepare_beams
-    from fftvis_tpu_torch.coords.rotation import SourceRotation, enu_to_az_za
     from fftvis_tpu_torch.wrapper import prepare_beam_list
+
+    az, za, up = north_star_block_azza(ns, n)
+    beams, _ = prepare_beam_list(ns["beam"][:1], ns["freqs"], True, None, "x", 1, None)
+    grid = prepare_beams(beams, ns["freqs"], True, device="cpu")[0].grid
+    y, x = grid_cells(torch.tensor(az), torch.tensor(za), grid)
+    return y.numpy(), x.numpy(), up
+
+
+def north_star_block_azza(ns, n: int = SPREAD_SOURCES):
+    """(az, za, above the horizon) of the north star's first source block at
+    its first time, as its engine forms them: float64 arrays."""
+    import torch
+
+    from fftvis_tpu_torch.coords.rotation import SourceRotation, enu_to_az_za
 
     rot = SourceRotation(ns["ra"], ns["dec"], ns["times"], ns["telescope_loc"])
     rot.cull_never_visible()
     topo = torch.tensor(rot.topo_at(0)[:, :n])
     az, za = enu_to_az_za(topo[0], topo[1], orientation="uvbeam")
-    beams, _ = prepare_beam_list(ns["beam"][:1], ns["freqs"], True, None, "x", 1, None)
-    grid = prepare_beams(beams, ns["freqs"], True, device="cpu")[0].grid
-    y, x = grid_cells(az, za, grid)
-    return y.numpy(), x.numpy(), (topo[2] > 0).numpy()
+    return az.numpy(), za.numpy(), (topo[2] > 0).numpy()
+
+
+def wide_block_evals(wide, dt):
+    """Run (f)'s evaluations at its first source block's points: its 331
+    beams' stacked (91, 360, 2648) table of one frequency interpolated at
+    the block's (az, za), (4096, 2648) on the card in ``dt``."""
+    import torch
+
+    from fftvis_tpu_torch.beams.interface import prepare_beams, stack_prepared
+    from fftvis_tpu_torch.wrapper import prepare_beam_list
+
+    az, za, _ = north_star_block_azza(wide)
+    beams, _ = prepare_beam_list(wide["beam"], wide["freqs"], True, None, "x",
+                                 len(wide["ants"]), wide["beam_idx"])
+    stacked = stack_prepared(prepare_beams(beams, wide["freqs"], True, dtype=dt, device="cuda"))
+    return stacked.channels(torch.tensor(az, dtype=dt, device="cuda"),
+                            torch.tensor(za, dtype=dt, device="cuda"), 0)
 
 
 def check_beam_eval_adjoint(ch: int, order: int, dt, rng, block=None) -> tuple:
@@ -3278,18 +3427,16 @@ GROUP_PAIR_ADJOINT_US = {
 
 
 def pair_adjoint_form(K: int, chf: int, npairs: int, C: int, dt) -> str:
-    """The form pair_rows_adjoint takes for these shapes, as the launch
-    decides it: the tile (32 points a block) or the global form."""
-    import torch
+    """The form pair_rows_adjoint takes for these shapes, as the host picks
+    it (pair_rows_form), and its shared memory."""
+    from fftvis_tpu_torch.beams import eval as eval_mod
 
-    from fftvis_tpu_torch._build import load_kernels
-
-    nbytes = load_kernels().fftvis_pair_rows_adjoint_smem(K, chf, npairs, K, C,
-                                                          int(dt == torch.float64))
-    return "global" if nbytes < 0 else f"tile ({nbytes / 1024:.1f} KiB shared)"
+    smem = eval_mod.pair_rows_smem(True, K, chf, npairs, K, C, dt)
+    form = eval_mod.pair_rows_form(smem)
+    return f"{form} ({smem[form] / 1024:.1f} KiB shared)"
 
 
-def pair_adjoint_case(label, pairs, K, n, masked, epilogue, dt, rng):
+def pair_adjoint_case(label, pairs, K, n, masked, epilogue, dt, rng, evals=None):
     """One phase-3 pair_rows_adjoint case on random evaluations (positive
     for power) of K beams: the kernel against pair_rows_adjoint_plain for a
     random (P * C, n) rows gradient G, bitwise equal to a second run; the
@@ -3298,8 +3445,9 @@ def pair_adjoint_case(label, pairs, K, n, masked, epilogue, dt, rng):
     = adjoint G; a power row is homogeneous of degree 1, so J e = R, taken
     at G = R; the wrapper, the kernel
     alone, the plain version and the bound (G at the unmasked points and
-    their evaluations read once, the gradient written once). Returns (max
-    abs err, ms, plain_ms, bound)."""
+    their evaluations read once, the gradient written once). ``evals``, a
+    (n, K * chf) tensor on the card, replaces the random evaluations.
+    Returns (max abs err, ms, plain_ms, bound)."""
     import torch
 
     from fftvis_tpu_torch.beams import eval as eval_mod
@@ -3309,8 +3457,9 @@ def pair_adjoint_case(label, pairs, K, n, masked, epilogue, dt, rng):
     power, iquv = epilogue == "power", epilogue == "jones-iquv"
     ch_shape = PAIR_CH[epilogue]
     chf = int(np.prod(ch_shape))
-    ev = rng.normal(size=(n, K * chf))
-    evals = torch.tensor(np.abs(ev) + 0.05 if power else ev, dtype=dt, device="cuda")
+    if evals is None:
+        ev = rng.normal(size=(n, K * chf))
+        evals = torch.tensor(np.abs(ev) + 0.05 if power else ev, dtype=dt, device="cuda")
     keep = rng.uniform(size=n) < 0.5 if masked else np.ones(n, dtype=bool)
     mask = torch.tensor(keep, dtype=dt, device="cuda")
     stokes = rng.uniform(0.1, 1.0, (n, 1))
@@ -3369,11 +3518,14 @@ def pair_adjoint_case(label, pairs, K, n, masked, epilogue, dt, rng):
     form = pair_adjoint_form(K, chf, npairs, C, dt)
     old = GROUP_PAIR_ADJOINT_US.get((name, epilogue, label))
     old_txt = "not measured" if old is None else f"{old} us (copied from an earlier run)"
+    # At K = 331 the form replaced was the global form (a thread a point and
+    # beam), not the beam groups.
+    old_form = "the global form" if label == "wide" else "the beam-group form"
     print(f"[3] pair_rows_adjoint {name} {epilogue} {label}: K={K} ({K * chf} channels) "
           f"P={npairs} n={n} ({active} unmasked), {form} form: max err {err:.3e} = "
           f"{err / scale:.3e} of max|plain|, identity {ident:.3e}, bitwise repeat {repeat}; "
           f"kernel {ms:.4f} ms (alone {us_txt(alone)}, {bound_share(b_ms, alone)} of the "
-          f"bound; the beam-group form alone {old_txt}), plain {plain:.4f} ms; bound {b_ms:.5f} ms "
+          f"bound; {old_form} alone {old_txt}), plain {plain:.4f} ms; bound {b_ms:.5f} ms "
           f"({b_by}, {nbytes / 1e6:.1f} MB); library call: none (no one PyTorch call forms "
           "the pair rows' adjoint)", flush=True)
     if not (err <= TOL[name] * scale and ident <= TOL[name] and repeat):
@@ -3384,51 +3536,59 @@ def pair_adjoint_case(label, pairs, K, n, masked, epilogue, dt, rng):
     return err, ms, plain, (b_ms, b_by)
 
 
-def check_pair_rows_adjoint(ns, pa) -> dict:
+def check_pair_rows_adjoint(ns, pa, wide) -> dict:
     """Phase 3: pair_rows_adjoint at the north star's K = 37 beams and its
     P = 180 pairs, every epilogue, float32 and float64, at 4096 points all
     unmasked (the north star's block), about half masked, and at its ragged
-    last block; at K = 331 (one beam an antenna, the global-memory form for
-    a Jones stack, its 631 baselines' pairs, half masked); at auto-rank's
+    last block; at K = 331 (one beam an antenna, the wide form, its 631
+    baselines' pairs: half masked on random evaluations, and for Jones x I
+    run (f)'s first source block, its real table's evaluations, unmasked);
+    at auto-rank's
     basis shape (K = 7, the ordered P = 49 list); at gradient run (c)'s
     shape (per-antenna type-3: K = PA_BEAMS, its pairs, Jones x I, a 4096
     block and its ragged last one, half masked). Returns {dtype: (max err,
     ms, plain_ms, bound, None)}, the times those of Jones x Stokes I at the
     block of the run whose launches the kernels line gives: float64 the
-    north star's (run (a)), float32 (c)'s."""
+    north star's (run (a)), float32 (c)'s; and {"float64": the same} of
+    pair_rows_adjoint_wide at run (f)'s first block."""
     import torch
 
     pp = pair_arrays(ns)[2]
     pa_pp = pair_arrays(pa)[2]
     pa_ragged = source_blocks(pa)[1]
-    wide = pair_arrays(dict(ns, beam_idx=np.arange(len(ns["ants"])) % WIDE_BEAMS))[2]
+    wide_pp = pair_arrays(wide)[2]
     arp = north_star_auto_rank(ns)
     ragged = source_blocks(ns)[1]
     rng = np.random.default_rng(13)
     torch.manual_seed(13)
-    out = {}
+    out, first_block = {}, {}
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
         for epilogue in ("power", "jones-I", "jones-iquv"):
             cases = [("north star", pp.pairs, NS_BEAMS, 4096, False),
                      ("half masked", pp.pairs, NS_BEAMS, 4096, True),
                      ("ragged block", pp.pairs, NS_BEAMS, ragged, True),
-                     ("wide", wide.pairs, WIDE_BEAMS, 4096, True)]
+                     ("wide", wide_pp.pairs, WIDE_BEAMS, 4096, True)]
             if epilogue == "jones-I":
-                cases += [("north-star auto-rank", list(arp.kl_pairs), len(arp.eigenbeams),
+                cases += [("(f) first block", wide_pp.pairs, WIDE_BEAMS, 4096, False),
+                          ("north-star auto-rank", list(arp.kl_pairs), len(arp.eigenbeams),
                            4096, False),
                           ("per-antenna (c)", pa_pp.pairs, PA_BEAMS, 4096, True),
                           ("per-antenna (c) ragged block", pa_pp.pairs, PA_BEAMS, pa_ragged,
                            True)]
             main_label = "north star" if dt == torch.float64 else "per-antenna (c)"
             for label, pairs, K, n, masked in cases:
+                evals = wide_block_evals(wide, dt) if label == "(f) first block" else None
                 err, ms, plain, bnd = pair_adjoint_case(label, pairs, K, n, masked, epilogue,
-                                                        dt, rng)
+                                                        dt, rng, evals)
+                del evals
+                if label == "(f) first block" and name == "float64":
+                    first_block[name] = (err, ms, plain, bnd, None)
                 prev = out.get(name, (0.0, None, None, None, None))
                 main = (epilogue, label) == ("jones-I", main_label)
                 out[name] = (max(prev[0], err),
                              *((ms, plain, bnd, None) if main else prev[1:]))
-    return out
+    return out, first_block
 
 
 def check_adjoints(cfg, pa, ns) -> dict:
@@ -3589,6 +3749,27 @@ def backward_busy_ms(loss, params) -> float:
     return total / 1e3
 
 
+def backward_adds(loss, params) -> tuple:
+    """The elementwise add kernels of one backward (device events whose
+    name holds ``functor_add``, torch's add; its forward outside the
+    window): (launches, device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    value = loss(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(value, list(params.values()))
+        torch.cuda.synchronize()
+    count, us = 0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and "functor_add" in ev.key.lower():
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+            count += ev.count
+    return count, us / 1e3
+
+
 GRID_FILL_ADD = ("aten::fill_", "aten::zero_", "aten::add_", "aten::add")
 
 
@@ -3672,20 +3853,22 @@ def grad_step(label, sim, params, loss, counters, want_adjoints) -> tuple:
     value = loss(params)
     torch.cuda.synchronize()
     fwd = time.perf_counter() - t0
-    fwd_pairs = read(counters)["pair_rows"]
+    counted = read(counters)
+    fwd_pairs = counted["pair_rows"] + counted["pair_rows_wide"]
     t0 = time.perf_counter()
     grads = torch.autograd.grad(value, list(params.values()))
     torch.cuda.synchronize()
     bwd = time.perf_counter() - t0
     got = read(counters)
-    adjoints = [k for k in got if k.endswith("_adjoint")]
+    adjoints = [k for k in got if "_adjoint" in k]
     if any((got[k] > 0) != (k in want_adjoints) for k in adjoints):
         raise AssertionError(f"{label}: launches {got}, want adjoints {want_adjoints}")
-    # The evaluations' gradient: one adjoint launch a forward pair-row
-    # block, and the plain rows never on the card.
-    if "pair_rows_adjoint" in want_adjoints and got["pair_rows_adjoint"] != fwd_pairs:
-        raise AssertionError(f"{label}: {got['pair_rows_adjoint']} pair_rows_adjoint launches "
-                             f"for {fwd_pairs} forward pair-row blocks")
+    # The evaluations' gradient: one adjoint launch (either form) a forward
+    # pair-row block, and the plain rows never on the card.
+    pair_adj = got["pair_rows_adjoint"] + got["pair_rows_adjoint_wide"]
+    if any(k.startswith("pair_rows_adjoint") for k in want_adjoints) and pair_adj != fwd_pairs:
+        raise AssertionError(f"{label}: {pair_adj} pair_rows_adjoint launches for {fwd_pairs} "
+                             "forward pair-row blocks")
     if got["pair_rows_plain"]:
         raise AssertionError(f"{label}: pair_rows_plain ran {got['pair_rows_plain']} times on "
                              "the card")
@@ -3695,12 +3878,13 @@ def grad_step(label, sim, params, loss, counters, want_adjoints) -> tuple:
 
 
 def gradient_run(label, build, kw, want_vis, precision, counters, want_adjoints, seed,
-                 cpu_kw=None, one_grid_gradient=False) -> dict:
+                 cpu_kw=None, one_grid_gradient=False, adds=False) -> dict:
     """Phase 8, one configuration: the forward against simulate_vis, one
     timed gradient step with its launches, the directional derivatives,
     the device busy of one backward and, with ``cpu_kw``, the card's
-    gradients on that configuration against the port's on the CPU.
-    Returns the step's launches."""
+    gradients on that configuration against the port's on the CPU; with
+    ``adds``, the elementwise add kernels of one backward (autograd's sums
+    of the source blocks' table gradients). Returns the step's launches."""
     import torch
 
     t0 = time.perf_counter()
@@ -3719,6 +3903,10 @@ def gradient_run(label, build, kw, want_vis, precision, counters, want_adjoints,
     grads, got, fwd, bwd = grad_step(label, sim, params, loss, counters, want_adjoints)
     fd = directional_checks(label, loss, params, grads, precision, seed)
     busy = backward_busy_ms(loss, params)
+    adds_txt = ""
+    if adds:
+        count, ms = backward_adds(loss, params)
+        adds_txt = f"; elementwise add kernels of one backward: {count}, {ms:.3f} ms"
     grid_txt = ""
     if one_grid_gradient:
         # One interpolation node for every pair: no zero gradient of the
@@ -3750,7 +3938,7 @@ def gradient_run(label, build, kw, want_vis, precision, counters, want_adjoints,
     print(f"[8] gradients {label}: params {shapes}; {fwd_txt}; directional derivative vs "
           f"central difference (gate {GRAD_FD_TOL[precision]:.0e}): {', '.join(fd)}{cpu_txt}; "
           f"launches of one step {got}; build {built:.3f} s, forward {fwd:.3f} s, backward "
-          f"{bwd:.3f} s, backward device busy {busy:.3f} ms{grid_txt}", flush=True)
+          f"{bwd:.3f} s, backward device busy {busy:.3f} ms{adds_txt}{grid_txt}", flush=True)
     del sim, params, grads
     torch.cuda.empty_cache()
     return got
@@ -3781,10 +3969,10 @@ def direct_config():
                            for j in range(i, len(keys))])
 
 
-def gradient_runs(cfg, ns, pa, counters) -> dict:
-    """Phase 8: the differentiable front-ends on the card, (a)-(e), at the
-    sizes the module docstring gives. Returns {run: launches of its
-    gradient step}."""
+def gradient_runs(cfg, ns, pa, wide, wide_vis, counters) -> dict:
+    """Phase 8: the differentiable front-ends on the card, (a)-(f), at the
+    sizes the module docstring gives; ``wide_vis`` run (f)'s phase-4
+    visibilities. Returns {run: launches of its gradient step}."""
     import functools
 
     from fftvis_tpu_torch import (build_differentiable_direct_sim, build_differentiable_sim,
@@ -3843,6 +4031,18 @@ def gradient_runs(cfg, ns, pa, counters) -> dict:
             functools.partial(build_differentiable_sim, differentiate_gains=True),
             kw, want, 2, counters, ("spread_adjoint",), seed=35,
             cpu_kw=dict(kw, baselines=kw["baselines"][::8]))
+    # (f) (a) with one beam an antenna: the 331-beam table (694 MB in
+    # float64) through the wide forms of the pair rows and their adjoint.
+    blocks = source_blocks(wide)[0]
+    launches["f"] = got = gradient_run(
+        f"(f) hera-{len(wide['ants'])} one beam an antenna ({len(wide['beam'])} beams) "
+        "precision=2 exact type-1",
+        functools.partial(build_differentiable_sim, differentiate_beam=True,
+                          differentiate_gains=True),
+        dict(wide, precision=2), wide_vis, 2, counters,
+        ("beam_eval_adjoint", "pair_rows_adjoint_wide"), seed=36, adds=True)
+    if got["beam_eval_adjoint"] != blocks or got["pair_rows_adjoint_wide"] != blocks:
+        raise AssertionError(f"(f): launches {got}, want {blocks} of each adjoint")
     return launches
 
 
@@ -3875,13 +4075,15 @@ def main() -> int:
 
     cfg = slice_config()
     ns = north_star_config()
+    wide = wide_config(ns)
     checks = check_nufft_kernels(cfg)
     pa = per_antenna_config(cfg)
     check_per_antenna_nufft(pa)
     beam_checks = {"beam_eval": check_beam_eval(), "beam_rows": check_beam_rows(),
                    "pair_rows": check_pair_rows(ns)}
     eig = eigen_row_config()
-    for extra in (check_pair_rows_wide(ns), check_pair_rows_basis(eig, ns)):
+    wide_errs, beam_checks["pair_rows_wide"] = check_pair_rows_wide(ns, wide)
+    for extra in (wide_errs, check_pair_rows_basis(eig, ns)):
         for name, err in extra.items():
             row = beam_checks["pair_rows"][name]
             beam_checks["pair_rows"][name] = (max(row[0], err), *row[1:])
@@ -3889,7 +4091,8 @@ def main() -> int:
     z3d = z3d_config()
     check_noncoplanar_nufft(z3d)
     adj_checks = check_adjoints(cfg, pa, ns)
-    adj_checks["pair_rows_adjoint"] = check_pair_rows_adjoint(ns, pa)
+    adj_checks["pair_rows_adjoint"], adj_checks["pair_rows_adjoint_wide"] = (
+        check_pair_rows_adjoint(ns, pa, wide))
     check_pair_rows_backward(ns)
     nd_checks = check_es_kernels(es_row_config(cfg), outrigger_config(cfg))
 
@@ -3897,6 +4100,7 @@ def main() -> int:
     counters = {"spread": (spread_mod, "launches"), "interp": (interp_mod, "launches"),
                 "beam_eval": (eval_mod, "launches"), "beam_rows": (eval_mod, "rows_launches"),
                 "pair_rows": (eval_mod, "pair_launches"),
+                "pair_rows_wide": (eval_mod, "pair_wide_launches"),
                 "spread_d1": (spread_mod, "launches_d1"), "spread_d3": (spread_mod, "launches_d3"),
                 "spread_d3_sm": (spread_mod, "launches_d3_sm"),
                 "bin_sort_3d": (spread_mod, "sort_launches"),
@@ -3967,6 +4171,8 @@ def main() -> int:
               f"{ns_blocks} source blocks; launches {got}; wall first {first:.3f} s, second "
               f"{second:.3f} s", flush=True)
     north_star_auto_rank_runs(ns, counters, ns_launches[1], ns_vis[1])
+    # Run (f): one beam an antenna, the wide stack.
+    wide_launches, wide_vis = run_wide(wide, ns_blocks, counters)
 
     # The eigen row: eigenbeams with beam_coefs on the exact type-1 path,
     # the stacked beam_eval and pair_rows once a source block.
@@ -4049,9 +4255,13 @@ def main() -> int:
             raise AssertionError(f"{run[0]} precision={run[4]} misses its accuracy gate")
     new_runs = [(f"north-star precision={p}", ns, ns_vis[p], p) for p in NS_PRECISIONS]
     new_runs.append(("per-antenna type-3 precision=1", pa, pa_vis, 1))
+    new_runs.append(("(f) one beam an antenna precision=2", wide, wide_vis, 2))
     for label, kw, got_vis, precision in new_runs:
         sub = kw["baselines"][::32]
         okw = dict(kw, baselines=sub, precision=2)
+        if kw is wide:
+            # Every 32nd baseline with its antennas' beams alone.
+            okw = antenna_subset(okw, sub)
         t0 = time.perf_counter()
         oracle = direct_oracle(okw)
         scale = np.abs(oracle).max()
@@ -4083,6 +4293,8 @@ def main() -> int:
                    ns_launches[precision])
     warm_calls("polarized tabulated slice precision=1", run_kwargs(cfg, RUNS[2]), counters,
                launches[2])
+    warm_calls("(f) one beam an antenna precision=2", dict(wide, precision=2), counters,
+               wide_launches)
     pipelined("north-star precision=1", dict(ns, precision=1))
     pipelined(f"gridded row hex-{len(cfg['ants'])} unpolarized precision=2",
               gridded_row_config(cfg))
@@ -4096,8 +4308,9 @@ def main() -> int:
                          interp_adjoint=(interp_mod, "adjoint_launches"),
                          beam_eval_adjoint=(eval_mod, "adjoint_launches"),
                          pair_rows_adjoint=(eval_mod, "pair_adjoint_launches"),
+                         pair_rows_adjoint_wide=(eval_mod, "pair_adjoint_wide_launches"),
                          pair_rows_plain=(eval_mod, "pair_plain_cuda_calls"))
-    grad_launches = gradient_runs(cfg, ns, pa, grad_counters)
+    grad_launches = gradient_runs(cfg, ns, pa, wide, wide_vis, grad_counters)
 
     main_run = {1: 2, 2: 3}  # RUNS index of the polarized tabulated slice
     kernels = []
@@ -4161,6 +4374,30 @@ def main() -> int:
                 "bound_by": b_by,
                 "library_ms": lib_ms,
             })
+    # The wide forms of the pair rows and their adjoint: float64 at run
+    # (f)'s first source block, their launches (f)'s forward and gradient
+    # step's.
+    for kname, checked, count in (
+        ("pair_rows_wide", beam_checks["pair_rows_wide"], wide_launches["pair_rows_wide"]),
+        ("pair_rows_adjoint_wide", adj_checks["pair_rows_adjoint_wide"],
+         grad_launches["f"]["pair_rows_adjoint_wide"]),
+    ):
+        err, ms, plain_ms, (b_ms, b_by), lib_ms = checked["float64"]
+        kernels.append({
+            "name": f"{kname}_float64",
+            "route": "cuda",
+            "source": "fftvis_tpu_torch/csrc/beam_eval.cu",
+            # No Pallas kernel: the XLA ops of the batched pair rows (and
+            # XLA's autodiff of them).
+            "replaces": "fftvis_tpu/tpu/program.py:340",
+            "launches": count,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_ms,
+        })
     # The d = 1 / 3 entries (at d = 3 both forms: spread_gm_3d and
     # interp_taps_nd, spread_sm_3d and interp_sm_3d): their launches are the
     # public NUFFT run's.

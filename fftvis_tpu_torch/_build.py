@@ -179,17 +179,18 @@ def load_kernels():
     for name in ("fftvis_pair_rows_f32", "fftvis_pair_rows_f64"):
         fn = getattr(lib, name)
         # evals, pair_i, pair_j, sky, mask, out, n, K, chf, c0, P, epi,
-        # complex, sky strides (3), stream
-        fn.argtypes = [P] * 6 + [I] * 7 + [L] * 3 + [P]
+        # complex, form, sky strides (3), stream
+        fn.argtypes = [P] * 6 + [I] * 8 + [L] * 3 + [P]
         fn.restype = I
-    # K, chf, P, nidx, C, f64 -> the tile form's bytes, or -1
-    lib.fftvis_pair_rows_adjoint_smem.argtypes = [I] * 6
-    lib.fftvis_pair_rows_adjoint_smem.restype = L
+    # adjoint, form, K, chf, P, nidx, C, f64 -> the form's shared-memory
+    # bytes, or -1
+    lib.fftvis_pair_rows_smem.argtypes = [I] * 8
+    lib.fftvis_pair_rows_smem.restype = L
     for name in ("fftvis_pair_rows_adjoint_f32", "fftvis_pair_rows_adjoint_f64"):
         fn = getattr(lib, name)
         # evals, pair_i, pair_j, index, sky, mask, g, out, n, K, chf, c0, P,
-        # nidx, epi, complex, pairs a chunk, sky strides (3), stream
-        fn.argtypes = [P] * 8 + [I] * 9 + [L] * 3 + [P]
+        # nidx, epi, complex, pairs a chunk, form, sky strides (3), stream
+        fn.argtypes = [P] * 8 + [I] * 10 + [L] * 3 + [P]
         fn.restype = I
     _LIB = lib
     return lib

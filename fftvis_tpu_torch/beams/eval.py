@@ -49,7 +49,8 @@ slice's 4096-point source blocks; a call is launch-bound, so the fused
 kernel's gain is the ~17 launches of the unfused source block it replaces.
 Each wrapper takes the plain version only for CPU tensors, launches its
 kernel for CUDA tensors and raises on any other device; ``launches``,
-``rows_launches`` and ``pair_launches`` count the kernels' launches.
+``rows_launches``, ``pair_launches`` and ``pair_wide_launches`` count the
+kernels' launches.
 
 Gradients. The interpolation is linear in the table; its adjoint
 (:func:`beam_eval_adjoint`, the kernel ``beam_eval_adjoint_points``, or
@@ -67,16 +68,20 @@ contracts with the incoming gradient, ``Re(conj(R) g)`` for a real sky.
 JAX package lets XLA differentiate its ops: the kernel
 ``pair_rows_adjoint_tile`` (a block a tile of 32 points and every beam,
 the pairs' gradient rows streamed once through shared memory), or
-``pair_rows_adjoint_points`` for a stack too wide for shared memory.
-Both walk a per-beam index of the pairs (:func:`pair_index`, built once
-with the engine's routing); ``pair_adjoint_launches`` counts their
-launches. ``pair_plain_cuda_calls`` counts the calls of
+``pair_rows_adjoint_wide`` for a stack too wide for that tile (one beam
+an antenna of HERA-331). Both walk a per-beam index of the pairs
+(:func:`pair_index`, built once with the engine's routing);
+``pair_adjoint_launches`` and ``pair_adjoint_wide_launches`` count their
+launches. The forward has the same two forms (``pair_rows_points``,
+``pair_rows_wide``); host code picks the form (:func:`pair_rows_form`)
+from the kernels' own shared-memory rule. ``pair_plain_cuda_calls`` counts the calls of
 :func:`pair_rows_plain` on CUDA tensors, which the engine's path never
 makes.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -87,13 +92,22 @@ from ..core.coherency import apparent_coherency_rows, apparent_coherency_rows_ba
 launches = 0  # beam_eval_points launches: the interpolation alone
 rows_launches = 0  # beam_rows_points launches: fused source blocks
 pair_launches = 0  # pair_rows_points launches: per-antenna pair rows
+pair_wide_launches = 0  # pair_rows_wide launches: a stack too wide for the tile
 adjoint_launches = 0  # beam_eval_adjoint_points launches
-pair_adjoint_launches = 0  # pair_rows_adjoint launches (either form)
+pair_adjoint_launches = 0  # pair_rows_adjoint_tile launches
+pair_adjoint_wide_launches = 0  # pair_rows_adjoint_wide launches
 pair_plain_cuda_calls = 0  # pair_rows_plain calls on CUDA tensors
 # Pairs a chunk of the gradient rows that pair_rows_adjoint_tile streams
 # (csrc/beam_eval.cu PA_PAIRS; :func:`pair_index` orders each beam's
 # entries by it, the kernel checks it).
 PAIR_ADJ_CHUNK = 16
+# The forms of pair_rows and of its adjoint (csrc/beam_eval.cu PairForm),
+# in the order the host tries them: the tile forms (pair_rows_points,
+# pair_rows_adjoint_tile: a tile of 32 points), the wide forms
+# (pair_rows_wide with a tile's rows staged in shared memory,
+# pair_rows_adjoint_wide) and the forward's wide form that reads the rows
+# from device memory.
+PAIR_FORMS = {"tile": 0, "wide": 1, "wide-global": 2}
 
 TWO_PI = 2.0 * math.pi
 COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -472,6 +486,37 @@ def response_channels(resp, polarized: bool) -> torch.Tensor:
     return torch.stack([resp.real, resp.imag]).reshape(8, -1).T
 
 
+def pair_rows_form(smem: dict) -> str:
+    """The form a CUDA call of :func:`pair_rows` (or of
+    :func:`pair_rows_adjoint`) takes, from ``smem``, each form's dynamic
+    shared memory in bytes, -1 where the form cannot take the shapes (the
+    kernels' own rule, :func:`pair_rows_smem`): the first of ``PAIR_FORMS``
+    that takes them. The tile form takes every stack of the engine's paths
+    but one beam an antenna; the wide form takes that (the forward's up to
+    ~450 complex Jones beams, whose rows it stages); past it the forward
+    reads its rows from device memory."""
+    for form in PAIR_FORMS:
+        if smem.get(form, -1) >= 0:
+            return form
+    raise ValueError(f"pair_rows: no form takes these shapes (shared memory {smem})")
+
+
+@functools.lru_cache(maxsize=64)
+def pair_rows_smem(adjoint: bool, nbeams: int, chf: int, npairs: int, nidx: int, C: int,
+                   dtype) -> dict:
+    """{form: bytes} of dynamic shared memory that each form of
+    ``PAIR_FORMS`` takes for a call of :func:`pair_rows` (or, with
+    ``adjoint``, of :func:`pair_rows_adjoint`) on ``nbeams`` beams of
+    ``chf`` channels, ``npairs`` pairs, an index of ``nidx`` beams' offsets
+    and C rows a pair in ``dtype``; -1 where the form cannot take them.
+    The kernels' library answers (``fftvis_pair_rows_smem``), so this
+    builds it."""
+    query = _kernels()["pairs_smem"]
+    return {form: query(int(adjoint), code, nbeams, chf, npairs, nidx, C,
+                        int(dtype == torch.float64))
+            for form, code in PAIR_FORMS.items()}
+
+
 def pair_rows_plain(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, is_power: bool,
                     polarized_sky: bool = False, feed: int = 0) -> torch.Tensor:
     """Plain torch pair rows: :func:`evals_response`,
@@ -570,7 +615,8 @@ def pair_rows(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, is_power: bool,
     coherency (any strides); ``mask`` the (n,) horizon mask. Returns (P *
     C, n) complex rows, pair-major, C = 1 (power) or 4 ordered (00, 01, 10,
     11). A CPU tensor takes :func:`pair_rows_plain`; a CUDA tensor launches
-    the CUDA kernel; any other device raises. ``index``, the pairs'
+    the CUDA kernel in the form :func:`pair_rows_form` picks; any other
+    device raises. ``index``, the pairs'
     :func:`pair_index`, serves a gradient in the evaluations on the card
     (built there when not given).
     """
@@ -601,9 +647,9 @@ def pair_rows_adjoint(evals, pair_i, pair_j, sky, mask, g, ch_shape: tuple, is_p
     chf) gradient for the rows' (P * C, n) complex gradient ``g``, as
     :func:`pair_rows_adjoint_plain` gives it. A CPU tensor takes the plain
     version; a CUDA tensor launches ``pair_rows_adjoint_tile`` (or, for a
-    stack too wide for shared memory, ``pair_rows_adjoint_points``) on the
-    pairs' :func:`pair_index` ``index`` (built when not given); any other
-    device raises."""
+    stack too wide for its tile, ``pair_rows_adjoint_wide``: the form
+    :func:`pair_rows_form` picks) on the pairs' :func:`pair_index`
+    ``index`` (built when not given); any other device raises."""
     epi = POWER if is_power else (JONES_IQUV if polarized_sky else JONES_I)
     _check_pairs(evals, pair_i, pair_j, sky, mask, ch_shape, is_power, epi)
     want = (pair_i.shape[0] * (1 if is_power else 4), evals.shape[0])
@@ -682,6 +728,7 @@ def _kernels():
             ("pairs_adjoint", torch.float32): lib.fftvis_pair_rows_adjoint_f32,
             ("pairs_adjoint", torch.float64): lib.fftvis_pair_rows_adjoint_f64,
             "eval_adjoint_scratch": lib.fftvis_beam_eval_adjoint_scratch,
+            "pairs_smem": lib.fftvis_pair_rows_smem,
         }
     return _KERNELS
 
@@ -766,14 +813,31 @@ def _beam_rows_cuda(data, az, za, sky, mask, grid: TableGrid, epi: int) -> torch
     return out
 
 
+def _pick_form(form, smem: dict, what: str) -> int:
+    """The form code of a CUDA launch: the rule's pick from ``smem``
+    (:func:`pair_rows_smem`), or ``form`` (a name of ``PAIR_FORMS``, which
+    the checks ask for); a form that cannot take the shapes raises."""
+    if form is None:
+        return PAIR_FORMS[pair_rows_form(smem)]
+    if smem.get(form, -1) < 0:
+        raise ValueError(f"{what}: the {form!r} form cannot take these shapes (shared memory "
+                         f"{smem})")
+    return PAIR_FORMS[form]
+
+
 def _pair_rows_cuda(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, epi: int,
-                    feed: int) -> torch.Tensor:
-    global pair_launches
+                    feed: int, form: str | None = None) -> torch.Tensor:
+    """The CUDA launch of :func:`pair_rows`, in the form the rule picks
+    or in ``form`` (the checks' way to time and test every form)."""
+    global pair_launches, pair_wide_launches
     k = _kernels()
     n = evals.shape[0]
     chf = math.prod(ch_shape)
     npairs = pair_i.shape[0]
     C = 1 if epi == POWER else 4
+    K = evals.shape[1] // chf
+    code = _pick_form(form, pair_rows_smem(False, K, chf, npairs, K, C, evals.dtype),
+                      "pair_rows")
     out = evals.new_empty((npairs * C, n), dtype=COMPLEX[evals.dtype])
     if n == 0 or npairs == 0:
         return out
@@ -782,21 +846,31 @@ def _pair_rows_cuda(evals, pair_i, pair_j, sky, mask, ch_shape: tuple, epi: int,
     sp, sa, sb = (2 * s for s in sky.stride()) if epi == JONES_IQUV else (sky.stride(0), 0, 0)
     err = k[("pairs", evals.dtype)](
         evals.data_ptr(), pair_i.data_ptr(), pair_j.data_ptr(), sky.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), n, evals.shape[1] // chf, chf, c0, npairs,
-        epi, int(len(ch_shape) == 3), sp, sa, sb, _stream(evals),
+        mask.data_ptr(), out.data_ptr(), n, K, chf, c0, npairs,
+        epi, int(len(ch_shape) == 3), code, sp, sa, sb, _stream(evals),
     )
     if err != 0:
         raise RuntimeError(f"pair_rows kernel launch failed: CUDA error {err}")
-    pair_launches += 1
+    if code == PAIR_FORMS["tile"]:
+        pair_launches += 1
+    else:
+        pair_wide_launches += 1
     return out
 
 
 def _pair_rows_adjoint_cuda(evals, pair_i, pair_j, index, sky, mask, g, ch_shape: tuple,
-                            epi: int, feed: int, nidx: int) -> torch.Tensor:
-    global pair_adjoint_launches
+                            epi: int, feed: int, nidx: int,
+                            form: str | None = None) -> torch.Tensor:
+    """The CUDA launch of :func:`pair_rows_adjoint`, in the form the rule
+    picks or in ``form`` (the checks' way to test every form)."""
+    global pair_adjoint_launches, pair_adjoint_wide_launches
     k = _kernels()
     n = evals.shape[0]
     chf = math.prod(ch_shape)
+    K = evals.shape[1] // chf
+    smem = pair_rows_smem(True, K, chf, pair_i.shape[0], nidx, 1 if epi == POWER else 4,
+                          evals.dtype)
+    code = _pick_form(form, smem, "pair_rows_adjoint")
     out = torch.empty_like(evals)  # the kernel writes every entry
     if n == 0:
         return out
@@ -806,10 +880,13 @@ def _pair_rows_adjoint_cuda(evals, pair_i, pair_j, index, sky, mask, g, ch_shape
     err = k[("pairs_adjoint", evals.dtype)](
         evals.data_ptr(), pair_i.data_ptr(), pair_j.data_ptr(), index.data_ptr(),
         sky.data_ptr(), mask.data_ptr(), g.data_ptr(), out.data_ptr(), n,
-        evals.shape[1] // chf, chf, c0, pair_i.shape[0], nidx, epi, int(len(ch_shape) == 3),
-        PAIR_ADJ_CHUNK, sp, sa, sb, _stream(evals),
+        K, chf, c0, pair_i.shape[0], nidx, epi, int(len(ch_shape) == 3),
+        PAIR_ADJ_CHUNK, code, sp, sa, sb, _stream(evals),
     )
     if err != 0:
         raise RuntimeError(f"pair_rows_adjoint kernel launch failed: CUDA error {err}")
-    pair_adjoint_launches += 1
+    if code == PAIR_FORMS["tile"]:
+        pair_adjoint_launches += 1
+    else:
+        pair_adjoint_wide_launches += 1
     return out

@@ -776,6 +776,30 @@ __global__ void beam_rows_points(
   }
 }
 
+__device__ __forceinline__ unsigned int smem_addr(const void* p) {
+  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
+}
+
+// One complex element, 8 or 16 bytes, from device to shared memory.
+__device__ __forceinline__ void cp_async(float2* dst, const float2* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async(double2* dst, const double2* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+// One real, 4 or 8 bytes.
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ------------------------------------------------ per-antenna pair rows
 //
 // pair_rows_points: every beam pair's masked apparent-coherency rows of one
@@ -791,16 +815,78 @@ __global__ void beam_rows_points(
 // in shared memory once, channel-major with a pad column, so that
 // neighbouring points sit in neighbouring banks; its TP x PY threads then
 // loop over its share of the pairs, thread x taking point x, and each row
-// is written with consecutive points at consecutive addresses. Reading the
-// (n, K * chf) layout straight from global memory would stride by K * chf
-// between neighbouring threads; that form (SMEM false) serves only a stack
-// too wide for shared memory. The output, (P * C, n) complex, is the
-// largest tensor of a source block and sets the bound.
+// is written with consecutive points at consecutive addresses. The output,
+// (P * C, n) complex, is the largest tensor of a source block and sets the
+// bound. A stack whose tile does not fit shared memory (K = 331 with one
+// beam an antenna) takes pair_rows_wide below.
 constexpr int TP = 32;             // points a tile: a warp's row write
 constexpr int PY = 8;              // pair lanes a block
 constexpr int SMEM_MAX = 200 * 1024;  // dynamic shared memory a block at most
 
-template <typename T, int EPI, bool CPLX, bool SMEM>
+// Row c = (f, g) of a Jones pair at one point from beam i's and beam j's
+// e[v][f] (a the first beam, b the second): Stokes I (conj(ei[0, f]) ej[0,
+// g] + conj(ei[1, f]) ej[1, g]) * flux, or IQUV A_i^H C A_j with the vector
+// axis flipped, the sum over (a, b) of conj(ei[1-a, f]) coh[a, b] ej[1-b, g].
+template <typename T, int EPI>
+__device__ __forceinline__ void pair_jones_row(int c, const T (&ar)[2][2], const T (&ai)[2][2],
+                                               const T (&br)[2][2], const T (&bi)[2][2],
+                                               T flux, const T (&cr)[2][2],
+                                               const T (&ci)[2][2], T& re, T& im) {
+  const int f = c / 2, g = c % 2;
+  re = T(0);
+  im = T(0);
+  if constexpr (EPI == JONES_I) {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      re += ar[v][f] * br[v][g] + ai[v][f] * bi[v][g];
+      im += ar[v][f] * bi[v][g] - ai[v][f] * br[v][g];
+    }
+    re *= flux;
+    im *= flux;
+  } else {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const T xr = ar[1 - a][f], xi = -ai[1 - a][f];
+#pragma unroll
+      for (int bb = 0; bb < 2; ++bb) {
+        const T tr = xr * cr[a][bb] - xi * ci[a][bb];
+        const T ti = xr * ci[a][bb] + xi * cr[a][bb];
+        re += tr * br[1 - bb][g] - ti * bi[1 - bb][g];
+        im += tr * bi[1 - bb][g] + ti * br[1 - bb][g];
+      }
+    }
+  }
+}
+
+// A point's sky: the (2, 2) complex coherency for IQUV, else the flux.
+template <typename T, int EPI>
+__device__ __forceinline__ void point_sky(const T* s, long long sa, long long sb, T& flux,
+                                          T (&cr)[2][2], T (&ci)[2][2]) {
+  flux = T(0);
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int bb = 0; bb < 2; ++bb) {
+      cr[a][bb] = T(0);
+      ci[a][bb] = T(0);
+    }
+  }
+  if constexpr (EPI == JONES_IQUV) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int bb = 0; bb < 2; ++bb) {
+        const T* q = s + a * sa + bb * sb;
+        cr[a][bb] = q[0];
+        ci[a][bb] = q[1];
+      }
+    }
+  } else {
+    flux = s[0];
+  }
+}
+
+template <typename T, int EPI, bool CPLX>
 __global__ void __launch_bounds__(TP * PY) pair_rows_points(
     const T* __restrict__ ev,    // (n, kc) evaluations
     const int* __restrict__ pi,  // (P,) first beam of each pair
@@ -818,41 +904,20 @@ __global__ void __launch_bounds__(TP * PY) pair_rows_points(
   const int b0 = blockIdx.x * TP;
   const int npt = min(TP, n - b0);
   const int tx = threadIdx.x, ty = threadIdx.y;
-  if constexpr (SMEM) {
-    const T* src = ev + static_cast<long long>(b0) * kc;
-    const int total = npt * static_cast<int>(kc);
-    for (int i = ty * TP + tx; i < total; i += TP * PY) {
-      const int pt = i / static_cast<int>(kc);
-      const int c = i - pt * static_cast<int>(kc);
-      sh[c * (TP + 1) + pt] = src[i];
-    }
-    __syncthreads();
+  const T* src = ev + static_cast<long long>(b0) * kc;
+  const int total = npt * static_cast<int>(kc);
+  for (int i = ty * TP + tx; i < total; i += TP * PY) {
+    const int pt = i / static_cast<int>(kc);
+    const int c = i - pt * static_cast<int>(kc);
+    sh[c * (TP + 1) + pt] = src[i];
   }
+  __syncthreads();
   if (tx >= npt) return;
   const int b = b0 + tx;
-  auto at = [&](long long c) -> T {
-    if constexpr (SMEM) {
-      return sh[c * (TP + 1) + tx];
-    } else {
-      return __ldg(ev + static_cast<long long>(b) * kc + c);
-    }
-  };
+  auto at = [&](long long c) -> T { return sh[c * (TP + 1) + tx]; };
   const T m = mask[b];
-  const T* s = sky + sky_sp * b;
-  T flux = T(0), cr[2][2], ci[2][2];
-  if constexpr (EPI == JONES_IQUV) {
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-#pragma unroll
-      for (int bb = 0; bb < 2; ++bb) {
-        const T* q = s + a * sky_sa + bb * sky_sb;
-        cr[a][bb] = q[0];
-        ci[a][bb] = q[1];
-      }
-    }
-  } else {
-    flux = s[0];
-  }
+  T flux, cr[2][2], ci[2][2];
+  point_sky<T, EPI>(sky + sky_sp * b, sky_sa, sky_sb, flux, cr, ci);
   V2* o = reinterpret_cast<V2*>(out) + b;
   const int p1 = min(P, (blockIdx.y + 1) * ppb);
   for (int p = blockIdx.y * ppb + ty; p < p1; p += PY) {
@@ -884,33 +949,247 @@ __global__ void __launch_bounds__(TP * PY) pair_rows_points(
       }
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int f = c / 2, g = c % 2;
-        T re = T(0), im = T(0);
-        if constexpr (EPI == JONES_I) {
-          // (conj(ei[0, f]) ej[0, g] + conj(ei[1, f]) ej[1, g]) * flux.
-#pragma unroll
-          for (int v = 0; v < 2; ++v) {
-            re += ar[v][f] * br[v][g] + ai[v][f] * bi[v][g];
-            im += ar[v][f] * bi[v][g] - ai[v][f] * br[v][g];
-          }
-          re *= flux;
-          im *= flux;
-        } else {
-          // A_i^H C A_j with the vector axis flipped: sum over (a, b) of
-          // conj(ei[1-a, f]) coh[a, b] ej[1-b, g].
-#pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            const T xr = ar[1 - a][f], xi = -ai[1 - a][f];
-#pragma unroll
-            for (int bb = 0; bb < 2; ++bb) {
-              const T tr = xr * cr[a][bb] - xi * ci[a][bb];
-              const T ti = xr * ci[a][bb] + xi * cr[a][bb];
-              re += tr * br[1 - bb][g] - ti * bi[1 - bb][g];
-              im += tr * bi[1 - bb][g] + ti * br[1 - bb][g];
-            }
-          }
-        }
+        T re, im;
+        pair_jones_row<T, EPI>(c, ar, ai, br, bi, flux, cr, ci, re, im);
         op[static_cast<long long>(c) * n] = V2{re * m, im * m};
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ wide stacks
+//
+// pair_rows_wide and pair_rows_adjoint_wide (below): the pair rows and their
+// adjoint for a stack whose tile does not fit the forms above -- K = 331
+// with one beam an antenna, (n, 2648) evaluations, 10.6 KB a point in
+// float32. The global forms they replace gave a thread one point, lanes
+// over 32 points, and read each evaluation at the point's row from device
+// memory: neighbouring lanes K * chf reals apart, and each point's row read
+// again for every (pair, role) entry (2P = 1262 against K = 331, 3.8 times
+// the stack, which at 87 MB in float64 does not stay in L2); the adjoint
+// wrote its gradient with the same stride. Both ran at 8-50% of their
+// bounds.
+//
+// Here a block takes a tile of WP points, lanes over them fastest, and
+// the rest of its WIDE_THREADS threads over the tile's pairs (forward) or
+// (pair, role) entries (adjoint); a tile whose points are all masked
+// writes zeros and reads nothing.
+//
+// - pair_rows_wide: WP points make one 128-byte line of a complex row (16
+//   in float32, 8 in float64), so that every output line is written whole
+//   by one store of one warp, masked points' zeros included. With a tile
+//   of one 32-byte sector, a half-masked block ran 2.5 times slower than
+//   an unmasked one: sectors and lines left device memory part-written,
+//   in pieces. The staged form (WIDE) copies the tile's rows into shared
+//   memory, one contiguous 170 KB copy by 16-byte cp.async at K = 331,
+//   each row padded by 16 bytes: 98 against 114 us from device memory in
+//   float64; in float32, whose 16 points' rows cost as many bytes to stage
+//   and half the reads to fetch again, 56-60 against 54-56 us (PERF.md
+//   section 6, row 4), and the host's one rule keeps it all the same.
+//   Each thread reads the two beams' 2 x 2 Jones at its point in 16-byte
+//   vectors.
+// - pair_rows_adjoint_wide: WP points make one 32-byte sector of a row (4
+//   in float32, 2 in float64). The index's entries in rounds of
+//   WIDE_CHUNK: first every (entry, point)'s contribution side by side --
+//   the pair's 4 gradient rows at the point (the WP lanes of an entry on
+//   one sector) and the other beam's Jones through L1 -- into shared
+//   memory; then each beam's owner adds its entries of the round in index
+//   order, carrying its sum across rounds. The per-beam walk of the global
+//   form put the hub of a redundant array's representatives (antenna 0 of
+//   HERA-331, in 332 of the 631 pairs) on one thread a point, 332
+//   dependent loads of device memory long; here that thread adds 332
+//   values from shared memory. Staging the rows in shared memory too was
+//   slower (163 against 131 us in float32, 285 against 211 in float64),
+//   and so was a tile of a 128-byte line in float64.
+//
+// Past WIDE_SMEM_MAX (the forward's rows past ~450 complex Jones beams)
+// the forward reads the rows from device memory (WIDE_GLOBAL); the host
+// takes the first form that fits (beams/eval.py pair_rows_form, from
+// fftvis_pair_rows_smem).
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_SMEM_MAX = 227 * 1024;  // the most dynamic shared memory a block may take
+
+// Points a tile of the wide forms: pair_rows_wide's one 128-byte line of
+// a complex row (16 in float32, 8 in float64), pair_rows_adjoint_wide's
+// one 32-byte sector (4, 2). The reals of a staged row: K * chf and a
+// 16-byte pad.
+__host__ __device__ constexpr int wide_points(bool adjoint, int tsize) {
+  return (adjoint ? 16 : 64) / tsize;
+}
+
+__host__ __device__ inline long long wide_row(long long kc, int tsize) {
+  return kc + 16 / tsize;
+}
+
+__host__ __device__ inline long long wide_smem(long long kc, int tsize, int points) {
+  return points * wide_row(kc, tsize) * tsize;
+}
+
+// A piece of ``bytes`` bytes at offset ``at`` of a block's shared memory,
+// from a 16-byte boundary; ``at`` moves past it.
+__host__ __device__ inline long long smem_take(long long& at, long long bytes) {
+  const long long here = at;
+  at += (bytes + 15) / 16 * 16;
+  return here;
+}
+
+// The tile's rows, npt x kc reals from src, into sh with wide_row strides,
+// by cp.async: 16-byte copies where vec (src 16-byte aligned, kc *
+// sizeof(T) a multiple of 16). Every thread of the block calls it; it ends
+// with a barrier.
+template <typename T>
+__device__ __forceinline__ void wide_stage(T* sh, const T* __restrict__ src, long long kc,
+                                           int npt, bool vec) {
+  const long long row = wide_row(kc, sizeof(T));
+  if (vec) {
+    const int per = static_cast<int>(kc * static_cast<long long>(sizeof(T)) / 16);
+    for (int i = threadIdx.x; i < npt * per; i += blockDim.x) {
+      const int pt = i / per;
+      const int u = i - pt * per;
+      cp_async(reinterpret_cast<double2*>(sh + pt * row) + u,
+               reinterpret_cast<const double2*>(src + pt * kc) + u);
+    }
+  } else {
+    const int total = npt * static_cast<int>(kc);
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int pt = i / static_cast<int>(kc);
+      cp_async(sh + pt * row + (i - pt * kc), src + i);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// N reals at p into v, by 16-byte vectors where vec (p 16-byte aligned).
+template <typename T, int N>
+__device__ __forceinline__ void load_reals(const T* p, T (&v)[N], bool vec) {
+  using V = typename Vec16<T>::type;
+  constexpr int L = Vec16<T>::n;
+  if (N % L == 0 && vec) {
+#pragma unroll
+    for (int i = 0; i < N / L; ++i) unpack(reinterpret_cast<const V*>(p)[i], v + i * L);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = p[i];
+  }
+}
+
+// N reals v to p, by 16-byte vectors where vec.
+template <typename T, int N>
+__device__ __forceinline__ void store_reals(T* p, const T (&v)[N], bool vec) {
+  using V = typename Vec16<T>::type;
+  constexpr int L = Vec16<T>::n;
+  if (N % L == 0 && vec) {
+#pragma unroll
+    for (int i = 0; i < N / L; ++i) {
+      V q;
+      T* qv = reinterpret_cast<T*>(&q);
+#pragma unroll
+      for (int j = 0; j < L; ++j) qv[j] = v[i * L + j];
+      reinterpret_cast<V*>(p)[i] = q;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = v[i];
+  }
+}
+
+// One beam's 2 x 2 Jones e[v][f] (re, im) from its NJ channels at p.
+template <typename T, bool CPLX>
+__device__ __forceinline__ void read_jones(const T* p, bool vec, T (&er)[2][2],
+                                           T (&ei)[2][2]) {
+  constexpr int NJ = CPLX ? 8 : 4;
+  T e[NJ];
+  load_reals<T, NJ>(p, e, vec);
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      er[v][f] = e[v * 2 + f];
+      ei[v][f] = CPLX ? e[(4 + v * 2 + f) % NJ] : T(0);
+    }
+  }
+}
+
+template <typename T, int EPI, bool CPLX, bool STAGE>
+__global__ void __launch_bounds__(WIDE_THREADS) pair_rows_wide(
+    const T* __restrict__ ev,    // (n, kc) evaluations
+    const int* __restrict__ pi,  // (P,) first beam of each pair
+    const int* __restrict__ pj,  // (P,) second beam
+    const T* __restrict__ sky,   // real (n,) Stokes I, or complex (n, 2, 2) as reals
+    const T* __restrict__ mask,  // (n,)
+    T* __restrict__ out,         // complex (P * C, n) as reals
+    int n, int K, int chf, int c0, int P, int ppb, int vec,
+    long long sky_sp, long long sky_sa, long long sky_sb) {
+  using V2 = typename Vec2<T>::type;
+  constexpr int C = EPI == POWER ? 1 : 4;
+  constexpr int WP = wide_points(false, sizeof(T));
+  constexpr int LY = WIDE_THREADS / WP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const long long kc = static_cast<long long>(K) * chf;
+  const int b0 = blockIdx.x * WP;
+  const int npt = min(WP, n - b0);
+  const int pt = threadIdx.x % WP, py = threadIdx.x / WP;
+  const bool act = pt < npt;
+  // A ragged tile's spare lanes read the last point and store nothing.
+  const int pr = min(pt, npt - 1);
+  const T m = act ? mask[b0 + pt] : T(0);
+  const bool live = __syncthreads_or(m != T(0));
+  const int pend = min(P, (blockIdx.y + 1) * ppb);
+  V2* o = reinterpret_cast<V2*>(out) + b0 + pt;
+  if (!live) {
+    // Every point of the tile masked: zero rows, nothing staged or read.
+    for (int p = blockIdx.y * ppb + py; p < pend; p += LY) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (act) o[(static_cast<long long>(p) * C + c) * n] = V2{T(0), T(0)};
+      }
+    }
+    return;
+  }
+  const T* er;
+  if constexpr (STAGE) {
+    T* sh = reinterpret_cast<T*>(smem_raw);
+    wide_stage(sh, ev + static_cast<long long>(b0) * kc, kc, npt, vec != 0);
+    er = sh + pr * wide_row(kc, sizeof(T));
+  } else {
+    er = ev + static_cast<long long>(b0 + pr) * kc;
+  }
+  T flux, cr[2][2], ci[2][2];
+  point_sky<T, EPI>(sky + sky_sp * (b0 + pr), sky_sa, sky_sb, flux, cr, ci);
+  // A masked point's lanes compute on its (finite) evaluations too and
+  // store zeros: the WP lanes of a pair then write their 32-byte sector in
+  // one store. Apart, a sector's halves left device memory at different
+  // times and each took a read-modify-write (a half-masked block ran 2.5
+  // times slower than an unmasked one).
+#pragma unroll 2
+  for (int p = blockIdx.y * ppb + py; p < pend; p += LY) {
+    // A malformed index reads a wrong beam, never out of bounds.
+    const long long ei = static_cast<long long>(min(max(pi[p], 0), K - 1)) * chf;
+    const long long ej = static_cast<long long>(min(max(pj[p], 0), K - 1)) * chf;
+    T re[C], im[C];
+    if constexpr (EPI == POWER) {
+      // Cubic overshoot near nulls can go negative: clamp at the floor.
+      re[0] = sqrt(fmax(er[ei + c0] * er[ej + c0], T(0))) * flux * m;
+      im[0] = T(0);
+    } else {
+      T ar[2][2], ai[2][2], br[2][2], bi[2][2];
+      read_jones<T, CPLX>(er + ei, vec != 0, ar, ai);
+      read_jones<T, CPLX>(er + ej, vec != 0, br, bi);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pair_jones_row<T, EPI>(c, ar, ai, br, bi, flux, cr, ci, re[c], im[c]);
+        re[c] *= m;
+        im[c] *= m;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const bool zero = m == T(0);
+      if (act) {
+        o[(static_cast<long long>(p) * C + c) * n] =
+            V2{zero ? T(0) : re[c], zero ? T(0) : im[c]};
       }
     }
   }
@@ -996,8 +1275,8 @@ __device__ __forceinline__ void pair_adjoint_jones(
   }
 }
 
-// pair_rows_adjoint_points: the gradient of pair_rows_points' output with
-// respect to the (n, K * chf) real evaluations, given the (P * C, n)
+// The gradient of the pair rows' output with respect to the (n, K * chf)
+// real evaluations, given the (P * C, n)
 // complex gradient G of the rows (PyTorch's convention: dL/dRe + i dL/dIm
 // of a real loss), what the JAX package leaves to XLA's autodiff. The rows
 // are bilinear in the two beams of a pair, so the gradient of beam k's
@@ -1020,7 +1299,8 @@ __device__ __forceinline__ void pair_adjoint_jones(
 //
 // - pair_rows_adjoint_tile, wherever a point tile fits shared memory and
 //   the beams fit PA_UNITS thread rows (every stack of the engine's
-//   paths). What held the first form back (68.5 us against a 19.9 us
+//   paths but one beam an antenna). What held the first form back (68.5
+//   us against a 19.9 us
 //   bound at the north star's block in float64, 29%): each of a tile's 3
 //   blocks (groups of 13 beams) staged the tile's whole K x chf
 //   evaluations, 78 KB at f64, which held residency to 2 blocks an SM;
@@ -1045,17 +1325,41 @@ __device__ __forceinline__ void pair_adjoint_jones(
 //   through shared memory and the tile is written out once, coalesced. The
 //   tile's PA_POINTS = 32 points were measured against 16, not guessed
 //   (PERF.md row 4b).
-// - pair_rows_adjoint_points, the global form, for a stack past that (K =
-//   331 with one beam an antenna): thread x takes point x and a beam,
-//   reads the evaluations from global memory and walks the beam's entries,
-//   reading the pair's C gradient rows at its point, consecutive points at
-//   consecutive addresses; the beam groups of a tile run side by side, so
-//   that a row read for one role is still in L2 for the other.
+// - pair_rows_adjoint_wide, for a stack past that (K = 331 with one beam
+//   an antenna; the design note of the wide forms above): entries in
+//   rounds, each entry's contribution at each point computed side by side
+//   into shared memory, then summed by each beam's owner in index order.
+//   At 32 points a chunk of 16 pairs left most of the 331 beams' owners
+//   idle at each of 40 barriers, and 32 points' rows do not fit shared
+//   memory.
 //
 // Bound: G at the unmasked points read once, the evaluations read once and
 // their gradient written once.
+
+// Entries of the index that a round of pair_rows_adjoint_wide takes.
+constexpr int WIDE_CHUNK = 256;
+
+// Byte offsets of pair_rows_adjoint_wide's shared memory, on the host and
+// the card alike: the group's beam offsets (K + 1 ints), a round's
+// contributions (WIDE_CHUNK entries x WP points x NV reals) and two
+// carried sums (WP x NV reals each).
+struct WideAdjLayout {
+  long long off, contrib, carry, total;
+};
+
+__host__ __device__ inline WideAdjLayout wide_adj_layout(int K, int NV, int tsize) {
+  const int wp = wide_points(true, tsize);
+  WideAdjLayout L;
+  long long at = 0;
+  L.off = smem_take(at, (static_cast<long long>(K) + 1) * 4);
+  L.contrib = smem_take(at, static_cast<long long>(WIDE_CHUNK) * wp * NV * tsize);
+  L.carry = smem_take(at, 2ll * wp * NV * tsize);
+  L.total = at;
+  return L;
+}
+
 template <typename T, int EPI, bool CPLX>
-__global__ void __launch_bounds__(TP * PY) pair_rows_adjoint_points(
+__global__ void __launch_bounds__(WIDE_THREADS) pair_rows_adjoint_wide(
     const T* __restrict__ ev,      // (n, kc) evaluations
     const int* __restrict__ pi,    // (P,) first beam of each pair
     const int* __restrict__ pj,    // (P,) second beam
@@ -1064,94 +1368,169 @@ __global__ void __launch_bounds__(TP * PY) pair_rows_adjoint_points(
     const T* __restrict__ mask,    // (n,)
     const T* __restrict__ g,       // complex (P * C, n) as reals
     T* __restrict__ gev,           // (n, kc), every entry written
-    int n, int K, int chf, int c0, int P, int nidx, int kpb,
+    int n, int K, int chf, int c0, int P, int nidx, int kpb, int vec,
     long long sky_sp, long long sky_sa, long long sky_sb) {
   using V2 = typename Vec2<T>::type;
+  constexpr int WP = wide_points(true, sizeof(T));
+  constexpr int LY = WIDE_THREADS / WP;
+  constexpr int NJ = CPLX ? 8 : 4;
+  constexpr int NV = EPI == POWER ? 1 : NJ;  // reals a contribution keeps
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const long long kc = static_cast<long long>(K) * chf;
-  const int b0 = blockIdx.y * TP;
-  const int npt = min(TP, n - b0);
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  if (tx >= npt) return;
-  const int b = b0 + tx;
-  const T* evb = ev + static_cast<long long>(b) * kc;
-  auto at = [&](long long c) -> T { return __ldg(evb + c); };
-  const T m = mask[b];
-  const T* s = sky + sky_sp * b;
-  T flux = T(0), cr[2][2], ci[2][2];
-  if constexpr (EPI == JONES_IQUV) {
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-#pragma unroll
-      for (int bb = 0; bb < 2; ++bb) {
-        const T* q = s + a * sky_sa + bb * sky_sb;
-        cr[a][bb] = q[0];
-        ci[a][bb] = q[1];
-      }
+  const WideAdjLayout L = wide_adj_layout(K, NV, sizeof(T));
+  int* off_s = reinterpret_cast<int*>(smem_raw + L.off);  // the group's beams' entries
+  T* contrib = reinterpret_cast<T*>(smem_raw + L.contrib);
+  T* carry = reinterpret_cast<T*>(smem_raw + L.carry);
+  const int k0 = blockIdx.y * kpb;
+  const int nk = min(K, k0 + kpb) - k0;
+  const int b0 = blockIdx.x * WP;
+  const int npt = min(WP, n - b0);
+  const int tid = threadIdx.x;
+  const int pt = tid % WP, py = tid / WP;
+  const bool act = pt < npt;
+  // A ragged tile's spare lanes read the last point and store nothing.
+  const int pr = min(pt, npt - 1);
+  const T m = act ? mask[b0 + pt] : T(0);
+  if (!__syncthreads_or(m != T(0))) {
+    // Every point of the tile masked: zero gradients, nothing read.
+    const int len = nk * chf;
+    for (int i = tid; i < npt * len; i += WIDE_THREADS) {
+      const int q = i / len;
+      gev[static_cast<long long>(b0 + q) * kc + static_cast<long long>(k0) * chf + (i - q * len)] =
+          T(0);
     }
-  } else {
-    flux = s[0];
+    return;
   }
-  const V2* gb = reinterpret_cast<const V2*>(g) + b;
-  const int* off = index;
+  // The group's beams' entries: beams at or past nidx have none.
+  for (int k = tid; k <= nk; k += WIDE_THREADS) {
+    off_s[k] = min(max(index[min(k0 + k, nidx)], 0), 2 * P);
+  }
+  __syncthreads();
+  // The point's row, read through L1: staging the tile's rows in shared
+  // memory cost more than it saved (the wide forms' note).
+  const T* er = ev + static_cast<long long>(b0 + pr) * kc;
+  T flux, cr[2][2], ci[2][2];
+  point_sky<T, EPI>(sky + sky_sp * (b0 + pr), sky_sa, sky_sb, flux, cr, ci);
+  const T scale = EPI == JONES_IQUV ? m : flux * m;
+  const V2* gb = reinterpret_cast<const V2*>(g) + b0 + pr;
   const int* ent = index + nidx + 1;
-  T* out = gev + static_cast<long long>(b) * kc;
-  const int k1 = min(K, (blockIdx.x + 1) * kpb);
-  for (int k = blockIdx.x * kpb + ty; k < k1; k += PY) {
+  T* out = gev + static_cast<long long>(b0 + pt) * kc;
+  // Beam k's gradient at the point: the sums v scaled, into its chf reals.
+  auto put = [&](int k, const T (&v)[NV]) {
     T* o = out + static_cast<long long>(k) * chf;
-    const int q0 = k < nidx ? off[k] : 0, q1 = k < nidx ? off[k + 1] : 0;
-    if (m == T(0) || q0 == q1) {
-      for (int c = 0; c < chf; ++c) o[c] = T(0);
-      continue;
-    }
     if constexpr (EPI == POWER) {
-      const T e = at(static_cast<long long>(k) * chf + c0);
-      T acc = T(0);
-      for (int q = q0; q < q1; ++q) {
-        const int en = ent[q];
-        const bool first = en < P;
-        const int p = first ? en : en - P;
-        const int other = min(max(first ? pj[p] : pi[p], 0), K - 1);
-        const T f = at(static_cast<long long>(other) * chf + c0);
-        const T prod = e * f;
-        if (prod > T(0)) acc += gb[static_cast<long long>(p) * n].x * f / (T(2) * sqrt(prod));
-      }
-      acc *= flux * m;
-      for (int c = 0; c < chf; ++c) o[c] = c == c0 ? acc : T(0);
+      for (int c = 0; c < chf; ++c) o[c] = c == c0 ? v[0] * scale : T(0);
     } else {
-      // The complex gradient of e_k[v][f].
-      T gr[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
-      T gi[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
-      for (int q = q0; q < q1; ++q) {
-        const int en = ent[q];
-        const bool first = en < P;
-        const int p = first ? en : en - P;
-        const long long eo =
-            static_cast<long long>(min(max(first ? pj[p] : pi[p], 0), K - 1)) * chf;
-        // The other beam's Jones and the pair's gradient rows (f, g).
-        T xr[2][2], xi[2][2], Gr[2][2], Gi[2][2];
+      T r[NJ];
 #pragma unroll
-        for (int v = 0; v < 2; ++v) {
+      for (int c = 0; c < NJ; ++c) r[c] = v[c] * scale;
+      store_reals<T, NJ>(o, r, vec != 0);
+    }
+  };
+  // A beam without entries: zeros.
+  for (int kk = py; kk < nk; kk += LY) {
+    if (act && off_s[kk + 1] <= off_s[kk]) {
+      T z[NV];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) z[c] = T(0);
+      put(k0 + kk, z);
+    }
+  }
+  // The group's entries [off_s[0], off_s[nk]) in rounds of WIDE_CHUNK, in
+  // index order (by beam).
+  const int qbeg = off_s[0], qend = max(off_s[nk], qbeg);
+  for (int q0 = qbeg, round = 0; q0 < qend; q0 += WIDE_CHUNK, ++round) {
+    const int q1 = min(qend, q0 + WIDE_CHUNK);
+    // Each entry's contribution at each point, side by side: the pair's C
+    // gradient rows at the point (the WP lanes of an entry on one 32-byte
+    // sector) and the other beam's Jones. A masked point reads nothing.
+    // Entry q's contribution at the point into the round's shared memory:
+    // NV reals from a 16-byte boundary where NV > 1.
+    auto contribute = [&](int q) {
+      const int en = min(max(ent[q], 0), 2 * P - 1);
+      const bool first = en < P;
+      const int p = first ? en : en - P;
+      // A malformed index reads a wrong beam, never out of bounds.
+      const int other = min(max(first ? pj[p] : pi[p], 0), K - 1);
+      T v[NV];
+      if constexpr (EPI == POWER) {
+        const int own = min(max(first ? pi[p] : pj[p], 0), K - 1);
+        const T e = er[static_cast<long long>(own) * chf + c0];
+        const T f = er[static_cast<long long>(other) * chf + c0];
+        const T prod = e * f;
+        v[0] = prod > T(0) ? gb[static_cast<long long>(p) * n].x * f / (T(2) * sqrt(prod))
+                           : T(0);
+      } else {
+        T xr[2][2], xi[2][2], Gr[2][2], Gi[2][2];
+        T gr[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
+        T gi[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
+#pragma unroll
+        for (int vv = 0; vv < 2; ++vv) {
 #pragma unroll
           for (int f = 0; f < 2; ++f) {
-            xr[v][f] = at(eo + v * 2 + f);
-            xi[v][f] = CPLX ? at(eo + 4 + v * 2 + f) : T(0);
-            const V2 gg = gb[(static_cast<long long>(p) * 4 + v * 2 + f) * n];
-            Gr[v][f] = gg.x;
-            Gi[v][f] = gg.y;
+            const V2 gg = gb[(static_cast<long long>(p) * 4 + vv * 2 + f) * n];
+            Gr[vv][f] = gg.x;
+            Gi[vv][f] = gg.y;
           }
         }
+        read_jones<T, CPLX>(er + static_cast<long long>(other) * chf, vec != 0, xr, xi);
         pair_adjoint_jones<T, EPI>(first, xr, xi, Gr, Gi, cr, ci, gr, gi);
-      }
-      const T scale = EPI == JONES_I ? flux * m : m;
 #pragma unroll
-      for (int v = 0; v < 2; ++v) {
+        for (int vv = 0; vv < 2; ++vv) {
 #pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          o[v * 2 + f] = gr[v][f] * scale;
-          if constexpr (CPLX) o[4 + v * 2 + f] = gi[v][f] * scale;
+          for (int f = 0; f < 2; ++f) {
+            v[vv * 2 + f] = gr[vv][f];
+            if constexpr (CPLX) v[(4 + vv * 2 + f) % NJ] = gi[vv][f];
+          }
         }
       }
+      store_reals<T, NV>(contrib + (static_cast<long long>(q - q0) * WP + pt) * NV, v, true);
+    };
+    if (m != T(0)) {
+      // A lane's entries are independent: unrolled, their loads overlap
+      // four at a time, which paid at K = 331 in float32 and not in
+      // float64.
+      if constexpr (sizeof(T) == 4) {
+#pragma unroll 4
+        for (int q = q0 + py; q < q1; q += LY) contribute(q);
+      } else {
+        for (int q = q0 + py; q < q1; q += LY) contribute(q);
+      }
     }
+    __syncthreads();
+    // The round's beams: each owner adds its entries of the round in index
+    // order, after the sum carried from the round before where its entries
+    // began there, and carries its sum on where they go past the round.
+    int lo = 0, hi = nk - 1;  // the last beam whose entries start at or before q0
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (off_s[mid] <= q0) lo = mid; else hi = mid - 1;
+    }
+    const int ka = lo;
+    const T* cin = carry + ((round + 1) & 1) * WP * NV + pt * NV;
+    T* cout = carry + (round & 1) * WP * NV + pt * NV;
+    for (int kk = ka + py; kk < nk && off_s[kk] < q1; kk += LY) {
+      const int a = max(off_s[kk], q0), b = min(off_s[kk + 1], q1);
+      if (a >= b) continue;
+      T v[NV];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) v[c] = off_s[kk] < q0 ? cin[c] : T(0);
+      if (m != T(0)) {
+        for (int q = a; q < b; ++q) {
+          T u[NV];
+          load_reals<T, NV>(contrib + (static_cast<long long>(q - q0) * WP + pt) * NV, u, true);
+#pragma unroll
+          for (int c = 0; c < NV; ++c) v[c] += u[c];
+        }
+      }
+      if (off_s[kk + 1] > q1) {
+#pragma unroll
+        for (int c = 0; c < NV; ++c) cout[c] = v[c];
+      } else if (act) {
+        put(k0 + kk, v);
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -1164,30 +1543,6 @@ constexpr int PA_SMEM_MAX = 224 * 1024;  // of the 227 KB a block may take
 constexpr int PA_MAX_CHUNKS = 1 << 12;  // the packed entry's 13 bits of chunk, sign bit clear
 static_assert(PA_UNITS * PA_THREADS < (1 << 14), "the packed entry's 14 bits of beam");
 
-__device__ __forceinline__ unsigned int smem_addr(const void* p) {
-  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
-}
-
-// One complex element, 8 or 16 bytes, from device to shared memory.
-__device__ __forceinline__ void cp_async(float2* dst, const float2* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async(double2* dst, const double2* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-// One real, 4 or 8 bytes.
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async(double* dst, const double* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Byte offsets of pair_rows_adjoint_tile's shared memory, on the host and
 // the card alike: the tile's evaluations (kc x (PA_POINTS + 1) reals; its
 // gradient at the end), PA_STAGES chunks of gradient rows, the beam
@@ -1196,19 +1551,13 @@ struct PaLayout {
   long long ev, g, idx, scale, total;
 };
 
-__host__ __device__ inline long long pa_take(long long& at, long long bytes) {
-  const long long here = at;
-  at += (bytes + 15) / 16 * 16;
-  return here;
-}
-
 __host__ __device__ inline PaLayout pa_layout(long long kc, int P, int nidx, int C, int tsize) {
   PaLayout L;
   long long at = 0;
-  L.ev = pa_take(at, kc * (PA_POINTS + 1) * tsize);
-  L.g = pa_take(at, static_cast<long long>(PA_STAGES) * PA_PAIRS * C * PA_POINTS * 2 * tsize);
-  L.idx = pa_take(at, (static_cast<long long>(nidx) + 1 + 2LL * P) * 4);
-  L.scale = pa_take(at, static_cast<long long>(PA_POINTS) * tsize);
+  L.ev = smem_take(at, kc * (PA_POINTS + 1) * tsize);
+  L.g = smem_take(at, static_cast<long long>(PA_STAGES) * PA_PAIRS * C * PA_POINTS * 2 * tsize);
+  L.idx = smem_take(at, (static_cast<long long>(nidx) + 1 + 2LL * P) * 4);
+  L.scale = smem_take(at, static_cast<long long>(PA_POINTS) * tsize);
   L.total = at;
   return L;
 }
@@ -1606,28 +1955,107 @@ int sm_count() {
   return count;
 }
 
-template <typename T, int EPI, bool CPLX, bool SMEM>
-void pair_rows_instance(dim3 grid, size_t smem, cudaStream_t s, const T* ev,
-                        const int* pi, const int* pj, const T* sky, const T* mask,
-                        T* out, int n, int K, int chf, int c0, int P, int ppb,
-                        long long sp, long long sa, long long sb) {
-  if constexpr (SMEM) {
-    // Above 48 KB a kernel must opt in to its dynamic shared memory.
-    static bool opted_in = false;
-    if (!opted_in) {
-      cudaFuncSetAttribute(pair_rows_points<T, EPI, CPLX, SMEM>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-      opted_in = true;
-    }
+// The forms of pair_rows and of its adjoint, as the host picks them
+// (beams/eval.py pair_rows_form): the tile forms (pair_rows_points,
+// pair_rows_adjoint_tile) and the wide forms with their rows staged in
+// shared memory (WIDE) or read from device memory (WIDE_GLOBAL).
+enum PairForm { FORM_TILE = 0, FORM_WIDE = 1, FORM_WIDE_GLOBAL = 2 };
+
+// Whether pair_rows_adjoint_tile takes these shapes: its shared memory
+// fits, a thread row a beam needs at most PA_UNITS beams a row, and the
+// packed entries hold the chunks.
+bool pa_tile_form(long long bytes, int K, int P) {
+  return bytes <= PA_SMEM_MAX && K <= PA_UNITS * (PA_THREADS / PA_POINTS) &&
+         (P + PA_PAIRS - 1) / PA_PAIRS <= PA_MAX_CHUNKS;
+}
+
+// Dynamic shared memory a form of pair_rows (adjoint false) or of its
+// adjoint takes for these shapes (C rows a pair: 1 power, 4 Jones), or -1
+// where the form cannot take them.
+long long pair_form_smem(bool adjoint, int form, int K, int chf, int P, int nidx, int C,
+                         int tsize) {
+  const long long kc = static_cast<long long>(K) * chf;
+  long long bytes = -1;
+  if (form == FORM_TILE && !adjoint) {
+    bytes = kc * (TP + 1) * tsize;
+    if (bytes > SMEM_MAX) bytes = -1;
+  } else if (form == FORM_TILE) {
+    bytes = pa_layout(kc, P, nidx, C, tsize).total;
+    if (!pa_tile_form(bytes, K, P)) bytes = -1;
+  } else if (form == FORM_WIDE && !adjoint) {
+    bytes = wide_smem(kc, tsize, wide_points(false, tsize));
+    if (bytes > WIDE_SMEM_MAX) bytes = -1;
+  } else if (form == FORM_WIDE_GLOBAL && !adjoint) {
+    bytes = 0;
+  } else if (form == FORM_WIDE) {
+    bytes = wide_adj_layout(K, C == 1 ? 1 : chf, tsize).total;
+    if (bytes > WIDE_SMEM_MAX) bytes = -1;
   }
-  pair_rows_points<T, EPI, CPLX, SMEM><<<grid, dim3(TP, PY), smem, s>>>(
-      ev, pi, pj, sky, mask, out, n, K, chf, c0, P, ppb, sp, sa, sb);
+  return bytes;
+}
+
+// Above 48 KB a kernel must opt in to its dynamic shared memory, once: a
+// flag of the launching template's own for each kernel it launches.
+template <typename F>
+void opt_in(bool& done, F* kernel, int bytes) {
+  if (!done) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    done = true;
+  }
+}
+
+// Blocks of a launch: ``tiles`` tiles of points, and enough groups of a
+// tile's ``items`` (pairs or beams) over ``lanes`` thread rows for
+// ``per_sm`` blocks a SM. Returns the items a group takes.
+int pair_groups(long long tiles, int items, int lanes, int per_sm, unsigned int& groups_out) {
+  const long long most = (static_cast<long long>(items) + lanes - 1) / lanes;
+  long long groups = (static_cast<long long>(per_sm) * sm_count() + tiles - 1) / tiles;
+  groups = groups < most ? groups : most;
+  groups = groups < 65535 ? groups : 65535;
+  groups = groups > 1 ? groups : 1;
+  const int per = static_cast<int>((items + groups - 1) / groups);
+  groups_out = static_cast<unsigned int>((items + per - 1) / per);
+  return per;
+}
+
+template <typename T, int EPI, bool CPLX>
+void pair_rows_launch(int form, long long smem, cudaStream_t s, const T* ev, const int* pi,
+                      const int* pj, const T* sky, const T* mask, T* out, int n, int K,
+                      int chf, int c0, int P, int vec, long long sp, long long sa,
+                      long long sb) {
+  if (form == FORM_TILE) {
+    static bool opted = false;
+    opt_in(opted, pair_rows_points<T, EPI, CPLX>, SMEM_MAX);
+    const long long tiles = (n + TP - 1) / TP;
+    unsigned int groups;
+    const int ppb = pair_groups(tiles, P, PY, 2, groups);
+    const dim3 grid(static_cast<unsigned int>(tiles), groups);
+    pair_rows_points<T, EPI, CPLX><<<grid, dim3(TP, PY), smem, s>>>(
+        ev, pi, pj, sky, mask, out, n, K, chf, c0, P, ppb, sp, sa, sb);
+    return;
+  }
+  constexpr int WP = wide_points(false, sizeof(T));
+  const long long tiles = (n + WP - 1) / WP;
+  unsigned int groups;
+  // The staged form's rows hold one block an SM: a second group of a tile
+  // would stage them again.
+  const int ppb = pair_groups(tiles, P, WIDE_THREADS / WP, form == FORM_WIDE ? 1 : 2, groups);
+  const dim3 grid(static_cast<unsigned int>(tiles), groups);
+  if (form == FORM_WIDE) {
+    static bool opted = false;
+    opt_in(opted, pair_rows_wide<T, EPI, CPLX, true>, WIDE_SMEM_MAX);
+    pair_rows_wide<T, EPI, CPLX, true><<<grid, WIDE_THREADS, smem, s>>>(
+        ev, pi, pj, sky, mask, out, n, K, chf, c0, P, ppb, vec, sp, sa, sb);
+  } else {
+    pair_rows_wide<T, EPI, CPLX, false><<<grid, WIDE_THREADS, 0, s>>>(
+        ev, pi, pj, sky, mask, out, n, K, chf, c0, P, ppb, vec, sp, sa, sb);
+  }
 }
 
 template <typename T>
 int launch_pair_rows(const void* ev, const void* pi, const void* pj, const void* sky,
                      const void* mask, void* out, int n, int K, int chf, int c0,
-                     int P, int epi, int cplx, long long sp, long long sa,
+                     int P, int epi, int cplx, int form, long long sp, long long sa,
                      long long sb, void* stream) {
   const bool power = epi == POWER;
   if (K < 1 || chf < 1 || P < 0 || n < 0 || (epi != POWER && epi != JONES_I &&
@@ -1635,16 +2063,10 @@ int launch_pair_rows(const void* ev, const void* pi, const void* pj, const void*
       (power && (c0 < 0 || c0 >= chf)) || (!power && chf != (cplx ? 8 : 4))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long smem =
+      pair_form_smem(false, form, K, chf, P, K, power ? 1 : 4, static_cast<int>(sizeof(T)));
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || P == 0) return 0;
-  const int tiles = (n + TP - 1) / TP;
-  // Enough blocks for two a SM: split the pairs of a tile over blocks.
-  int groups = (2 * sm_count() + tiles - 1) / tiles;
-  groups = max(1, min(groups, min((P + PY - 1) / PY, 65535)));
-  const int ppb = (P + groups - 1) / groups;
-  groups = (P + ppb - 1) / ppb;
-  const dim3 grid(tiles, groups);
-  const long long bytes = static_cast<long long>(K) * chf * (TP + 1) * sizeof(T);
-  const bool smem = bytes <= SMEM_MAX;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* e = static_cast<const T*>(ev);
   const int* ii = static_cast<const int*>(pi);
@@ -1652,14 +2074,11 @@ int launch_pair_rows(const void* ev, const void* pi, const void* pj, const void*
   const T* k = static_cast<const T*>(sky);
   const T* m = static_cast<const T*>(mask);
   T* o = static_cast<T*>(out);
-#define FFTVIS_PAIRS(EPI, CPLX)                                                      \
-  if (smem) {                                                                        \
-    pair_rows_instance<T, EPI, CPLX, true>(grid, bytes, s, e, ii, jj, k, m, o, n, K, \
-                                           chf, c0, P, ppb, sp, sa, sb);             \
-  } else {                                                                           \
-    pair_rows_instance<T, EPI, CPLX, false>(grid, 0, s, e, ii, jj, k, m, o, n, K,    \
-                                            chf, c0, P, ppb, sp, sa, sb);            \
-  }
+  // The wide forms' 16-byte copies and loads: aligned rows.
+  const int vec = static_cast<long long>(K) * chf * sizeof(T) % 16 == 0 && aligned16(ev);
+#define FFTVIS_PAIRS(EPI, CPLX) \
+  pair_rows_launch<T, EPI, CPLX>(form, smem, s, e, ii, jj, k, m, o, n, K, chf, c0, P, vec, sp, \
+                                 sa, sb)
   if (power) {
     FFTVIS_PAIRS(POWER, false);
   } else if (epi == JONES_I) {
@@ -1671,39 +2090,38 @@ int launch_pair_rows(const void* ev, const void* pi, const void* pj, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether pair_rows_adjoint takes the tile form: its shared memory fits,
-// a thread row a beam needs at most PA_UNITS beams a row, and the packed
-// entries hold the chunks.
-bool pa_tile_form(long long bytes, int K, int P) {
-  return bytes <= PA_SMEM_MAX && K <= PA_UNITS * (PA_THREADS / PA_POINTS) &&
-         (P + PA_PAIRS - 1) / PA_PAIRS <= PA_MAX_CHUNKS;
-}
-
 template <typename T, int EPI, bool CPLX>
-void pair_rows_adjoint_tile_instance(size_t smem, cudaStream_t s, const T* ev, const int* pi,
-                                     const int* pj, const int* index, const T* sky,
-                                     const T* mask, const T* g, T* gev, int n, int K, int chf,
-                                     int c0, int P, int nidx, long long sp, long long sa,
-                                     long long sb) {
-  // Above 48 KB a kernel must opt in to its dynamic shared memory.
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaFuncSetAttribute(pair_rows_adjoint_tile<T, EPI, CPLX>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, PA_SMEM_MAX);
-    opted_in = true;
+void pair_rows_adjoint_launch(int form, long long smem, cudaStream_t s, const T* ev,
+                              const int* pi, const int* pj, const int* index, const T* sky,
+                              const T* mask, const T* g, T* gev, int n, int K, int chf,
+                              int c0, int P, int nidx, int vec, long long sp, long long sa,
+                              long long sb) {
+  if (form == FORM_TILE) {
+    static bool opted = false;
+    opt_in(opted, pair_rows_adjoint_tile<T, EPI, CPLX>, PA_SMEM_MAX);
+    // A thread row a beam, up to PA_UNITS beams a row.
+    const int by = min(K, PA_THREADS / PA_POINTS);
+    pair_rows_adjoint_tile<T, EPI, CPLX>
+        <<<(n + PA_POINTS - 1) / PA_POINTS, dim3(PA_POINTS, by), smem, s>>>(
+            ev, pi, pj, index, sky, mask, g, gev, n, K, chf, c0, P, nidx, sp, sa, sb);
+    return;
   }
-  // A thread row a beam, up to PA_UNITS beams a row.
-  const int by = min(K, PA_THREADS / PA_POINTS);
-  pair_rows_adjoint_tile<T, EPI, CPLX>
-      <<<(n + PA_POINTS - 1) / PA_POINTS, dim3(PA_POINTS, by), smem, s>>>(
-          ev, pi, pj, index, sky, mask, g, gev, n, K, chf, c0, P, nidx, sp, sa, sb);
+  constexpr int WP = wide_points(true, sizeof(T));
+  const long long tiles = (n + WP - 1) / WP;
+  unsigned int groups;
+  const int kpb = pair_groups(tiles, K, WIDE_THREADS / WP, 2, groups);
+  const dim3 grid(static_cast<unsigned int>(tiles), groups);
+  static bool opted = false;
+  opt_in(opted, pair_rows_adjoint_wide<T, EPI, CPLX>, WIDE_SMEM_MAX);
+  pair_rows_adjoint_wide<T, EPI, CPLX><<<grid, WIDE_THREADS, smem, s>>>(
+      ev, pi, pj, index, sky, mask, g, gev, n, K, chf, c0, P, nidx, kpb, vec, sp, sa, sb);
 }
 
 template <typename T>
 int launch_pair_rows_adjoint(const void* ev, const void* pi, const void* pj,
                              const void* index, const void* sky, const void* mask,
                              const void* g, void* gev, int n, int K, int chf, int c0, int P,
-                             int nidx, int epi, int cplx, int chunk, long long sp,
+                             int nidx, int epi, int cplx, int chunk, int form, long long sp,
                              long long sa, long long sb, void* stream) {
   const bool power = epi == POWER;
   if (K < 1 || chf < 1 || P < 0 || n < 0 || nidx < 0 || nidx > K ||
@@ -1712,6 +2130,9 @@ int launch_pair_rows_adjoint(const void* ev, const void* pi, const void* pj,
       chunk != PA_PAIRS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long smem =
+      pair_form_smem(true, form, K, chf, P, nidx, power ? 1 : 4, static_cast<int>(sizeof(T)));
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* e = static_cast<const T*>(ev);
@@ -1722,50 +2143,20 @@ int launch_pair_rows_adjoint(const void* ev, const void* pi, const void* pj,
   const T* m = static_cast<const T*>(mask);
   const T* gg = static_cast<const T*>(g);
   T* o = static_cast<T*>(gev);
-  const long long kc = static_cast<long long>(K) * chf;
-  const long long bytes =
-      pa_layout(kc, P, nidx, power ? 1 : 4, static_cast<int>(sizeof(T))).total;
-  if (pa_tile_form(bytes, K, P)) {
-    // The tile form: a block a tile of PA_POINTS points, every beam.
-#define FFTVIS_PA_TILE(EPI, CPLX)                                                       \
-  pair_rows_adjoint_tile_instance<T, EPI, CPLX>(bytes, s, e, ii, jj, ix, k, m, gg, o, n, K, \
-                                                chf, c0, P, nidx, sp, sa, sb)
-    if (power) {
-      FFTVIS_PA_TILE(POWER, false);
-    } else if (epi == JONES_I) {
-      if (cplx) { FFTVIS_PA_TILE(JONES_I, true); } else { FFTVIS_PA_TILE(JONES_I, false); }
-    } else {
-      if (cplx) { FFTVIS_PA_TILE(JONES_IQUV, true); } else { FFTVIS_PA_TILE(JONES_IQUV, false); }
-    }
-#undef FFTVIS_PA_TILE
-    return static_cast<int>(cudaGetLastError());
-  }
-  // The global form, for a stack too wide for the tile.
-  const int tiles = (n + TP - 1) / TP;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // Enough blocks for two a SM: split the beams of a tile over blocks.
-  int groups = (2 * sm_count() + tiles - 1) / tiles;
-  groups = max(1, min(groups, (K + PY - 1) / PY));
-  const int kpb = (K + groups - 1) / groups;
-  groups = (K + kpb - 1) / kpb;
-  // The groups of a tile run side by side, so that the pair rows' gradient
-  // read for one role of a pair is still in L2 for the other.
-  const dim3 grid(groups, tiles);
-#define FFTVIS_PA_GLOBAL(EPI, CPLX)                                                       \
-  pair_rows_adjoint_points<T, EPI, CPLX><<<grid, dim3(TP, PY), 0, s>>>(                   \
-      e, ii, jj, ix, k, m, gg, o, n, K, chf, c0, P, nidx, kpb, sp, sa, sb)
+  // The wide form's 16-byte copies, loads and stores: aligned rows.
+  const int vec = static_cast<long long>(K) * chf * sizeof(T) % 16 == 0 && aligned16(ev) &&
+                  aligned16(gev);
+#define FFTVIS_PA(EPI, CPLX)                                                                \
+  pair_rows_adjoint_launch<T, EPI, CPLX>(form, smem, s, e, ii, jj, ix, k, m, gg, o, n, K, chf, \
+                                         c0, P, nidx, vec, sp, sa, sb)
   if (power) {
-    FFTVIS_PA_GLOBAL(POWER, false);
+    FFTVIS_PA(POWER, false);
   } else if (epi == JONES_I) {
-    if (cplx) { FFTVIS_PA_GLOBAL(JONES_I, true); } else { FFTVIS_PA_GLOBAL(JONES_I, false); }
+    if (cplx) { FFTVIS_PA(JONES_I, true); } else { FFTVIS_PA(JONES_I, false); }
   } else {
-    if (cplx) {
-      FFTVIS_PA_GLOBAL(JONES_IQUV, true);
-    } else {
-      FFTVIS_PA_GLOBAL(JONES_IQUV, false);
-    }
+    if (cplx) { FFTVIS_PA(JONES_IQUV, true); } else { FFTVIS_PA(JONES_IQUV, false); }
   }
-#undef FFTVIS_PA_GLOBAL
+#undef FFTVIS_PA
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1774,33 +2165,33 @@ int launch_pair_rows_adjoint(const void* ev, const void* pi, const void* pj,
 // The adjoint of pair_rows in its evaluations: g (P * C, n) complex ->
 // gev (n, K * chf); index the per-beam entries (nidx + 1 offsets, 2P
 // entries, each beam's in chunk order); chunk the pairs a chunk that
-// pair_index ordered by (PA_PAIRS).
+// pair_index ordered by (PA_PAIRS); form a PairForm.
 extern "C" int fftvis_pair_rows_adjoint_f32(
     const void* ev, const void* pi, const void* pj, const void* index, const void* sky,
     const void* mask, const void* g, void* gev, int n, int K, int chf, int c0, int P,
-    int nidx, int epi, int cplx, int chunk, long long sp, long long sa, long long sb,
-    void* stream) {
+    int nidx, int epi, int cplx, int chunk, int form, long long sp, long long sa,
+    long long sb, void* stream) {
   return launch_pair_rows_adjoint<float>(ev, pi, pj, index, sky, mask, g, gev, n, K, chf, c0,
-                                         P, nidx, epi, cplx, chunk, sp, sa, sb, stream);
+                                         P, nidx, epi, cplx, chunk, form, sp, sa, sb, stream);
 }
 
 extern "C" int fftvis_pair_rows_adjoint_f64(
     const void* ev, const void* pi, const void* pj, const void* index, const void* sky,
     const void* mask, const void* g, void* gev, int n, int K, int chf, int c0, int P,
-    int nidx, int epi, int cplx, int chunk, long long sp, long long sa, long long sb,
-    void* stream) {
+    int nidx, int epi, int cplx, int chunk, int form, long long sp, long long sa,
+    long long sb, void* stream) {
   return launch_pair_rows_adjoint<double>(ev, pi, pj, index, sky, mask, g, gev, n, K, chf,
-                                          c0, P, nidx, epi, cplx, chunk, sp, sa, sb, stream);
+                                          c0, P, nidx, epi, cplx, chunk, form, sp, sa, sb,
+                                          stream);
 }
 
-// Shared memory pair_rows_adjoint_tile takes for these shapes (C rows a
-// pair: 1 power, 4 Jones), or -1 where the launch takes the global form
-// instead.
-extern "C" long long fftvis_pair_rows_adjoint_smem(int K, int chf, int P, int nidx, int C,
-                                                   int f64) {
-  const long long bytes =
-      pa_layout(static_cast<long long>(K) * chf, P, nidx, C, f64 ? 8 : 4).total;
-  return pa_tile_form(bytes, K, P) ? bytes : -1;
+// Dynamic shared memory a form (a PairForm) of pair_rows (adjoint 0) or of
+// its adjoint (1) takes for these shapes (C rows a pair: 1 power, 4 Jones),
+// or -1 where that form cannot take them: what the host's pair_rows_form
+// picks from.
+extern "C" long long fftvis_pair_rows_smem(int adjoint, int form, int K, int chf, int P,
+                                           int nidx, int C, int f64) {
+  return pair_form_smem(adjoint != 0, form, K, chf, P, nidx, C, f64 ? 8 : 4);
 }
 
 // Ints of scratch beam_eval_adjoint's table gradient needs.
@@ -1811,19 +2202,19 @@ extern "C" long long fftvis_beam_eval_adjoint_scratch(int npts, int ny, int nx, 
 extern "C" int fftvis_pair_rows_f32(const void* ev, const void* pi, const void* pj,
                                     const void* sky, const void* mask, void* out, int n,
                                     int K, int chf, int c0, int P, int epi, int cplx,
-                                    long long sp, long long sa, long long sb,
+                                    int form, long long sp, long long sa, long long sb,
                                     void* stream) {
   return launch_pair_rows<float>(ev, pi, pj, sky, mask, out, n, K, chf, c0, P, epi,
-                                 cplx, sp, sa, sb, stream);
+                                 cplx, form, sp, sa, sb, stream);
 }
 
 extern "C" int fftvis_pair_rows_f64(const void* ev, const void* pi, const void* pj,
                                     const void* sky, const void* mask, void* out, int n,
                                     int K, int chf, int c0, int P, int epi, int cplx,
-                                    long long sp, long long sa, long long sb,
+                                    int form, long long sp, long long sa, long long sb,
                                     void* stream) {
   return launch_pair_rows<double>(ev, pi, pj, sky, mask, out, n, K, chf, c0, P, epi,
-                                  cplx, sp, sa, sb, stream);
+                                  cplx, form, sp, sa, sb, stream);
 }
 
 extern "C" int fftvis_beam_eval_f32(const void* data, const void* y,

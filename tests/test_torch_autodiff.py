@@ -35,6 +35,7 @@ from fftvis_tpu_torch.core.utils import get_pos_reds
 from fftvis_tpu_torch.geometry import hex_array
 from fftvis_tpu_torch.nufft import interp as interp_mod
 from fftvis_tpu_torch.nufft import spread as spread_mod
+from fftvis_tpu_torch.nufft import type1 as type1_mod
 
 LOC = TelescopeLocation(np.deg2rad(-30.72), np.deg2rad(21.43), 1000.0)
 JLOC = fftvis_tpu.TelescopeLocation(np.deg2rad(-30.72), np.deg2rad(21.43), 1000.0)
@@ -380,6 +381,36 @@ def test_iquv_per_antenna_table_matches_reference():
     jsim, jparams = _jax(kw, [b[1] for b in beams], differentiate_beam=True,
                          differentiate_gains=True, beam_spline_opts={"order": 3})
     _against_reference(sim_fn, params, jsim, jparams, 2)
+
+
+@pytest.mark.parametrize("path", ["exact-type1", "type3"])
+def test_one_beam_per_antenna_matches_reference(path):
+    """Every antenna its own tabulated beam (7 antennas, 7 same-grid tables,
+    ``beam_idx = arange(7)``), polarized, on the exact type-1 path of a hex
+    lattice (``hex_array(2)``, Stokes I) and on forced type-3 (random
+    positions, an IQUV sky): the forward and the flux, beam-table and gain
+    gradients of the port against ``fftvis_tpu.build_differentiable_sim``
+    from the same NumPy inputs, within ``_against_reference``'s gates of
+    1e-9 of the largest entry (precision 2, values and each gradient)."""
+    rng = np.random.default_rng(24)
+    beams = [_gridded_pair(i, (1.0e8, 1.1e8), n_az=36, n_za=19) for i in range(7)]
+    if path == "exact-type1":
+        kw = dict(_case(rng, nsrc=24, nant=7, polarized=True), ants=hex_array(2))
+        extra = {}
+    else:
+        kw = _case(rng, nsrc=20, nant=7, polarized=True, stokes=True, force_use_type3=True)
+        extra = {"nufft_mode": "type3"}
+    assert len(kw["ants"]) == 7
+    kw["beam_idx"] = np.arange(7)
+    sim_fn, params = _port(kw, [b[0] for b in beams], differentiate_beam=True,
+                           differentiate_gains=True, **extra)
+    assert set(params) == {"fluxes", "beam_table", "gains"}
+    jsim, jparams = _jax(kw, [b[1] for b in beams], differentiate_beam=True,
+                         differentiate_gains=True)
+    before = type1_mod.products
+    _against_reference(sim_fn, params, jsim, jparams, 2)
+    # The exact type-1 product ran on the lattice, and not on type-3.
+    assert (type1_mod.products > before) == (path == "exact-type1")
 
 
 def test_shared_tabulated_beam_rows_matches_reference():

@@ -19,8 +19,9 @@ forward-mode derivative (``torch.func.jvp``) of ``pair_rows_plain``, and
 ``PairRowsFunction`` on the CPU is it.
 
 On a CUDA card (marked ``cuda``; skipped without one): the adjoint
-kernel against the plain version, in both its forms (the tile form at K =
-37, the global form at 331), bitwise repeatable; the Function
+kernel against the plain version, in the form the host picks (the tile
+form at K = 37, the wide form at 331) and in every form that takes the
+shapes, bitwise repeatable; the Function
 launches it once and never calls ``pair_rows_plain`` on the card; the
 redesigned ``beam_eval_adjoint_points`` writes every table cell (the cells
 no point touches are exactly 0 after the caching allocator was filled with
@@ -234,7 +235,7 @@ def test_adjoint_refuses_a_wrong_gradient():
         eval_mod.pair_rows_adjoint(*args[:5], args[5].to(torch.complex64), (2, 2, 2), False)
 
 
-@pytest.mark.parametrize("kernel", ["beam_eval_adjoint_points", "pair_rows_adjoint_points",
+@pytest.mark.parametrize("kernel", ["beam_eval_adjoint_points", "pair_rows_adjoint_wide",
                                     "pair_rows_adjoint_tile"])
 def test_adjoint_kernels_own_their_outputs(kernel):
     """Neither adjoint kernel adds into its output with an atomic: the table
@@ -244,6 +245,63 @@ def test_adjoint_kernels_own_their_outputs(kernel):
     start = re.search(rf"__global__ void __launch_bounds__\([^)]*\) {kernel}\(", src).start()
     body = src[start:src.index("\n}\n", start)]
     assert "atomic" not in body
+
+
+# Pair lists of the form rule's cases: the north star's 180 pairs of 37
+# beams, every pair of 48 and of 49 beams (the tile form's last and first
+# beam count past its thread rows), and one beam an antenna of HERA-331
+# (631 redundant representatives).
+RULE_PAIRS = {37: 180, 48: 48 * 49 // 2, 49: 49 * 50 // 2, 331: 631}
+RULE_CH = {"power": ((1, 2), 1), "jones-I": ((2, 2, 2), 4), "jones-iquv": ((2, 2, 2), 4)}
+
+
+def _rule_fits(K, epilogue, itemsize, adjoint):
+    """The forms that take the cases, as the kernels' rule
+    (``fftvis_pair_rows_smem``) has them: the forward's 32-point tile holds
+    K x chf x 33 reals in 200 KiB (every case but the 331 Jones beams), its
+    staged wide form a tile's rows up to ~450 complex Jones beams, and its
+    other wide form any stack; the adjoint's tile takes at most 48 beams
+    and 224 KiB (48 complex Jones beams in float64 need 232 KiB), its wide
+    form any stack."""
+    jones = epilogue != "power"
+    if not adjoint:
+        return ["wide", "wide-global"] if K == 331 and jones else ["tile", "wide", "wide-global"]
+    return ["tile", "wide"] if K <= 48 and not (K == 48 and jones and itemsize == 8) else ["wide"]
+
+
+def _given_smem(fits):
+    """Shared-memory byte counts of the forms, -1 for those not in ``fits``."""
+    return {f: (1024 * (i + 1) if f in fits else -1) for i, f in enumerate(eval_mod.PAIR_FORMS)}
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("epilogue", list(RULE_CH))
+@pytest.mark.parametrize("K", list(RULE_PAIRS))
+def test_pair_rows_form_rule(K, epilogue, itemsize, adjoint):
+    """The host's pick of pair_rows' (and its adjoint's) form from the
+    kernels' shared memory at the cases' byte counts: the first form of
+    PAIR_FORMS that takes the shapes -- the tile wherever it fits, else the
+    staged wide form, in either dtype."""
+    fits = _rule_fits(K, epilogue, itemsize, adjoint)
+    want = "tile" if "tile" in fits else "wide"
+    assert eval_mod.pair_rows_form(_given_smem(fits)) == want
+    assert eval_mod._pick_form(None, _given_smem(fits), "pair_rows") == eval_mod.PAIR_FORMS[want]
+
+
+def test_pair_rows_form_rule_past_shared_memory():
+    """2,000 complex Jones beams in float64: the forward's staged rows (past
+    ~450 beams) no longer fit shared memory, so it reads them from device
+    memory. Where no form fits the pick raises, and so does a form asked
+    for that cannot take the shapes or does not exist."""
+    assert eval_mod.pair_rows_form(_given_smem(["wide-global"])) == "wide-global"
+    with pytest.raises(ValueError, match="no form takes"):
+        eval_mod.pair_rows_form(_given_smem([]))
+    smem = _given_smem(["wide"])
+    assert eval_mod._pick_form("wide", smem, "pair_rows_adjoint") == eval_mod.PAIR_FORMS["wide"]
+    for form in ("tile", "wide-global", "global"):
+        with pytest.raises(ValueError, match="cannot take"):
+            eval_mod._pick_form(form, smem, "pair_rows_adjoint")
 
 
 # ------------------------------------------------------------- on the card
@@ -269,21 +327,97 @@ def _north_star_pairs(K, P, rng):
 def test_cuda_pair_rows_adjoint_matches_plain(cuda_device, case, dtype, shape):
     """K = 37 takes the tile form (the evaluations and the gradient rows
     in shared memory); K = 331 (a beam an antenna of HERA-331) takes the
-    global form for a Jones stack. The ragged 4000-point block ends on a
-    partial tile."""
+    wide form (a tile of one sector's points, its rows in shared memory).
+    The ragged 4000-point block ends on a partial tile."""
     K, n, masked = {"K37-n4096": (37, 4096, False), "K37-n4000-half": (37, 4000, True),
                     "K331-n4096-half": (331, 4096, True)}[shape]
     ch_shape, is_power, iquv = CASES[case]
     pairs = _north_star_pairs(K, 180 if K == 37 else 631, np.random.default_rng(K))
     inputs = _inputs(case, pairs, masked, dtype, seed=K + n, n=n, K=K)
     args = _torch_args(*inputs, device=cuda_device)
-    before = eval_mod.pair_adjoint_launches
+    counter = "pair_adjoint_wide_launches" if K == 331 else "pair_adjoint_launches"
+    before = getattr(eval_mod, counter)
     got = eval_mod.pair_rows_adjoint(*args, ch_shape, is_power, iquv, feed=FEED)
-    assert eval_mod.pair_adjoint_launches == before + 1
+    assert getattr(eval_mod, counter) == before + 1
     want = eval_mod.pair_rows_adjoint_plain(*args, ch_shape, is_power, iquv, feed=FEED)
     assert (got - want).abs().max().item() <= TOL[dtype] * want.abs().max().item()
     again = eval_mod.pair_rows_adjoint(*args, ch_shape, is_power, iquv, feed=FEED)
     assert torch.equal(got, again)
+
+
+def _hub_pairs(K, P, rng):
+    """P distinct (i <= j) pairs of K beams with a hub, as a redundant
+    array's representatives have one (antenna 0 of HERA-331 is in 332 of
+    its 631): every (0, j), then other pairs drawn at random."""
+    hub = [(0, j) for j in range(K)]
+    rest = [(i, j) for i in range(1, K) for j in range(i, K)]
+    pick = rng.choice(len(rest), size=max(0, P - K), replace=False)
+    return np.array(hub + [rest[i] for i in sorted(pick)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wide", "wide-global"])
+@pytest.mark.parametrize("shape", ["K37-n4000-half", "K331-hub-n163-half", "K331-hub-n4096"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_wide_forms_match_plain(cuda_device, case, dtype, shape, form):
+    """Both wide forms of the rows, forced, and the adjoint's wide form
+    against the plain versions: at K = 37 (where the rule picks the tile),
+    and at K = 331 with a hub beam in 331 of 631 pairs (its entries span
+    the adjoint's rounds) on a ragged 163-point block (the beams split
+    over several blocks of a tile) and a full one; the adjoint bitwise
+    repeatable."""
+    K, pairs, n, masked = {
+        "K37-n4000-half": (37, _north_star_pairs(37, 180, np.random.default_rng(3)), 4000, True),
+        "K331-hub-n163-half": (331, _hub_pairs(331, 631, np.random.default_rng(4)), 163, True),
+        "K331-hub-n4096": (331, _hub_pairs(331, 631, np.random.default_rng(5)), 4096, False),
+    }[shape]
+    ch_shape, is_power, iquv = CASES[case]
+    args = _torch_args(*_inputs(case, pairs, masked, dtype, seed=K + n, n=n, K=K),
+                       device=cuda_device)
+    epi = _epilogue(is_power, iquv)
+    got = eval_mod._pair_rows_cuda(*args[:5], ch_shape, epi, FEED, form)
+    want = eval_mod.pair_rows_plain(*args[:5], ch_shape, is_power, iquv, feed=FEED)
+    assert (got - want).abs().max().item() <= TOL[dtype] * want.abs().max().item()
+    index = eval_mod.pair_index(args[1], args[2], K)
+
+    def adjoint():
+        return eval_mod._pair_rows_adjoint_cuda(*args[:3], index, *args[3:], ch_shape, epi,
+                                                FEED, K, "wide")
+
+    got = adjoint()
+    want = _port_plain(case, args)
+    assert (got - want).abs().max().item() <= TOL[dtype] * want.abs().max().item()
+    assert torch.equal(got, adjoint())
+
+
+def _epilogue(is_power, iquv):
+    return eval_mod.POWER if is_power else (eval_mod.JONES_IQUV if iquv else eval_mod.JONES_I)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_rows_form_rule_is_the_library_rule(cuda_device):
+    """The kernels' own shared-memory rule (``fftvis_pair_rows_smem``,
+    through pair_rows_smem) refuses and takes the forms the CPU rule test
+    gives it at its cases, and past ~450 Jones beams leaves the forward
+    only its unstaged wide form; a form asked for that cannot take the
+    shapes raises."""
+    for K, P in RULE_PAIRS.items():
+        for epilogue, (ch_shape, C) in RULE_CH.items():
+            for dtype in (torch.float32, torch.float64):
+                for adjoint in (False, True):
+                    smem = eval_mod.pair_rows_smem(adjoint, K, math.prod(ch_shape), P, K, C,
+                                                   dtype)
+                    fits = [f for f in eval_mod.PAIR_FORMS if smem[f] >= 0]
+                    assert fits == _rule_fits(K, epilogue, dtype.itemsize, adjoint), \
+                        (K, epilogue, dtype, adjoint, smem)
+    for dtype in (torch.float32, torch.float64):
+        smem = eval_mod.pair_rows_smem(False, 2000, 8, 631, 2000, 4, dtype)
+        assert eval_mod.pair_rows_form(smem) == "wide-global"
+    args = _torch_args(*_inputs("jones-I", _north_star_pairs(331, 631, np.random.default_rng(0)),
+                                True, torch.float64, seed=1, n=64, K=331), device=cuda_device)
+    with pytest.raises(ValueError, match="cannot take"):
+        eval_mod._pair_rows_cuda(*args[:5], (2, 2, 2), eval_mod.JONES_I, 0, "tile")
 
 
 @pytest.mark.cuda

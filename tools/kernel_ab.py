@@ -1,6 +1,6 @@
 """Time the kernel wrappers of several checkouts, in turns.
 
-    python3 tools/kernel_ab.py [--beams | --p1 | --spread] ROOT [ROOT ...]
+    python3 tools/kernel_ab.py [--beams | --p1 | --spread | --wide] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each runs in a process of its
 own, in the order given (for an A/B, parent, change, change, parent), on
@@ -49,6 +49,20 @@ row straddles a 64-byte boundary); ``spread_gm_1d`` at 100,000 uniform
 points on a 10^6-cell line, C = 1 and 4; and, once a root, the device
 time of ``sum`` over 1 GiB of float32 (the card's streaming rate in the
 same process).
+
+With ``--wide`` first, each ROOT times instead the pair rows and their
+adjoint in the evaluations for one beam an antenna of HERA-331 (K = 331
+beams, the 631 redundant representatives' P = 631 pairs, ``beam_idx =
+arange(331)``), at 4096 points on random evaluations (positive for
+power), about half masked and all unmasked, Stokes-I Jones, IQUV Jones
+and power, float32 and float64: the wrapper, ``kernel_us`` (every kernel
+named ``pair_rows``), the max error against the plain version relative to
+its largest entry and, for the adjoint, whether a second call is bitwise
+equal. Where the ROOT's package picks among forms (``PAIR_FORMS``), its
+forms that take the shapes are each timed too (``form``). The Stokes-I
+cases run once more (``pairs``: "no hub") on 631 pairs drawn at random
+from the 331 beams' i <= j pairs, where no beam is in more than a dozen:
+HERA's representatives put antenna 0 in 332 of theirs.
 """
 
 from __future__ import annotations
@@ -336,16 +350,120 @@ def p1_cases(root: str) -> None:
                           "warm_s": walls[1:], **dev}), flush=True)
 
 
+WIDE_BEAMS = 331
+
+
+def wide_cases(root: str) -> None:
+    """The ``--wide`` mode of one ROOT."""
+    import importlib.util
+
+    sys.path[0] = root
+    import numpy as np
+    import torch
+
+    from fftvis_tpu_torch.beams import eval as eval_mod
+    from fftvis_tpu_torch.core.beams import plan_beam_pairs
+    from fftvis_tpu_torch.core.coherency import build_coherency
+
+    # This checkout's chip_smoke.py (not the ROOT's) gives the array.
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    ns = cs.north_star_config()
+    pp = plan_beam_pairs(list(ns["ants"]), ns["baselines"], np.arange(WIDE_BEAMS))
+    K, n, npairs = WIDE_BEAMS, SOURCES, pp.npairs
+    tri = [(i, j) for i in range(K) for j in range(i, K)]
+    pick = np.sort(np.random.default_rng(3).choice(len(tri), size=npairs, replace=False))
+    lists = {"hera": np.array(pp.pairs), "no hub": np.array(tri)[pick]}
+    forms = getattr(eval_mod, "PAIR_FORMS", None)
+
+    def emit(**kw):
+        print(json.dumps({"root": root, "K": K, "P": npairs, "n": n, **kw}), flush=True)
+
+    rng = np.random.default_rng(7)
+    cases = [(dt, e, "hera") for dt in (torch.float32, torch.float64)
+             for e in ("jones-I", "jones-iquv", "power")]
+    cases += [(dt, "jones-I", "no hub") for dt in (torch.float32, torch.float64)]
+    for dt, epilogue, pairs in cases:
+        name = str(dt).split(".")[-1]
+        pi, pj = (torch.tensor(lists[pairs][:, k], dtype=torch.int32, device="cuda")
+                  for k in (0, 1))
+        index = eval_mod.pair_index(pi, pj, K)
+        power, iquv = epilogue == "power", epilogue == "jones-iquv"
+        ch_shape = (1, 2) if power else (2, 2, 2)
+        chf, C = int(np.prod(ch_shape)), 1 if power else 4
+        for masked in (True, False):
+            ev = rng.normal(size=(n, K * chf))
+            evals = torch.tensor(np.abs(ev) + 0.05 if power else ev, dtype=dt,
+                                 device="cuda")
+            keep = rng.uniform(size=n) < 0.5 if masked else np.ones(n, dtype=bool)
+            mask = torch.tensor(keep, dtype=dt, device="cuda")
+            stokes = rng.uniform(0.1, 1.0, (n, 1))
+            if iquv:
+                coh = build_coherency(np.stack(
+                    [stokes, *rng.uniform(-0.05, 0.05, (3, n, 1))], axis=-1), True)
+                sky = torch.tensor(coh, dtype=eval_mod.COMPLEX[dt], device="cuda")[:, 0]
+            else:
+                sky = torch.tensor(stokes, dtype=dt, device="cuda")[:, 0]
+            g = torch.complex(*(torch.tensor(rng.normal(size=(npairs * C, n)), dtype=dt,
+                                             device="cuda") for _ in range(2)))
+            args = (evals, pi, pj, sky, mask, ch_shape, power, iquv, 1)
+            want = eval_mod.pair_rows_plain(*args)
+            want_adj = eval_mod.pair_rows_adjoint_plain(*args[:5], g, *args[5:])
+            case = dict(dtype=name, epilogue=epilogue, pairs=pairs,
+                        case="half masked" if masked else "unmasked")
+            todo = [None]
+            if forms is not None:
+                todo += [f for f in forms if f != "tile"]
+            epi = eval_mod.POWER if power else (eval_mod.JONES_IQUV if iquv
+                                                else eval_mod.JONES_I)
+            for form in todo:
+                for adjoint in (False, True):
+                    # A form asked for goes through the private launches,
+                    # which take it; the public wrappers take the rule's.
+                    if adjoint and form is None:
+                        def call():
+                            return eval_mod.pair_rows_adjoint(*args[:5], g, *args[5:],
+                                                              index=index)
+                    elif adjoint:
+                        def call():
+                            return eval_mod._pair_rows_adjoint_cuda(
+                                evals, pi, pj, index, sky, mask, g, ch_shape, epi, 1, K, form)
+                    elif form is None:
+                        def call():
+                            return eval_mod.pair_rows(*args)
+                    else:
+                        def call():
+                            return eval_mod._pair_rows_cuda(evals, pi, pj, sky, mask, ch_shape,
+                                                            epi, 1, form)
+                    ref = want_adj if adjoint else want
+                    try:
+                        got = call()
+                    except ValueError:
+                        continue  # a form that cannot take these shapes
+                    err = ((got - ref).abs().max() / ref.abs().max()).item()
+                    extra = {"bitwise_repeat": torch.equal(got, call())} if adjoint else {}
+                    emit(kernel="pair_rows_adjoint" if adjoint else "pair_rows",
+                         form=form or "picked", **case, max_rel_err=err, **extra,
+                         **timed(call, "pair_rows"))
+                    del got
+            del evals, want, want_adj, g
+            torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         if argv[2:] == ["--p1"]:
             p1_cases(argv[1])
+        elif argv[2:] == ["--wide"]:
+            wide_cases(argv[1])
         elif argv[2:] == ["--spread"]:
             spread_cases(argv[1])
         else:
             child(argv[1], argv[2:] == ["--beams"])
         return 0
-    flag = argv[:1] if argv[:1] in (["--beams"], ["--p1"], ["--spread"]) else []
+    flag = argv[:1] if argv[:1] in (["--beams"], ["--p1"], ["--spread"], ["--wide"]) else []
     roots = argv[len(flag):]
     if not roots:
         raise SystemExit(__doc__)

@@ -29,7 +29,10 @@ as parameters; (b) the polarized slice, forced type-3, at precision 1, 2
 frequencies x 3 times (one beam pair), with its fluxes and gains; (c)
 per-antenna type-3 on the slice at precision 1 (4 beams, 10 pairs) with
 (a)'s parameters; (e) the gridded row under ``FFTVIS_TYPE1=es`` at
-precision 2 with its fluxes and gains; the loss sum |sim - data|^2
+precision 2 with its fluxes and gains; (f) (a) with one perturbed variant
+of the beam for every antenna (331 beams, a (91, 360, 2648) table, the
+pair rows' wide forms; ``--grad=f``; as this checkout's
+``chip_smoke.py`` defines it, for roots older than run (f)); the loss sum |sim - data|^2
 against the forward at a seeded perturbation. After one warm step,
 ``GRAD_STEPS`` steps are timed on the host clock, forward and backward
 each ending in a synchronize; then one backward of a recorded forward runs
@@ -130,13 +133,14 @@ def grad_child(root: str, which: str) -> None:
     from fftvis_tpu_torch.nufft import interp as interp_mod
     from fftvis_tpu_torch.nufft import spread as spread_mod
 
-    counted = [(eval_mod, k) for k in ("pair_adjoint_launches", "adjoint_launches",
-                                       "pair_plain_cuda_calls")]
+    counted = [(eval_mod, k) for k in ("pair_adjoint_launches", "pair_adjoint_wide_launches",
+                                       "adjoint_launches", "pair_plain_cuda_calls")]
     counted += [(interp_mod, "adjoint_launches"), (spread_mod, "adjoint_launches")]
     counted = [(mod, k) for mod, k in counted if hasattr(mod, k)]
     cfg = cs.slice_config()
     table = {"differentiate_beam": True}
     runs = (("a", dict(cs.north_star_config(), precision=2), table, 31),
+            ("f", lambda: dict(wide_config(), precision=2), table, 36),
             ("b", dict(cs.run_kwargs(cfg, cs.RUNS[2]), precision=1, fluxes=cfg["fluxes"][:, :2],
                        freqs=cfg["freqs"][:2], times=cfg["times"][:3]), {}, 32),
             ("c", cs.per_antenna_config(cfg), dict(table, nufft_mode="type3"), 33),
@@ -144,8 +148,23 @@ def grad_child(root: str, which: str) -> None:
     for run, kw, extra, seed in runs:
         if run not in which:
             continue
+        if callable(kw):
+            kw = kw()
         with cs.type1_env("es" if run == "e" else None):
             grad_run(cs, run, kw, extra, seed, root, counted, eval_mod)
+
+
+def wide_config() -> dict:
+    """Run (f) as this checkout's ``chip_smoke.py`` defines it (the ROOT's
+    may predate it), built with the ROOT's package: one perturbed variant
+    of the committed beam for every antenna of the north star."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    return here.wide_config(here.north_star_config())
 
 
 def grad_run(cs, run, kw, extra, seed, root, counted, eval_mod) -> None:
